@@ -1,0 +1,96 @@
+"""Tokenization to fixed-shape [B, S] int arrays.
+
+Copied from ``multimodalsimilar_tpu/data/tokenizer.py`` without
+``from_hf`` (transformers is not a dependency of the port). The char
+tokenizer reproduces what BERT's Chinese WordPiece does to CJK titles:
+every character is a token. ``backend`` says which encoder runs:
+``"native"`` (the C++ batch packer, native/fastpack.cpp) or ``"python"``.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Iterable, List, Optional, Sequence
+
+import numpy as np
+
+SPECIALS = ("[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]")
+
+
+def build_char_vocab(corpus: Iterable[str], out_path: Optional[str] = None,
+                     min_count: int = 1) -> List[str]:
+    """Character vocab (BERT vocab.txt layout: one token per line)."""
+    counts: Dict[str, int] = {}
+    for line in corpus:
+        for ch in line:
+            if not ch.isspace():
+                counts[ch] = counts.get(ch, 0) + 1
+    toks = list(SPECIALS) + sorted(
+        c for c, n in counts.items() if n >= min_count)
+    if out_path:
+        with open(out_path, "w", encoding="utf-8") as f:
+            f.write("\n".join(toks) + "\n")
+    return toks
+
+
+class TextTokenizer:
+    """BERT-style tokenizer producing numpy {input_ids, attention_mask,
+    token_type_ids} with static [B, max_length] shapes."""
+
+    def __init__(self, encode_fn, vocab_size: int, pad_id: int = 0,
+                 backend: str = "python"):
+        self._encode = encode_fn
+        self.vocab_size = vocab_size
+        self.pad_id = pad_id
+        self.backend = backend
+
+    @classmethod
+    def from_vocab(cls, tokens: Sequence[str],
+                   use_native: bool = True) -> "TextTokenizer":
+        index = {t: i for i, t in enumerate(tokens)}
+        pad, unk = index["[PAD]"], index["[UNK]"]
+        cls_id, sep = index["[CLS]"], index["[SEP]"]
+
+        if use_native:
+            from multimodalsimilar_tpu_torch import native
+            if native.available():
+                enc = native.NativeCharEncoder(list(tokens), pad, unk,
+                                               cls_id, sep)
+                return cls(enc.encode_batch, len(tokens), pad, "native")
+
+        def encode(texts: Sequence[str], max_length: int):
+            if max_length < 3:      # [CLS] + >=1 char + [SEP]
+                raise ValueError(
+                    f"max_length must be >= 3, got {max_length}")
+            B = len(texts)
+            ids = np.full((B, max_length), pad, np.int32)
+            mask = np.zeros((B, max_length), np.int32)
+            for b, text in enumerate(texts):
+                chars = [c for c in text if not c.isspace()]
+                chars = chars[: max_length - 2]
+                row = ([cls_id] + [index.get(c, unk) for c in chars]
+                       + [sep])
+                ids[b, : len(row)] = row
+                mask[b, : len(row)] = 1
+            return {"input_ids": ids, "attention_mask": mask,
+                    "token_type_ids": np.zeros_like(ids)}
+
+        return cls(encode, len(tokens), pad, "python")
+
+    @classmethod
+    def from_corpus(cls, corpus: Iterable[str],
+                    save_vocab_path: Optional[str] = None) -> "TextTokenizer":
+        tokens = build_char_vocab(corpus, out_path=save_vocab_path)
+        return cls.from_vocab(tokens)
+
+    @classmethod
+    def from_vocab_file(cls, path: str) -> "TextTokenizer":
+        """Load a vocab.txt written by ``from_corpus(save_vocab_path=...)``
+        — the persistence that keeps train-time and serve-time token ids
+        identical."""
+        with open(path, encoding="utf-8") as f:
+            tokens = [line.rstrip("\n") for line in f if line.rstrip("\n")]
+        return cls.from_vocab(tokens)
+
+    def __call__(self, texts: Sequence[str], max_length: int = 128
+                 ) -> Dict[str, np.ndarray]:
+        return self._encode(texts, max_length)

@@ -1,0 +1,195 @@
+"""Streaming exact top-k similarity: the CUDA kernel, its plain version and
+the wrapper that picks between them by device.
+
+Counterpart of ``multimodalsimilar_tpu/ops/topk.py`` (``pallas_topk``,
+kernel ``_topk_kernel``). Same contract: for each query the top ``k``
+corpus rows by inner product (``ip``, scores descending) or squared L2
+distance (``l2``, ascending), all math in f32, rows at index ``true_n``
+or beyond excluded, ties to the lowest index (FAISS order), and
+``k = min(k, true_n)``.
+
+* ``topk_cuda`` launches ``csrc/topk.cu`` (see the note at its top for the
+  bound and the design); k is at most ``MAX_K`` there and larger k raises.
+* ``topk_plain`` is plain PyTorch, blockwise, with a stable sort over
+  (value desc, index asc); the CPU tests and ``chip_smoke.py`` hold the
+  kernel against it.
+* ``streaming_topk`` takes the plain version only for tensors on the CPU;
+  a CUDA tensor reaches the kernel or raises.
+
+``LAUNCHES["topk"]`` counts kernel launches, so a run can show that its
+main path went through the kernel.
+"""
+
+from __future__ import annotations
+
+import collections
+import ctypes
+import functools
+from typing import Optional, Tuple
+
+import torch
+
+MAX_K = 128          # csrc/topk.cu kMaxK
+QUERY_TILE = 64      # csrc/topk.cu kTQ: queries per block
+CHUNK_ROWS = 128     # csrc/topk.cu kTN: corpus rows per inner step
+MIN_SPLIT_ROWS = 1024   # keeps the merge pass negligible next to a split
+H100_F32_FLOPS = 67e12  # H100 SXM f32 peak outside the tensor cores
+H100_HBM_BYTES = 3.35e12
+LAUNCHES: collections.Counter = collections.Counter()
+
+_FILL_IDX = 2**31 - 1
+
+
+def _check(corpus: torch.Tensor, queries: torch.Tensor, metric: str,
+           true_n: Optional[int]) -> int:
+    if metric not in ("ip", "l2"):
+        raise ValueError(f"unknown metric {metric!r}")
+    if corpus.dim() != 2 or queries.dim() != 2:
+        raise ValueError(f"corpus {tuple(corpus.shape)} and queries "
+                         f"{tuple(queries.shape)} must be 2-D")
+    if corpus.shape[1] != queries.shape[1]:
+        raise ValueError(f"dim mismatch: corpus d={corpus.shape[1]}, "
+                         f"queries d={queries.shape[1]}")
+    n = corpus.shape[0]
+    if true_n is None:
+        return n
+    if not 0 < true_n <= n:
+        raise ValueError(f"true_n={true_n} out of range for corpus of {n}")
+    return true_n
+
+
+def topk_plain(corpus: torch.Tensor, queries: torch.Tensor, k: int,
+               metric: str = "ip", true_n: Optional[int] = None,
+               block_rows: int = 4096) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The kernel's function in plain PyTorch, on the inputs' device.
+
+    The corpus is scanned in blocks; each block's scores are concatenated
+    after the running top-k and one stable descending sort keeps the best
+    ``k``. Running entries all have lower indices than the block's, so
+    stability puts equal values in ascending index order."""
+    true_n = _check(corpus, queries, metric, true_n)
+    k = min(k, true_n)
+    q = queries.shape[0]
+    dev = queries.device
+    qf = queries.float()
+    vals = torch.full((q, k), float("-inf"), dtype=torch.float32, device=dev)
+    idx = torch.full((q, k), _FILL_IDX, dtype=torch.int64, device=dev)
+    qn = (qf * qf).sum(1, keepdim=True) if metric == "l2" else None
+    for b0 in range(0, true_n, block_rows):
+        blk = corpus[b0: min(b0 + block_rows, true_n)].float()
+        s = qf @ blk.T
+        if metric == "l2":
+            s = -(qn - 2.0 * s + (blk * blk).sum(1)[None, :])
+        cols = torch.arange(b0, b0 + blk.shape[0], device=dev)
+        cat_v = torch.cat([vals, s], dim=1)
+        cat_i = torch.cat([idx, cols[None, :].expand(q, -1)], dim=1)
+        sv, order = torch.sort(cat_v, dim=1, descending=True, stable=True)
+        vals = sv[:, :k]
+        idx = torch.gather(cat_i, 1, order[:, :k])
+    if metric == "l2":
+        vals = -vals
+    return vals, idx.to(torch.int32)
+
+
+def plan_splits(n_queries: int, true_n: int, n_sm: int) -> Tuple[int, int]:
+    """(splits, rows_per_split) for ``csrc/topk.cu``: split the corpus
+    across blocks until about two blocks per SM are busy, keeping at least
+    ``MIN_SPLIT_ROWS`` rows per split."""
+    tiles = -(-n_queries // QUERY_TILE)
+    want = -(-2 * n_sm // tiles)
+    splits = max(1, min(want, true_n // MIN_SPLIT_ROWS))
+    rows = -(-true_n // splits)
+    rows = -(-rows // CHUNK_ROWS) * CHUNK_ROWS
+    return -(-true_n // rows), rows
+
+
+@functools.cache
+def _lib() -> ctypes.CDLL:
+    from multimodalsimilar_tpu_torch.ops import _build
+    lib = _build.load("topk")
+    lib.mms_topk.restype = ctypes.c_int
+    lib.mms_topk.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
+                             + [ctypes.c_void_p])
+    for fn in ("mms_topk_max_k", "mms_topk_query_tile",
+               "mms_topk_chunk_rows"):
+        getattr(lib, fn).restype = ctypes.c_int
+        getattr(lib, fn).argtypes = []
+    got = (lib.mms_topk_max_k(), lib.mms_topk_query_tile(),
+           lib.mms_topk_chunk_rows())
+    if got != (MAX_K, QUERY_TILE, CHUNK_ROWS):
+        raise RuntimeError(f"csrc/topk.cu constants {got} disagree with "
+                           f"ops/topk.py {(MAX_K, QUERY_TILE, CHUNK_ROWS)}")
+    return lib
+
+
+def topk_cuda(corpus: torch.Tensor, queries: torch.Tensor, k: int,
+              metric: str = "ip", true_n: Optional[int] = None
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch ``csrc/topk.cu`` on the current stream. Inputs are f32,
+    contiguous, on one CUDA device; k (after ``min(k, true_n)``) is at
+    most ``MAX_K``."""
+    true_n = _check(corpus, queries, metric, true_n)
+    for name, t in (("corpus", corpus), ("queries", queries)):
+        if t.device.type != "cuda":
+            raise ValueError(f"{name} is on {t.device}, not a CUDA device")
+        if t.dtype != torch.float32:
+            raise ValueError(f"{name} is {t.dtype}, the kernel takes float32")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} is not contiguous")
+    if corpus.device != queries.device:
+        raise ValueError(f"corpus on {corpus.device}, queries on "
+                         f"{queries.device}")
+    k = min(k, true_n)
+    if not 1 <= k <= MAX_K:
+        raise ValueError(f"the top-k kernel takes 1 <= k <= {MAX_K}, got "
+                         f"k={k}")
+    q, d = queries.shape
+    dev = queries.device
+    out_v = torch.empty((q, k), dtype=torch.float32, device=dev)
+    out_i = torch.empty((q, k), dtype=torch.int32, device=dev)
+    if q == 0:
+        return out_v, out_i
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    splits, rows = plan_splits(q, true_n, n_sm)
+    if splits > 1:
+        part_v = torch.empty((splits, q, k), dtype=torch.float32, device=dev)
+        part_i = torch.empty((splits, q, k), dtype=torch.int32, device=dev)
+    else:
+        part_v, part_i = out_v, out_i
+    lib = _lib()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        err = lib.mms_topk(queries.data_ptr(), corpus.data_ptr(),
+                           part_v.data_ptr(), part_i.data_ptr(),
+                           out_v.data_ptr(), out_i.data_ptr(), q, d, true_n,
+                           k, int(metric == "l2"), splits, rows, stream)
+    if err:
+        raise RuntimeError(f"csrc/topk.cu launch failed: cudaError {err}")
+    LAUNCHES["topk"] += 1
+    return out_v, out_i
+
+
+def streaming_topk(corpus: torch.Tensor, queries: torch.Tensor, k: int,
+                   metric: str = "ip", true_n: Optional[int] = None
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Exact top-k with FAISS order: the plain version for CPU tensors,
+    the CUDA kernel for CUDA tensors (which raises rather than fall
+    back)."""
+    if corpus.device.type == "cpu" and queries.device.type == "cpu":
+        return topk_plain(corpus, queries, k, metric, true_n)
+    return topk_cuda(corpus, queries, k, metric, true_n)
+
+
+def bound_ms(n_queries: int, n_rows: int, d: int, k: int,
+             metric: str = "ip") -> Tuple[float, str]:
+    """Least time an H100 SXM could take for one call, and what bounds
+    it: f32 FMAs on the CUDA cores (2*Q*N*d, plus the corpus norms for
+    l2) against each input byte read once and each output written once."""
+    flops = 2.0 * n_queries * n_rows * d
+    if metric == "l2":
+        flops += 2.0 * (n_rows + n_queries) * d
+    nbytes = 4.0 * (n_queries + n_rows) * d + 8.0 * n_queries * k
+    t_ops, t_bytes = flops / H100_F32_FLOPS, nbytes / H100_HBM_BYTES
+    return (1e3 * max(t_ops, t_bytes),
+            "operations" if t_ops >= t_bytes else "bytes")
+

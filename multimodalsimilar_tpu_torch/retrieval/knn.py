@@ -1,0 +1,87 @@
+"""Exact k-NN — the FAISS ``IndexFlat`` replacement, in PyTorch.
+
+Counterpart of ``multimodalsimilar_tpu/retrieval/knn.py`` (``knn_search``,
+``l2_normalize_rows``, ``pad_corpus``). The contract is the same: 'ip'
+returns inner products sorted descending, 'l2' squared L2 distances sorted
+ascending, ties go to the lower index, rows past ``true_n`` never win, and
+``k`` shrinks to ``min(k, true_n)``.
+
+On a CUDA tensor the search is ``csrc/topk.cu``; on a CPU tensor its plain
+version (``ops/topk.py``). The JAX package's HBM-budget probe, window-max
+prefilter and merge-every-M schedule are how XLA reaches that result on a
+TPU; the kernel keeps its running top-k on chip and needs none of them.
+Query chunks are bounded by the card's free memory instead.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from multimodalsimilar_tpu_torch.ops.topk import streaming_topk
+
+
+def l2_normalize_rows(x: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
+    norm = torch.sqrt(torch.sum(torch.square(x), dim=-1, keepdim=True))
+    return x / torch.clamp(norm, min=eps)
+
+
+def knn_search(corpus: torch.Tensor, queries: torch.Tensor, k: int,
+               metric: str = "ip", true_n: Optional[int] = None
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Exact top-k over the corpus: (scores [Q, k'], indices [Q, k'])
+    with k' = min(k, true_n), in FAISS order, on the inputs' device.
+
+    ``true_n`` declares that only the first ``true_n`` corpus rows are
+    real (the rest are padding, e.g. from ``pad_corpus``)."""
+    n = corpus.shape[0]
+    true_n = n if true_n is None else true_n
+    q = queries.shape[0]
+    k_true = min(k, true_n)
+    if q == 0 or true_n == 0:
+        dev = queries.device
+        return (torch.zeros((q, k_true), dtype=torch.float32, device=dev),
+                torch.zeros((q, k_true), dtype=torch.int32, device=dev))
+    return streaming_topk(corpus, queries, k_true, metric, true_n)
+
+
+def next_pow2(x: int, lo: int = 128) -> int:
+    p = lo
+    while p < x:
+        p *= 2
+    return p
+
+
+def corpus_block_rows(n: int) -> int:
+    """Row multiple the engine pads its cached device corpus to: appends
+    land in the padding tail without reallocating. A power of two from 512
+    up to 32768, as the JAX engine's blocks."""
+    return min(next_pow2(n, lo=512), 32768)
+
+
+def plan_query_chunk(d: int, k: int, device: torch.device, cap: int) -> int:
+    """Query rows per search call. On a card, the most whose query upload,
+    results and split scratch fit in half of the free device memory
+    (``torch.cuda.mem_get_info``); on the CPU, ``cap``."""
+    if torch.device(device).type != "cuda":
+        return cap
+    free, _ = torch.cuda.mem_get_info(device)
+    per_query = 4.0 * d + 8.0 * k * 4    # f32 row + outputs + scratch
+    return int(max(1, min(cap, 0.5 * free // per_query)))
+
+
+def pad_corpus(corpus: np.ndarray, multiple: int, metric: str = "ip"
+               ) -> Tuple[np.ndarray, int]:
+    """Pad corpus rows to a multiple of ``multiple`` with rows that can
+    never win (zeros for IP after the index mask, 1e18 rows for L2) and
+    return the true length to mask by."""
+    n = corpus.shape[0]
+    pad = (-n) % multiple
+    if pad == 0:
+        return corpus, n
+    fill = np.zeros((pad, corpus.shape[1]), corpus.dtype)
+    if metric == "l2":
+        fill = fill + 1e18
+    return np.concatenate([corpus, fill], axis=0), n

@@ -1,0 +1,122 @@
+"""The port stands alone: no JAX, no Flax, nothing of multimodalsimilar_tpu.
+
+A subprocess blocks those modules in ``sys.modules`` and imports every
+module of the port and ``chip_smoke`` (without running it); an AST scan
+finds no such import anywhere in the port's source; and the entry points
+refuse to run without a card unless asked for the CPU.
+"""
+
+import ast
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(ROOT, "multimodalsimilar_tpu_torch")
+BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "multimodalsimilar_tpu")
+
+torch.set_num_threads(1)
+
+_PROBE = r"""
+import importlib, importlib.util, pkgutil, sys
+BLOCKED = %r
+for name in list(sys.modules):
+    if name.split(".")[0] in BLOCKED:
+        del sys.modules[name]
+for name in BLOCKED:
+    sys.modules[name] = None      # "import jax" now raises ImportError
+import multimodalsimilar_tpu_torch as pkg
+names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+for name in names:
+    importlib.import_module(name)
+spec = importlib.util.spec_from_file_location("chip_smoke", %r)
+spec.loader.exec_module(importlib.util.module_from_spec(spec))
+leaked = [m for m in sys.modules if m.split(".")[0] in BLOCKED
+          and sys.modules[m] is not None]
+print(len(names), leaked)
+"""
+
+
+def _py_files():
+    for root, _, files in os.walk(PKG):
+        for f in files:
+            if f.endswith(".py"):
+                yield os.path.join(root, f)
+    yield os.path.join(ROOT, "chip_smoke.py")
+
+
+def test_imports_with_jax_blocked():
+    code = _PROBE % (BLOCKED, os.path.join(ROOT, "chip_smoke.py"))
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    n_modules, leaked = out.stdout.strip().split(" ", 1)
+    assert int(n_modules) >= 20 and leaked == "[]"
+
+
+@pytest.mark.parametrize("path", list(_py_files()),
+                         ids=lambda p: os.path.relpath(p, ROOT))
+def test_source_imports_nothing_of_jax(path):
+    tree = ast.parse(open(path, encoding="utf-8").read())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            roots = [a.name.split(".")[0] for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            roots = [node.module.split(".")[0]]
+        else:
+            continue
+        assert not set(roots) & set(BLOCKED), (path, node.lineno, roots)
+
+
+def test_no_module_level_pandas_or_transformers():
+    for path in _py_files():
+        tree = ast.parse(open(path, encoding="utf-8").read())
+        for node in tree.body:
+            if isinstance(node, (ast.Import, ast.ImportFrom)):
+                names = ([a.name for a in node.names]
+                         if isinstance(node, ast.Import) else [node.module])
+                assert not {n.split(".")[0] for n in names} & {
+                    "pandas", "transformers", "redis", "triton"}, path
+
+
+def test_entry_points_need_cuda_or_explicit_cpu(monkeypatch):
+    from multimodalsimilar_tpu_torch.data.tokenizer import TextTokenizer
+    from multimodalsimilar_tpu_torch.models.bert import BertConfig
+    from multimodalsimilar_tpu_torch.models.classifiers import (
+        NlpTextClassifier)
+    from multimodalsimilar_tpu_torch.pipelines.embedders import TextEmbedder
+    from multimodalsimilar_tpu_torch.pipelines.similar import nlp_similar_job
+    from multimodalsimilar_tpu_torch.pipelines.sinks import InMemoryKVSink
+    from multimodalsimilar_tpu_torch.retrieval.engine import SimilarityEngine
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    model = NlpTextClassifier(BertConfig.tiny())
+    tok = TextTokenizer.from_corpus(["苹果", "牛奶"])
+    emb = np.eye(4, dtype=np.float32)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        TextEmbedder(model, tok)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        SimilarityEngine(emb, list("abcd"))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        nlp_similar_job({"spu_name": list("abcd"), "spu_sn": list("abcd")},
+                        lambda texts: emb, InMemoryKVSink())
+    # asked for the CPU, they run
+    TextEmbedder(model, tok, device="cpu")
+    assert nlp_similar_job({"spu_name": list("abcd"),
+                            "spu_sn": list("abcd")}, lambda texts: emb,
+                           InMemoryKVSink(), score_th=-2.0,
+                           device="cpu") == 4
+
+
+def test_chip_smoke_refuses_without_cuda():
+    """Run as a script without a card it exits non-zero, printing no
+    result line."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    out = subprocess.run([sys.executable, "chip_smoke.py"], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode != 0 and '"ok"' not in out.stdout
