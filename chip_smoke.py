@@ -26,6 +26,38 @@
    just after; it must have risen. Embeddings must be finite, keys must be
    written, and 512 sampled queries' scores must match the plain version
    on the same device corpus.
+4. Phase 3 holds the ArcFace kernel (``csrc/arcface.cu``) against its
+   plain version at the training slice's shape (B=128, C=10,205, D=768,
+   m=0.4, s=64) and at edge cases: easy_margin, m=0.1, a ragged B=100,
+   rows with label -1, x rows equal to a W row, to its negation and to
+   zero, and C=37. Non-target logits, and target logits where
+   1 - cos^2 >= 1e-4, must agree within atol=2e-4, rtol=1e-5 (a 768-term
+   f32 sum in another order moves cos by about 2e-6, times s=64). Target
+   logits where 1 - cos^2 < 1e-4 sit where the sine's slope is unbounded;
+   sqrt is 1/2-Hoelder, so they must agree within s*(d + sin(m)*sqrt(2d))
+   with d = 4e-6, the cosine difference the first tolerance allows.
+   Gradients of one CE loss through ``ArcFaceLogits`` must match plain
+   autograd within rtol=1e-3 and 1e-3 of the largest gradient (the
+   logits agree to 2e-4, so the softmax does to about 2e-4 relative). It
+   times with CUDA events, L2 flushed before each call (a training step
+   finds the head cold, after the optimizer has streamed every
+   parameter): the kernel, the plain version, the plain backward
+   recompute, and as a product-only yardstick that the port never calls,
+   ``torch.matmul(x_hat, W_hat.T)`` on inputs normalized beforehand
+   (cuBLAS SGEMM, TF32 off; no single PyTorch call computes the whole
+   function).
+5. Phase 4 trains the text ArcFace slice at full width: the
+   ``roberta_wwm_ext`` tower (dropout 0.1) with a 10,205-class head at the
+   ``configs/train_nlp_v2.yaml`` recipe (batch 128, max_length 128, seq
+   buckets 48/64/96, AdamW at 1e-3 with weight decay 0.01 on both groups,
+   linear schedule, margin 0.4, s=64, class-balanced sampling, the
+   default training policy) on 4,096 synthetic titles with Zipf-like
+   labels, for 2 epochs (64 steps) with eval and checkpoints every 32
+   steps. The ArcFace launch count is set to 0 just before ``fit`` and
+   must equal the step count just after. Logged losses must be finite,
+   tower and head must have moved, the last checkpoint must restore to
+   equal parameters, and on one batch with dropout off the kernel path's
+   loss and gradients must match the plain path's.
 
 Prints the card's name and power limit, one JSON line per phase, the
 ``{"kernels": [...]}`` line, and last ``{"ok": true, "device": ...}``.
@@ -35,29 +67,41 @@ check fails.
 
 from __future__ import annotations
 
+import argparse
 import json
+import math
+import os
+import shutil
 import subprocess
-import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
 
+from multimodalsimilar_tpu_torch.cli.train import _sampler_fn, _trainer
+from multimodalsimilar_tpu_torch.data.datasets import TextClassificationSource
+from multimodalsimilar_tpu_torch.data.prefetch import to_device
 from multimodalsimilar_tpu_torch.data.tokenizer import TextTokenizer
 from multimodalsimilar_tpu_torch.models.bert import BertConfig
 from multimodalsimilar_tpu_torch.models.classifiers import NlpTextClassifier
 from multimodalsimilar_tpu_torch.ops import _build
+from multimodalsimilar_tpu_torch.ops import arcface as A
 from multimodalsimilar_tpu_torch.ops import topk as T
 from multimodalsimilar_tpu_torch.pipelines.embedders import TextEmbedder
 from multimodalsimilar_tpu_torch.pipelines.similar import nlp_similar_job
 from multimodalsimilar_tpu_torch.pipelines.sinks import InMemoryKVSink
 from multimodalsimilar_tpu_torch.retrieval.engine import SimilarityEngine
+from multimodalsimilar_tpu_torch.train.tasks import text_arcface_task
 from multimodalsimilar_tpu_torch.utils.dtypes import DTypePolicy
 
 SEED = 0
 ATOL, RTOL, GAP = 1e-4, 1e-5, 1e-5
 N_CORPUS, N_QUERY, DIM = 262_144, 4_096, 768
 N_TITLES = 50_000
+AF_B, AF_C, AF_D = 128, 10_205, 768          # the training slice's head
+AF_ATOL, AF_RTOL, AF_DCOS = 2e-4, 1e-5, 4e-6
+N_TRAIN, N_EVAL = 4_096, 1_024
 
 
 def card_line() -> str:
@@ -78,6 +122,24 @@ def cuda_ms(fn, reps: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def cuda_ms_cold(fn, reps: int = 20) -> float:
+    """Mean device time of ``fn`` with the 50 MB L2 flushed before each
+    call (a 256 MB write between the timed events)."""
+    flush = torch.empty(64 * 2**20, dtype=torch.float32, device="cuda")
+    fn()
+    pairs = []
+    for _ in range(reps):
+        flush.zero_()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        pairs.append((start, end))
+    torch.cuda.synchronize()
+    return sum(a.elapsed_time(b) for a, b in pairs) / reps
 
 
 def unit_rows(rng, n, d, dev):
@@ -118,6 +180,25 @@ def check_case(name, got, want, k, exact=False) -> float:
     return err
 
 
+TOPK_LIBRARY = ("torch.topk(q @ x.T, k) for ip; torch.topk(|q|^2 - 2 q @ x.T "
+                "+ |x|^2, k, largest=False) for l2; in 1,024-query chunks "
+                "(cuBLAS SGEMM, TF32 off)")
+
+
+def topk_library(corpus, queries, k, metric):
+    """One library computation of the top-k's function
+    (``TOPK_LIBRARY``); the port never calls it."""
+    xn = (corpus * corpus).sum(1) if metric == "l2" else None
+    for s in range(0, queries.shape[0], 1024):
+        qs = queries[s: s + 1024]
+        sc = qs @ corpus.T
+        if metric == "ip":
+            torch.topk(sc, k, dim=1)
+        else:
+            d = (qs * qs).sum(1, keepdim=True) - 2.0 * sc + xn[None, :]
+            torch.topk(d, k, dim=1, largest=False)
+
+
 def phase1(dev) -> dict:
     rng = np.random.default_rng(SEED)
     x = unit_rows(rng, N_CORPUS, DIM, dev)
@@ -141,6 +222,8 @@ def phase1(dev) -> dict:
                                                     metric, true_n))
             row["plain_ms"] = cuda_ms(lambda: T.topk_plain(
                 corpus, queries, k, metric, true_n), reps=1)
+            row["library_ms"] = cuda_ms(lambda: topk_library(
+                corpus, queries, k, metric))
             row["bound_ms"], row["bound_by"] = T.bound_ms(
                 queries.shape[0], true_n or corpus.shape[0],
                 queries.shape[1], k, metric)
@@ -153,11 +236,6 @@ def phase1(dev) -> dict:
             row = run(f"{metric}_k{k}", x, q, k, metric, timed=True)
             if metric == "ip" and k == 13:
                 main = row
-
-    def library():
-        for s in range(0, N_QUERY, 1024):
-            torch.topk(q[s: s + 1024] @ x.T, 13, dim=1)
-    main["library_ms"] = cuda_ms(library)
 
     ragged = x[: N_CORPUS - 1234]
     run("ragged_ip_k13", ragged, q[:1024], 13, "ip")
@@ -261,6 +339,302 @@ def phase2(dev) -> dict:
             "config": "roberta_wwm_ext", "policy": "inference (bf16)"}
 
 
+def af_tolerance(want, cos, label, m):
+    """Allowed |kernel - plain| per logit (see the module docstring)."""
+    s = 64.0
+    allow = AF_ATOL + AF_RTOL * want.abs()
+    cols = torch.arange(want.shape[1], device=want.device)
+    target = cols[None, :] == label.long()[:, None]
+    steep = target & (1.0 - cos * cos < 1e-4)
+    edge = s * (AF_DCOS + math.sin(m) * math.sqrt(2.0 * AF_DCOS))
+    return torch.where(steep, torch.full_like(allow, edge), allow), steep
+
+
+def phase3(dev) -> dict:
+    rng = np.random.default_rng(SEED + 2)
+    x = torch.from_numpy(rng.standard_normal((AF_B, AF_D), dtype=np.float32))
+    w = torch.from_numpy(rng.standard_normal((AF_C, AF_D), dtype=np.float32))
+    label = torch.from_numpy(rng.integers(0, AF_C, AF_B).astype(np.int32))
+    x, w, label = x.to(dev), w.to(dev) * 0.02, label.to(dev)
+    edge_x = x.clone()
+    edge_x[0] = 3.0 * w[label[0]]             # cos = +1 on the target
+    edge_x[1] = -w[label[1]]                  # cos = -1 on the target
+    edge_x[2] = 0.0                           # zero row: the eps
+    no_target = label.clone()
+    no_target[::5] = -1
+    cases, max_err, edge_err = [], 0.0, 0.0
+
+    def run(name, xs, ws, ls, m=0.4, easy=False):
+        nonlocal max_err, edge_err
+        got = A.arcface_logits_cuda(xs, ws, ls, m, 64.0, easy)
+        want = A.arcface_logits(xs, ws, ls, m, 64.0, easy)
+        cos = A.cosine_logits(xs, ws)
+        torch.cuda.synchronize()
+        if got.shape != want.shape or not torch.isfinite(got).all():
+            raise AssertionError(f"arcface {name}: shape {tuple(got.shape)} "
+                                 f"or non-finite logits")
+        err = (got - want).abs()
+        allow, steep = af_tolerance(want, cos, ls, m)
+        if (err > allow).any():
+            raise AssertionError(
+                f"arcface {name}: {int((err > allow).sum())} logits beyond "
+                f"tolerance, max abs err {float(err.max())}")
+        max_err = max(max_err, float(err[~steep].max()))
+        if steep.any():
+            edge_err = max(edge_err, float(err[steep].max()))
+        cases.append({"case": name, "b": xs.shape[0], "c": ws.shape[0],
+                      "d": xs.shape[1], "m": m, "easy_margin": easy,
+                      "max_abs_err": float(err.max()),
+                      "steep_targets": int(steep.sum())})
+
+    run("main", x, w, label)
+    run("easy_margin", x, w, label, easy=True)
+    run("m0.1", x, w, label, m=0.1)
+    run("ragged_b100", x[:100], w, label[:100])
+    run("label_minus1", x, w, no_target)
+    run("edge_rows", edge_x, w, label)
+    run("edge_rows_easy", edge_x, w, label, easy=True)
+    run("c37", x, w[:37].contiguous(), label % 37)
+    if cases[5]["steep_targets"] < 2:
+        raise AssertionError("the cos = +-1 rows did not reach the sine's "
+                             "steep region")
+
+    # gradients of one CE loss: kernel forward + plain backward vs plain
+    def grads(fn):
+        xr = x.clone().requires_grad_(True)
+        wr = w.clone().requires_grad_(True)
+        loss = torch.nn.functional.cross_entropy(
+            fn(xr, wr, label, 0.4, 64.0, False), label.long())
+        return torch.autograd.grad(loss, (xr, wr))
+
+    grad_err = 0.0
+    for got, want in zip(grads(A.arcface_logits_fused),
+                         grads(A.arcface_logits)):
+        tol = 1e-3 * float(want.abs().max())
+        if not torch.allclose(got, want, rtol=1e-3, atol=tol):
+            raise AssertionError(f"arcface gradients differ: max abs err "
+                                 f"{float((got - want).abs().max())}")
+        grad_err = max(grad_err, float((got - want).abs().max()))
+
+    xn, wn = A.l2_normalize(x), A.l2_normalize(w)
+    xr = x.clone().requires_grad_(True)
+    wr = w.clone().requires_grad_(True)
+    g = torch.randn(AF_B, AF_C, device=dev)
+
+    def backward():
+        out = A.arcface_logits(xr, wr, label, 0.4, 64.0, False)
+        torch.autograd.grad(out, (xr, wr), g)
+
+    bound, bound_by = A.bound_ms(AF_B, AF_C, AF_D)
+    main = {"ms": cuda_ms_cold(lambda: A.arcface_logits_cuda(
+                x, w, label, 0.4, 64.0)),
+            "plain_ms": cuda_ms_cold(lambda: A.arcface_logits(
+                x, w, label, 0.4, 64.0)),
+            "yardstick_ms": cuda_ms_cold(lambda: torch.matmul(xn, wn.T)),
+            "backward_plain_ms": cuda_ms_cold(backward),
+            "bound_ms": bound, "bound_by": bound_by}
+    return {"cases": cases, "main": main, "max_abs_err": max_err,
+            "steep_target_max_abs_err": edge_err,
+            "grad_max_abs_err": grad_err}
+
+
+def zipf_labels(n: int, n_cls: int, rng) -> np.ndarray:
+    """Class ids with P(k) proportional to 1 / (k + 1)^1.1."""
+    p = 1.0 / np.arange(1, n_cls + 1) ** 1.1
+    return rng.choice(n_cls, size=n, p=p / p.sum()).astype(np.int64)
+
+
+def train_args(output: str) -> argparse.Namespace:
+    """configs/train_nlp_v2.yaml written out, with the run cut to 2 epochs
+    and the eval/save cadence to 32 steps."""
+    return argparse.Namespace(
+        text_col="spu_name", label_col="tag_new_id", bert_preset="base",
+        batch_size=128, max_length=128, epochs=2, tower_lr=1e-3,
+        head_lr=1e-3, head_warmup_frac=0.0, tower_warmup_frac=0.0,
+        weighted_sampling=True, eval_every=32, save_every=32, log_every=8,
+        weight_decay=0.01, head_weight_decay=0.01, seq_buckets="48,64,96",
+        no_clean=True, margin=0.4, margin_delta_per_epoch=0.0,
+        optimizer="adamw", scheduler="linear", grad_accum=1,
+        fused_loss=False, async_save=False, overwrite=False, seed=SEED,
+        output=output)
+
+
+def phase4(dev, arcface_ms: float) -> dict:
+    rng = np.random.default_rng(SEED + 3)
+    titles = make_titles(N_TRAIN + N_EVAL, rng)
+    labels = zipf_labels(N_TRAIN + N_EVAL, AF_C, rng)
+    train = {"spu_name": titles[:N_TRAIN], "tag_new_id": labels[:N_TRAIN]}
+    held = {"spu_name": titles[N_TRAIN:], "tag_new_id": labels[N_TRAIN:]}
+    out = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        args = train_args(out)
+        tok = TextTokenizer.from_corpus(train["spu_name"])
+
+        def source(table):
+            return TextClassificationSource(
+                table, tok, args.text_col, args.label_col, args.max_length,
+                clean=not args.no_clean, seq_buckets=args.seq_buckets)
+
+        src, eval_src = source(train), source(held)
+        model = NlpTextClassifier(
+            BertConfig.roberta_wwm_ext(), num_labels=AF_C,
+            arcface=A.ArcFaceParams(m=args.margin),
+            generator=torch.Generator().manual_seed(SEED))
+        steps_per_epoch = len(src) // args.batch_size
+        trainer = _trainer(text_arcface_task(model), args, steps_per_epoch,
+                           device=dev)
+        before = {k: v.detach().clone()
+                  for k, v in model.state_dict().items()}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        A.LAUNCHES["arcface"] = 0
+        t0 = time.perf_counter()
+        trainer.fit(src, args.epochs, args.batch_size, eval_src,
+                    sampler_fn=_sampler_fn(args, train, args.label_col))
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        launches = A.LAUNCHES["arcface"]
+        peak = torch.cuda.max_memory_allocated()
+        steps = trainer.step
+        if steps != args.epochs * steps_per_epoch or launches != steps:
+            raise AssertionError(f"{steps} steps, {launches} ArcFace "
+                                 f"launches; want {args.epochs} x "
+                                 f"{steps_per_epoch} of each")
+
+        lines = [json.loads(ln) for ln in open(
+            os.path.join(out, "metrics.jsonl"), encoding="utf-8")]
+        losses = [ln["train/loss"] for ln in lines if "train/loss" in ln]
+        evals = [ln for ln in lines if "eval/acc" in ln]
+        if len(losses) != steps // args.log_every \
+                or len(evals) != steps // args.eval_every \
+                or not all(math.isfinite(v) for v in losses):
+            raise AssertionError(f"metrics: losses {losses}, evals {evals}")
+        moved = {k: not torch.equal(v, before[k])
+                 for k, v in model.state_dict().items()}
+        if not moved["head.weight"] or not any(
+                v for k, v in moved.items() if k.startswith("tower.")):
+            raise AssertionError("the head or the tower did not move")
+        restored = trainer.ckpt.restore()
+        if restored["step"] != steps or not all(
+                torch.equal(v.cpu(), restored["model"][k])
+                for k, v in model.state_dict().items()):
+            raise AssertionError("the last checkpoint does not restore the "
+                                 "trained parameters")
+        summary = trainer.timer.summary(args.batch_size)
+        kernel_vs_plain = head_paths(model, src, dev, args.margin)
+        profiled = profile_steps(trainer, src)
+        return {"steps": steps, "fit_s": fit_s,
+                "examples_per_s": summary["examples_per_sec"],
+                "step_ms_p50": summary["p50_ms"],
+                "step_ms_p95": summary["p95_ms"],
+                "max_memory_allocated": peak, "arcface_launches": launches,
+                "head_share": arcface_ms / summary["p50_ms"],
+                "first_loss": losses[0], "last_loss": losses[-1],
+                "eval_acc": [e["eval/acc"] for e in evals],
+                "tower_params_moved": sum(moved.values()) - 1,
+                **kernel_vs_plain, "profile": profiled,
+                "config": "roberta_wwm_ext + 10205-class "
+                "ArcFace head, configs/train_nlp_v2.yaml",
+                "policy": "default training (f32 params, bf16 compute)"}
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+
+
+def profile_steps(trainer, src, n: int = 6) -> dict:
+    """Where a training step's device time goes: ``n`` steps under
+    ``torch.profiler`` on batches copied beforehand (so the loader is out
+    of the window), kernel time by kind per step, and the device's busy
+    share of the window's wall time (the profiler's own overhead makes
+    the wall time longer than an unprofiled step)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    batches = [to_device(b, trainer.device) for b, _ in zip(
+        src.batches(128, seed=SEED + 9), range(n + 1))]
+    trainer.train_step(batches[0])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for b in batches[1:]:
+            trainer.train_step(b)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kinds = {"arcface kernel": ("arcface_kernel", "inv_norms_kernel"),
+             "matmul (cuBLAS)": ("gemm", "nvjet", "sm90_", "cutlass",
+                                 "xmma"),
+             "optimizer": ("multi_tensor_apply",),
+             "dtype casts and copies": ("copy_kernel",)}
+    by_kind = dict.fromkeys(list(kinds) + ["other"], 0.0)
+    top = []
+    for e in prof.key_averages():
+        # kernels only: a user annotation (the optimizer's step range)
+        # spans kernels that are counted themselves
+        if e.device_type != DeviceType.CUDA or e.is_user_annotation:
+            continue
+        ms = e.self_device_time_total / 1e3 / n
+        kind = next((k for k, keys in kinds.items()
+                     if any(t in e.key for t in keys)), "other")
+        by_kind[kind] += ms
+        top.append((ms, e.key[:80]))
+    busy = sum(by_kind.values())
+    return {"profiled_steps": n, "profiled_step_ms": wall_ms / n,
+            "device_busy_ms_per_step": busy,
+            "device_busy_share": busy * n / wall_ms,
+            "device_ms_per_step_by_kind": by_kind,
+            "top_kernels_ms_per_step": sorted(top, reverse=True)[:8]}
+
+
+def head_paths(model, src, dev, m: float) -> dict:
+    """One batch with dropout off: the loss and every parameter gradient
+    through the kernel path against the plain path. The loss is a CE over
+    logits that agree within phase 3's tolerances, so it may differ by
+    2 x the largest of them. The head's gradient (f32 throughout) must
+    agree within 1e-3 of its largest entry (phase 3's reason). The tower's
+    backward runs in bf16, where a gradient that enters it changed by
+    1e-5 relative can flip roundings (one bf16 ulp is 2^-8 = 3.9e-3), so
+    each tower gradient must agree within 2e-2 of its largest entry. A
+    tensor whose gradient is nearly zero carries only rounding noise (the
+    attention key biases, which softmax ignores, and the attention weights
+    of saturated heads), so the scale of each comparison is at least 1e-4
+    of the model's largest gradient."""
+    model.eval()
+    batch = to_device(next(src.batches(128, shuffle=False)), dev)
+    inputs = {k: batch[k] for k in ("input_ids", "attention_mask",
+                                    "token_type_ids")}
+    names, params = zip(*[(n, p) for n, p in model.named_parameters()
+                          if p.requires_grad])
+    af = model.arcface
+
+    def loss_and_grads(head):
+        emb = model.predict_emb(**inputs)
+        logits = head(emb, model.head.weight, batch["labels"], m, af.s,
+                      af.easy_margin)
+        loss = torch.nn.functional.cross_entropy(logits,
+                                                 batch["labels"].long())
+        return loss.detach(), torch.autograd.grad(loss, params)
+
+    lk, gk = loss_and_grads(A.arcface_logits_fused)
+    lp, gp = loss_and_grads(A.arcface_logits)
+    edge = 64.0 * (AF_DCOS + math.sin(m) * math.sqrt(2.0 * AF_DCOS))
+    loss_err = float((lk - lp).abs())
+    if loss_err > 2.0 * edge:
+        raise AssertionError(f"kernel-path loss {float(lk)} vs plain "
+                             f"{float(lp)}")
+    worst = {"head": 0.0, "tower": 0.0}
+    top = max(float(b.abs().max()) for b in gp)
+    for name, a, b in zip(names, gk, gp):
+        group = "head" if name.startswith("head.") else "tower"
+        scale = max(float(b.abs().max()), 1e-4 * top)
+        rel = float((a - b).abs().max()) / scale
+        if rel > (1e-3 if group == "head" else 2e-2):
+            raise AssertionError(f"kernel-path gradient of {name} differs "
+                                 f"by {rel} of its largest entry {scale}")
+        worst[group] = max(worst[group], rel)
+    return {"kernel_vs_plain_loss_abs_err": loss_err,
+            "kernel_vs_plain_head_grad_rel_err": worst["head"],
+            "kernel_vs_plain_tower_grad_rel_err": worst["tower"]}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this script runs on "
@@ -280,17 +654,38 @@ def main() -> None:
     print(json.dumps({"phase1": p1["cases"]}), flush=True)
     p2 = phase2(dev)
     print(json.dumps({"phase2": p2}), flush=True)
+    p3 = phase3(dev)
+    print(json.dumps({"phase3": p3}), flush=True)
+    p4 = phase4(dev, p3["main"]["ms"])
+    print(json.dumps({"phase4": p4}), flush=True)
     m = p1["main"]
-    kernel = {"name": "topk", "route": "cuda",
-              "source": "multimodalsimilar_tpu_torch/csrc/topk.cu",
-              "replaces": "multimodalsimilar_tpu/ops/topk.py:56",
-              "launches": p2["topk_launches"],
-              "max_abs_err": p1["max_abs_err"],
-              "ms": m["ms"], "kernel_ms": m["ms"], "plain_ms": m["plain_ms"],
-              "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
-              "library_ms": m["library_ms"],
-              "shape": {k: m[k] for k in ("q", "n", "d", "k", "metric")}}
-    print(json.dumps({"kernels": [kernel]}), flush=True)
+    topk = {"name": "topk", "route": "cuda",
+            "source": "multimodalsimilar_tpu_torch/csrc/topk.cu",
+            "replaces": "multimodalsimilar_tpu/ops/topk.py:56",
+            "launches": p2["topk_launches"],
+            "max_abs_err": p1["max_abs_err"],
+            "ms": m["ms"], "plain_ms": m["plain_ms"],
+            "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
+            "library_ms": m["library_ms"], "library_call": TOPK_LIBRARY,
+            "shape": {k: m[k] for k in ("q", "n", "d", "k", "metric")}}
+    a = p3["main"]
+    arcface = {"name": "arcface", "route": "cuda",
+               "source": "multimodalsimilar_tpu_torch/csrc/arcface.cu",
+               "replaces": "multimodalsimilar_tpu/ops/arcface.py:143",
+               "launches": p4["arcface_launches"],
+               "max_abs_err": p3["max_abs_err"],
+               "ms": a["ms"], "plain_ms": a["plain_ms"],
+               "bound_ms": a["bound_ms"], "bound_by": a["bound_by"],
+               "library_ms": None,
+               "yardstick_ms": a["yardstick_ms"],
+               "yardstick": "torch.matmul(x_hat, W_hat.T) on inputs "
+                            "normalized beforehand, product only (cuBLAS "
+                            "SGEMM, TF32 off); no PyTorch call computes "
+                            "the whole function",
+               "backward_plain_ms": a["backward_plain_ms"],
+               "shape": {"b": AF_B, "c": AF_C, "d": AF_D, "m": 0.4,
+                         "s": 64.0}}
+    print(json.dumps({"kernels": [topk, arcface]}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -8,7 +8,13 @@ Counterpart of ``multimodalsimilar_tpu/models/bert.py`` (``BertEncoderModel``):
   ``finfo(reduce_dtype).min``; the tanh pooler in ``reduce_dtype``.
 
 Attention is plain ``torch.matmul``, softmax and ``torch.matmul``, as the
-JAX package leaves it to XLA. Casts follow the JAX module's dtype policy
+JAX package leaves it to XLA. Dropout sits at the JAX module's four sites
+(after the embeddings LayerNorm, on the attention probabilities, on the
+attention output and on the MLP output). It acts only in ``train()``
+mode, and its masks come from the ``torch.Generator`` handed to
+``set_dropout_generator`` (the trainer owns it), never from the global
+RNG. The encoder is built in ``eval()`` mode, like the JAX module's
+``deterministic=True`` default. Casts follow the JAX module's dtype policy
 point for point: linear layers run in ``compute_dtype``, LayerNorm in
 ``reduce_dtype``, and the residual stream is kept in ``compute_dtype``.
 Parameter names follow HF ``BertModel``, so
@@ -39,6 +45,8 @@ class BertConfig:
     max_position_embeddings: int = 512
     type_vocab_size: int = 2
     layer_norm_eps: float = 1e-12
+    hidden_dropout: float = 0.1
+    attention_dropout: float = 0.1
 
     @classmethod
     def tiny(cls, **kw) -> "BertConfig":
@@ -73,6 +81,36 @@ class _Module(nn.Module):
     """Attribute holder, so parameter paths read like HF's."""
 
 
+class Dropout(nn.Module):
+    """Inverted dropout (Flax ``nn.Dropout``: kept values scaled by
+    1/(1-p)) whose masks come from ``self.generator``. Off in ``eval()``
+    mode and at p = 0; in ``train()`` mode with p > 0 it raises without a
+    generator rather than draw from the global RNG."""
+
+    def __init__(self, p: float):
+        super().__init__()
+        self.p = p
+        self.generator: Optional[torch.Generator] = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training or self.p == 0.0:
+            return x
+        if self.generator is None:
+            raise RuntimeError("dropout in train() mode needs a generator: "
+                               "call set_dropout_generator first")
+        keep = torch.empty(x.shape, dtype=torch.float32, device=x.device)
+        keep.bernoulli_(1.0 - self.p, generator=self.generator)
+        return torch.where(keep > 0, x / (1.0 - self.p), 0.0).to(x.dtype)
+
+
+def set_dropout_generator(module: nn.Module,
+                          generator: Optional[torch.Generator]) -> None:
+    """Hand ``generator`` to every ``Dropout`` under ``module``."""
+    for m in module.modules():
+        if isinstance(m, Dropout):
+            m.generator = generator
+
+
 class BertLayer(nn.Module):
     def __init__(self, cfg: BertConfig, policy: DTypePolicy):
         super().__init__()
@@ -93,6 +131,9 @@ class BertLayer(nn.Module):
         self.output = _Module()
         self.output.dense = nn.Linear(inter, H, **kw)
         self.output.LayerNorm = nn.LayerNorm(H, eps=cfg.layer_norm_eps, **kw)
+        self.attention.self.dropout = Dropout(cfg.attention_dropout)
+        self.attention.output.dropout = Dropout(cfg.hidden_dropout)
+        self.output.dropout = Dropout(cfg.hidden_dropout)
 
     def _attention(self, h: torch.Tensor, mask_bias: torch.Tensor):
         cd, rd = self.policy.compute_dtype, self.policy.reduce_dtype
@@ -108,17 +149,17 @@ class BertLayer(nn.Module):
         scores = torch.matmul(q.to(rd), k.to(rd).transpose(-1, -2))
         scores = scores / torch.sqrt(torch.tensor(hd, dtype=rd,
                                                   device=h.device))
-        probs = torch.softmax(scores + mask_bias, dim=-1)
+        probs = sa.dropout(torch.softmax(scores + mask_bias, dim=-1))
         ctx = torch.matmul(probs.to(cd).to(rd), v.to(rd))
         ctx = ctx.transpose(1, 2).reshape(B, S, H)
         return _linear(ctx.to(cd), self.attention.output.dense, cd)
 
     def forward(self, h: torch.Tensor, mask_bias: torch.Tensor):
         cd, rd = self.policy.compute_dtype, self.policy.reduce_dtype
-        attn = self._attention(h, mask_bias)
+        attn = self.attention.output.dropout(self._attention(h, mask_bias))
         h = _layer_norm(h + attn, self.attention.output.LayerNorm, rd).to(cd)
         mlp = F.gelu(_linear(h, self.intermediate.dense, cd))  # erf form
-        mlp = _linear(mlp, self.output.dense, cd)
+        mlp = self.output.dropout(_linear(mlp, self.output.dense, cd))
         return _layer_norm(h + mlp, self.output.LayerNorm, rd).to(cd)
 
 
@@ -140,11 +181,13 @@ class BertEncoderModel(nn.Module):
             cfg.type_vocab_size, H, **kw)
         self.embeddings.LayerNorm = nn.LayerNorm(H, eps=cfg.layer_norm_eps,
                                                  **kw)
+        self.embeddings.dropout = Dropout(cfg.hidden_dropout)
         self.encoder = _Module()
         self.encoder.layer = nn.ModuleList(
             BertLayer(cfg, policy) for _ in range(cfg.num_layers))
         self.pooler = _Module()
         self.pooler.dense = nn.Linear(H, H, **kw)
+        self.eval()
 
     def forward(self, input_ids: torch.Tensor,
                 attention_mask: Optional[torch.Tensor] = None,
@@ -162,7 +205,7 @@ class BertEncoderModel(nn.Module):
         h = (emb.word_embeddings(input_ids.long())
              + emb.position_embeddings(torch.arange(S, device=dev))[None]
              + emb.token_type_embeddings(token_type_ids.long()))
-        h = _layer_norm(h, emb.LayerNorm, rd).to(cd)
+        h = emb.dropout(_layer_norm(h, emb.LayerNorm, rd)).to(cd)
 
         # additive attention bias: 0 for attended, big-negative for padding
         mask_bias = torch.where(attention_mask[:, None, None, :] > 0,

@@ -29,7 +29,8 @@ def text_classifier_from_jax(params: Mapping, config: BertConfig
     Flax Dense kernels are [in, out] and become torch [out, in]; attention
     q/k/v kernels [in, heads, head_dim] and the output kernel
     [heads, head_dim, out] flatten back to [H, H]. The ArcFace head's
-    weights are not part of the port's model yet and are ignored."""
+    ``params["head"]["weight"]`` is [C, D] in both packages and carries
+    over as it is, when the tree has it."""
     enc = params["tower"]["encoder"]
     H = config.hidden_size
     sd: Dict[str, torch.Tensor] = {}
@@ -64,4 +65,6 @@ def text_classifier_from_jax(params: Mapping, config: BertConfig
         lin(f"{t}.output.dense", p["output"], p["output"]["kernel"])
         ln(f"{t}.output.LayerNorm", p["output_norm"])
     lin("pooler.dense", enc["pooler"], enc["pooler"]["kernel"])
+    if "head" in params:
+        sd["head.weight"] = _t(params["head"]["weight"])
     return sd

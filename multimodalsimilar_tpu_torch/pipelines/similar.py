@@ -12,18 +12,12 @@ from __future__ import annotations
 
 from typing import Callable, Dict, List
 
+from multimodalsimilar_tpu_torch.data.datasets import column
 from multimodalsimilar_tpu_torch.pipelines.sinks import KVSink
 from multimodalsimilar_tpu_torch.retrieval.engine import SimilarityEngine
 from multimodalsimilar_tpu_torch.retrieval.filters import FilterRules
 
 WEEK = 7 * 24 * 3600
-
-
-def _column(table, name: str) -> list:
-    """A column as a list, from a pandas DataFrame or a plain
-    ``{column: list}`` mapping."""
-    col = table[name]
-    return col.tolist() if hasattr(col, "tolist") else list(col)
 
 
 def write_neighbor_map(sink: KVSink, neighbor_map: Dict[str, List[str]],
@@ -49,8 +43,8 @@ def nlp_similar_job(table, embed_texts, sink: KVSink,
     so with duplicate spu_sn rows it can write a key as its own neighbor;
     we always drop same-key neighbors and dedup (see retrieval/filters.py
     docstring)."""
-    emb = embed_texts([str(t) for t in _column(table, text_col)])
-    engine = SimilarityEngine(emb, _column(table, key_col), metric="ip",
+    emb = embed_texts([str(t) for t in column(table, text_col)])
+    engine = SimilarityEngine(emb, column(table, key_col), metric="ip",
                               normalize=True, device=device)
     nmap = engine.similar_map(k, FilterRules(score_threshold=score_th,
                                              same_category=False))

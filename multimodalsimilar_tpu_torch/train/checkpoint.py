@@ -1,0 +1,124 @@
+"""Checkpoints of the training state (counterpart of
+multimodalsimilar_tpu/train/checkpoint.py).
+
+A checkpoint is one ``torch.save`` file per step, ``step_{step:09d}.pt``,
+holding the Trainer's state: ``{step, model, optimizer, schedulers,
+margin}`` (state dicts and plain numbers). The file is written under a
+temporary name and renamed, so a reader never sees half a checkpoint;
+the oldest files beyond ``max_to_keep`` are deleted.
+
+The async contract is the JAX package's:
+
+* ``save()`` blocks only for the copy of the state to the host — the
+  optimizer updates the parameters in place, so the copy must be taken
+  before the next step;
+* with ``async_save=True`` the write runs on a thread, and ``wait()``
+  (which ``save``, ``restore`` and ``clear`` call first) joins it and
+  re-raises a failed write;
+* a step counts as saved only after its write succeeded, so a retry of
+  the same step after a failure does write; ``force=True`` rewrites a
+  step that was already saved (the end-of-fit save after the epoch-end
+  margin update).
+"""
+
+from __future__ import annotations
+
+import os
+import re
+import threading
+from typing import Any, List, Optional
+
+import torch
+
+_NAME = re.compile(r"^step_(\d+)\.pt$")
+
+
+def to_host(obj: Any) -> Any:
+    """A copy of ``obj`` with every tensor copied to host memory (copied
+    even when it is already there, so later in-place updates cannot reach
+    it)."""
+    if isinstance(obj, torch.Tensor):
+        return obj.detach().to("cpu", copy=True)
+    if isinstance(obj, dict):
+        return {k: to_host(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(to_host(v) for v in obj)
+    return obj
+
+
+class CheckpointManager:
+    def __init__(self, directory: str, max_to_keep: int = 3,
+                 async_save: bool = False):
+        self.directory = os.path.abspath(directory)
+        self.max_to_keep = max_to_keep
+        self.async_save = async_save
+        os.makedirs(self.directory, exist_ok=True)
+        self._last_saved = -1
+        self._inflight: Optional[threading.Thread] = None
+        self._bg_error: Optional[BaseException] = None
+
+    def _path(self, step: int) -> str:
+        return os.path.join(self.directory, f"step_{step:09d}.pt")
+
+    def all_steps(self) -> List[int]:
+        return sorted(int(m.group(1)) for m in map(
+            _NAME.match, os.listdir(self.directory)) if m)
+
+    def latest_step(self) -> Optional[int]:
+        steps = self.all_steps()
+        return steps[-1] if steps else None
+
+    def wait(self):
+        """Block until any in-flight async save is on disk; re-raise the
+        error of a failed one."""
+        t, self._inflight = self._inflight, None
+        if t is not None:
+            t.join()
+        err, self._bg_error = self._bg_error, None
+        if err is not None:
+            raise err
+
+    def _write(self, step: int, host_state: Any) -> None:
+        path = self._path(step)
+        tmp = f"{path}.tmp.{os.getpid()}"
+        torch.save(host_state, tmp)
+        os.replace(tmp, path)
+        for old in self.all_steps()[:-self.max_to_keep]:
+            os.unlink(self._path(old))
+        self._last_saved = step
+
+    def save(self, step: int, state: Any, force: bool = False):
+        self.wait()          # one write at a time; surfaces a failed one
+        if step == self._last_saved and not force:
+            return
+        host_state = to_host(state)
+        if not self.async_save:
+            self._write(step, host_state)
+            return
+
+        def run():
+            try:
+                self._write(step, host_state)
+            except BaseException as e:   # surfaced on the next wait()
+                self._bg_error = e
+
+        t = threading.Thread(target=run, daemon=True, name="ckpt-save")
+        t.start()
+        self._inflight = t
+
+    def clear(self):
+        """Delete every stored step (the Trainer's ``overwrite=True``)."""
+        self.wait()
+        for s in self.all_steps():
+            os.unlink(self._path(s))
+        self._last_saved = -1
+
+    def restore(self, step: Optional[int] = None) -> Optional[Any]:
+        """The state saved at ``step`` (default: the latest), on the host;
+        None when there is none."""
+        self.wait()
+        step = step if step is not None else self.latest_step()
+        if step is None:
+            return None
+        return torch.load(self._path(step), map_location="cpu",
+                          weights_only=True)

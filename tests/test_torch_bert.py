@@ -76,7 +76,8 @@ def _check(got, want, policy):
 def test_predict_emb_matches_jax(pool, policy):
     jpol, tpol = POLICIES[policy]
     jmodel, variables = _jax_model(pool, jpol)
-    port = NlpTextClassifier(BertConfig.tiny(), pool=pool, policy=tpol)
+    port = NlpTextClassifier(BertConfig.tiny(), pool=pool, policy=tpol,
+                             num_labels=3)
     port.load_state_dict(text_classifier_from_jax(variables["params"],
                                                   BertConfig.tiny()))
     ids, mask, types = _inputs(seed=3)

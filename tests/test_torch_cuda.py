@@ -7,10 +7,13 @@ package, so it also runs on a machine that has only PyTorch:
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
 """
 
+import math
+
 import numpy as np
 import pytest
 import torch
 
+from multimodalsimilar_tpu_torch.ops import arcface as A
 from multimodalsimilar_tpu_torch.ops import topk as T
 from multimodalsimilar_tpu_torch.retrieval.engine import SimilarityEngine
 
@@ -20,7 +23,8 @@ pytestmark = pytest.mark.cuda
 @pytest.fixture
 def dev():
     if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU: csrc/topk.cu has no CPU mode")
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU "
+                    "mode")
     torch.backends.cuda.matmul.allow_tf32 = False
     return torch.device("cuda")
 
@@ -83,3 +87,75 @@ def test_engine_on_card_matches_engine_on_cpu(dev):
     v, i = gpu.search_device(7, app[:50])
     assert v.device.type == "cuda"
     np.testing.assert_array_equal(i.cpu().numpy(), gi)
+
+
+def _arcface_problem(rng, b, c, d, dev):
+    x = torch.from_numpy(rng.standard_normal((b, d), dtype=np.float32))
+    w = torch.from_numpy(0.05 * rng.standard_normal((c, d),
+                                                   dtype=np.float32))
+    label = torch.from_numpy(rng.integers(-1, c, b).astype(np.int32))
+    return x.to(dev), w.to(dev), label.to(dev)
+
+
+@pytest.mark.parametrize("easy", [False, True], ids=["margin", "easy"])
+@pytest.mark.parametrize("b,c,d", [(1, 1, 1), (100, 37, 64), (65, 129, 17),
+                                   (128, 10_205, 768)])
+def test_arcface_kernel_matches_plain(dev, b, c, d, easy):
+    """Ragged B, C and D, label -1 rows, cos = +-1 and zero rows. Ordinary
+    logits within atol 2e-4, rtol 1e-5 (f32 sums in another order, times
+    s = 64); targets where 1 - cos^2 < 1e-4 within s*(4e-6 + sin(m)*
+    sqrt(8e-6)) (sqrt is 1/2-Hoelder where the sine's slope is
+    unbounded)."""
+    rng = np.random.default_rng(b + c + d)
+    x, w, label = _arcface_problem(rng, b, c, d, dev)
+    if b > 3 and c > 1:
+        label[:3] = torch.tensor([0, 1, 0], dtype=torch.int32)
+        x[0] = 2.0 * w[0]
+        x[1] = -w[1]
+        x[2] = 0.0
+    for m in (0.1, 0.4):
+        got = A.arcface_logits_cuda(x, w, label, m, 64.0, easy)
+        want = A.arcface_logits(x, w, label, m, 64.0, easy)
+        cos = A.cosine_logits(x, w)
+        torch.cuda.synchronize()
+        target = torch.arange(c, device=dev)[None] == label.long()[:, None]
+        steep = target & (1.0 - cos * cos < 1e-4)
+        allow = torch.where(
+            steep, torch.full_like(want, 64.0 * (4e-6 + math.sin(m)
+                                                 * math.sqrt(8e-6))),
+            2e-4 + 1e-5 * want.abs())
+        assert ((got - want).abs() <= allow).all(), float(
+            (got - want).abs().max())
+
+
+def test_arcface_counts_launches_validates_and_differentiates(dev):
+    rng = np.random.default_rng(0)
+    x, w, label = _arcface_problem(rng, 64, 300, 48, dev)
+    before = A.LAUNCHES["arcface"]
+    xr = x.clone().requires_grad_(True)
+    wr = w.clone().requires_grad_(True)
+    out = A.arcface_logits_fused(xr, wr, label.clamp_min(0), 0.4)
+    assert A.LAUNCHES["arcface"] == before + 1
+    torch.nn.functional.cross_entropy(out, label.clamp_min(0).long()
+                                      ).backward()
+    xp = x.clone().requires_grad_(True)
+    wp = w.clone().requires_grad_(True)
+    torch.nn.functional.cross_entropy(
+        A.arcface_logits(xp, wp, label.clamp_min(0), 0.4),
+        label.clamp_min(0).long()).backward()
+    for a, b in ((xr.grad, xp.grad), (wr.grad, wp.grad)):
+        assert torch.allclose(a, b, rtol=1e-3,
+                              atol=1e-3 * float(b.abs().max()))
+    # x in bf16 is cast to f32, as the TPU kernel casts it
+    assert A.arcface_logits_cuda(x.bfloat16(), w, label, 0.4).dtype \
+        == torch.float32
+    with pytest.raises(ValueError, match="float32"):
+        A.arcface_logits_cuda(x, w.double(), label, 0.4)
+    with pytest.raises(ValueError, match="contiguous"):
+        A.arcface_logits_cuda(x, w.t().contiguous().t(), label, 0.4)
+    with pytest.raises(ValueError, match="not a CUDA device"):
+        A.arcface_logits_cuda(x, w.cpu(), label, 0.4)
+    with pytest.raises(ValueError, match="integer"):
+        A.arcface_logits_cuda(x, w, label.float(), 0.4)
+    with pytest.raises(ValueError, match="shape mismatch"):
+        A.arcface_logits_cuda(x, w[:, :10].contiguous(), label, 0.4)

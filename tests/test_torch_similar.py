@@ -61,7 +61,8 @@ def towers():
     variables = jmodel.init({"params": jax.random.key(2)}, ids,
                             label=jnp.zeros(1, jnp.int32))
     tcfg = BertConfig.tiny(vocab_size=tok.vocab_size)
-    model = NlpTextClassifier(tcfg, policy=DTypePolicy.full_precision())
+    model = NlpTextClassifier(tcfg, policy=DTypePolicy.full_precision(),
+                              num_labels=3)
     model.load_state_dict(text_classifier_from_jax(variables["params"], tcfg))
     return titles, (jmodel, variables, jtok), (model, tok)
 

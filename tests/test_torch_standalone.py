@@ -112,6 +112,28 @@ def test_entry_points_need_cuda_or_explicit_cpu(monkeypatch):
                            device="cpu") == 4
 
 
+def test_trainer_needs_cuda_or_explicit_cpu(monkeypatch):
+    from multimodalsimilar_tpu_torch.models.bert import BertConfig
+    from multimodalsimilar_tpu_torch.models.classifiers import (
+        NlpTextClassifier)
+    from multimodalsimilar_tpu_torch.train.optim import (
+        dual_group_adamw, linear_schedule_with_warmup)
+    from multimodalsimilar_tpu_torch.train.tasks import text_arcface_task
+    from multimodalsimilar_tpu_torch.train.trainer import Trainer
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    task = text_arcface_task(NlpTextClassifier(BertConfig.tiny(),
+                                               num_labels=3))
+    sched = linear_schedule_with_warmup(1e-3, 0, 10)
+
+    def make(model):
+        return dual_group_adamw(model, sched, sched)
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Trainer(task, make)
+    assert Trainer(task, make, device="cpu").device.type == "cpu"
+
+
 def test_chip_smoke_refuses_without_cuda():
     """Run as a script without a card it exits non-zero, printing no
     result line."""
