@@ -3,20 +3,27 @@
 
     python3 chip_smoke.py
 
-1. Builds every kernel under ``multimodalsimilar_tpu_torch/csrc`` with nvcc
-   for sm_90a.
+1. Builds every kernel under ``multimodalsimilar_tpu_torch/csrc`` (the
+   ``.cu`` files, which share ``tf32x3.cuh``) with nvcc for sm_90a, one
+   process each, all started together.
 2. Phase 1 holds the streaming top-k kernel (``csrc/topk.cu``) against its
    plain PyTorch version on the card, at the text job's shapes: a
    262,144 x 768 f32 corpus, 4,096 queries, k in {13, 26, 101}, ip and l2;
-   a ragged corpus, a padded corpus with ``true_n < N`` (including the l2
-   pad fill of 1e18, whose square overflows f32), a split-free launch, and
-   small-integer data with duplicate rows where every score is exact and
-   ties must go to the lowest index. Scores must agree within
-   atol=1e-4, rtol=1e-5 (summation order differs); indices must be equal
-   wherever the plain version's neighbouring scores differ by more than
-   1e-5, and everywhere in the exact-arithmetic tie cases. It times the
-   kernel, the plain version and ``torch.topk(q @ x.T)`` (a yardstick the
-   port never calls) with CUDA events.
+   the serving daemon's 64 queries against that corpus; the job's own
+   search (32,768 queries against the engine's 65,536-row padded corpus,
+   ``true_n`` = 50,000); k = 128 (the largest lists); one query; d = 100
+   (not a multiple of the 32-deep slice); a ragged corpus (N not a
+   multiple of the 128-row chunk), a padded corpus with ``true_n < N``
+   (including the l2 pad fill of 1e18, whose square overflows f32), a
+   split-free launch, and small-integer data with duplicate rows where
+   every score is exact and ties must go to the lowest index. Scores must
+   agree within atol=1e-4, rtol=1e-5 (3xTF32 products are f32-accurate
+   and summation order differs); indices must be equal wherever the plain
+   version's neighbouring scores differ by more than 1e-5, and everywhere
+   in the exact-arithmetic tie cases. It times the kernel, the plain
+   version and ``torch.topk(q @ x.T)`` (a yardstick the port never calls)
+   with CUDA events, beside the bound at the card's f32-accurate
+   tensor-core rate and the older CUDA-core bound.
 3. Phase 2 runs the text similarity job (``nlp_similar_job``) on 50,000
    synthetic product titles through the full-width ``roberta_wwm_ext``
    tower (12 layers, 768 hidden, vocab 21128; random weights from a seed,
@@ -30,7 +37,8 @@
    plain version at the training slice's shape (B=128, C=10,205, D=768,
    m=0.4, s=64) and at edge cases: easy_margin, m=0.1, a ragged B=100,
    rows with label -1, x rows equal to a W row, to its negation and to
-   zero, and C=37. Non-target logits, and target logits where
+   zero, C=37, and D = 100 and 17 (not a multiple of the slice, nor of
+   the 16-byte copy). Non-target logits, and target logits where
    1 - cos^2 >= 1e-4, must agree within atol=2e-4, rtol=1e-5 (a 768-term
    f32 sum in another order moves cos by about 2e-6, times s=64). Target
    logits where 1 - cos^2 < 1e-4 sit where the sine's slope is unbounded;
@@ -45,7 +53,8 @@
    recompute, and as a product-only yardstick that the port never calls,
    ``torch.matmul(x_hat, W_hat.T)`` on inputs normalized beforehand
    (cuBLAS SGEMM, TF32 off; no single PyTorch call computes the whole
-   function).
+   function), and under ``torch.profiler`` the device time of each
+   kernel the call launches.
 5. Phase 4 trains the text ArcFace slice at full width: the
    ``roberta_wwm_ext`` tower (dropout 0.1) with a 10,205-class head at the
    ``configs/train_nlp_v2.yaml`` recipe (batch 128, max_length 128, seq
@@ -218,15 +227,18 @@ def phase1(dev) -> dict:
                "true_n": true_n or corpus.shape[0], "d": queries.shape[1],
                "k": k, "metric": metric}
         if timed:
+            real = corpus[:true_n] if true_n else corpus
             row["ms"] = cuda_ms(lambda: T.topk_cuda(corpus, queries, k,
                                                     metric, true_n))
             row["plain_ms"] = cuda_ms(lambda: T.topk_plain(
                 corpus, queries, k, metric, true_n), reps=1)
             row["library_ms"] = cuda_ms(lambda: topk_library(
-                corpus, queries, k, metric))
-            row["bound_ms"], row["bound_by"] = T.bound_ms(
-                queries.shape[0], true_n or corpus.shape[0],
-                queries.shape[1], k, metric)
+                real, queries, k, metric))
+            shape = (queries.shape[0], real.shape[0], queries.shape[1], k,
+                     metric)
+            row["bound_ms"], row["bound_by"] = T.bound_ms(*shape)
+            row["cuda_core_bound_ms"] = T.bound_ms(
+                *shape, flops_rate=T.H100_F32_FLOPS)[0]
         cases.append(row)
         return row
 
@@ -237,6 +249,27 @@ def phase1(dev) -> dict:
             if metric == "ip" and k == 13:
                 main = row
 
+    # the serving daemon's shape: few queries, bound by reading the corpus
+    run("serving_ip_k13", x, q[:64], 13, "ip", timed=True)
+    # the job's own search: one QUERY_CHUNK of the corpus against the
+    # engine's zero-padded corpus (50,000 real rows of 65,536)
+    job = torch.cat([x[:N_TITLES], torch.zeros(65_536 - N_TITLES, DIM,
+                                               device=dev)])
+    run("job_ip_k13", job, x[:32_768], 13, "ip", true_n=N_TITLES,
+        timed=True)
+
+    # the redesign's corners: at k = 128 the lists leave room for one
+    # consumer warpgroup only; d = 100 is not a multiple of the 32-deep
+    # slice; Q = 1 fills one tile of 128
+    for metric in ("ip", "l2"):
+        run(f"{metric}_k128", x, q[:1024], 128, metric)
+        run(f"q1_{metric}_k13", x, q[:1], 13, metric)
+    x100 = unit_rows(rng, 65_536, 100, dev)
+    q100 = unit_rows(rng, 1024, 100, dev)
+    run("d100_ip_k13", x100, q100, 13, "ip")
+    run("d100_l2_k101", x100, q100, 101, "l2")
+
+    # N - 1234 rows: not a multiple of the 128-row chunk
     ragged = x[: N_CORPUS - 1234]
     run("ragged_ip_k13", ragged, q[:1024], 13, "ip")
     for metric, fill in (("ip", 0.0), ("l2", 1e18)):
@@ -395,6 +428,10 @@ def phase3(dev) -> dict:
     run("edge_rows", edge_x, w, label)
     run("edge_rows_easy", edge_x, w, label, easy=True)
     run("c37", x, w[:37].contiguous(), label % 37)
+    # D not a multiple of the 32-deep slice; d = 17 not of the 16-byte copy
+    for dd in (100, 17):
+        run(f"ragged_d{dd}", edge_x[:, :dd].contiguous(),
+            w[:, :dd].contiguous(), label)
     if cases[5]["steep_targets"] < 2:
         raise AssertionError("the cos = +-1 rows did not reach the sine's "
                              "steep region")
@@ -432,10 +469,36 @@ def phase3(dev) -> dict:
                 x, w, label, 0.4, 64.0)),
             "yardstick_ms": cuda_ms_cold(lambda: torch.matmul(xn, wn.T)),
             "backward_plain_ms": cuda_ms_cold(backward),
-            "bound_ms": bound, "bound_by": bound_by}
+            "bound_ms": bound, "bound_by": bound_by,
+            "cuda_core_bound_ms": A.bound_ms(
+                AF_B, AF_C, AF_D, flops_rate=A.H100_F32_FLOPS)[0],
+            "device_ms_by_kernel": kernel_split(
+                lambda: A.arcface_logits_cuda(x, w, label, 0.4, 64.0),
+                ("arcface_kernel",))}
     return {"cases": cases, "main": main, "max_abs_err": max_err,
             "steep_target_max_abs_err": edge_err,
             "grad_max_abs_err": grad_err}
+
+
+def kernel_split(fn, names, n: int = 20) -> dict:
+    """Device ms per call of each kernel in ``names`` that ``fn`` launches
+    (``n`` calls under ``torch.profiler``, L2 flushed before each): the
+    kernel's own time, without the host's enqueue that CUDA events around
+    a short call also measure."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    flush = torch.empty(64 * 2**20, dtype=torch.float32, device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            flush.zero_()
+            fn()
+        torch.cuda.synchronize()
+    return {e.key[:60]: e.self_device_time_total / 1e3 / n
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and any(t in e.key for t in names)}
 
 
 def zipf_labels(n: int, n_cls: int, rng) -> np.ndarray:
@@ -667,6 +730,7 @@ def main() -> None:
             "ms": m["ms"], "plain_ms": m["plain_ms"],
             "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
             "library_ms": m["library_ms"], "library_call": TOPK_LIBRARY,
+            "cuda_core_bound_ms": m["cuda_core_bound_ms"],
             "shape": {k: m[k] for k in ("q", "n", "d", "k", "metric")}}
     a = p3["main"]
     arcface = {"name": "arcface", "route": "cuda",
@@ -677,6 +741,7 @@ def main() -> None:
                "ms": a["ms"], "plain_ms": a["plain_ms"],
                "bound_ms": a["bound_ms"], "bound_by": a["bound_by"],
                "library_ms": None,
+               "cuda_core_bound_ms": a["cuda_core_bound_ms"],
                "yardstick_ms": a["yardstick_ms"],
                "yardstick": "torch.matmul(x_hat, W_hat.T) on inputs "
                             "normalized beforehand, product only (cuBLAS "

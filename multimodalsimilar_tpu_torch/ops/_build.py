@@ -1,4 +1,5 @@
-"""Build and load the port's CUDA kernels (``csrc/*.cu``).
+"""Build and load the port's CUDA kernels (``csrc/*.cu``, which include
+the shared ``csrc/*.cuh`` headers).
 
 Each source compiles with nvcc for ``sm_90a`` into its own shared library
 with a plain C interface, under the package's git-ignored ``build/``
@@ -21,6 +22,7 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD = os.path.join(_PKG, "build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+NVCC_LIBS = ["-lcuda"]   # the driver's cuTensorMapEncodeTiled (TMA maps)
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
 # ptxas register / shared-memory report of each build in this process
@@ -45,9 +47,13 @@ def _paths(name: str):
 
 
 def _stale(name: str) -> bool:
+    """True when the library is missing or older than its ``.cu`` source
+    or than any shared ``csrc/*.cuh`` header."""
     src, lib = _paths(name)
-    return (not os.path.exists(lib)
-            or os.path.getmtime(lib) < os.path.getmtime(src))
+    if not os.path.exists(lib):
+        return True
+    deps = [src, *glob.glob(os.path.join(CSRC, "*.cuh"))]
+    return os.path.getmtime(lib) < max(map(os.path.getmtime, deps))
 
 
 def _start(name: str):
@@ -55,7 +61,8 @@ def _start(name: str):
     src, lib = _paths(name)
     os.makedirs(BUILD, exist_ok=True)
     tmp = f"{lib}.build.{os.getpid()}"
-    proc = subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
+    proc = subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-o", tmp, src,
+                             *NVCC_LIBS],
                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                             text=True)
     return proc, tmp

@@ -41,8 +41,12 @@ from typing import Tuple
 import torch
 
 EPS = 1e-12
-TILE = 64            # csrc/arcface.cu kTile: output tile is TILE x TILE
+TILE_ROWS = 128      # csrc/arcface.cu kBM: rows of x per block
+TILE_CLASSES = 80    # csrc/arcface.cu kBN: classes per block
 H100_F32_FLOPS = 67e12  # H100 SXM f32 peak outside the tensor cores
+# The card's fastest f32-accurate route: the TF32 tensor cores (495 TFLOP/s
+# dense) at three products per f32-accurate multiply-add (3xTF32).
+H100_F32_ACCURATE_TC_FLOPS = 165e12
 H100_HBM_BYTES = 3.35e12
 LAUNCHES: collections.Counter = collections.Counter()
 
@@ -120,14 +124,16 @@ def _lib() -> ctypes.CDLL:
     from multimodalsimilar_tpu_torch.ops import _build
     lib = _build.load("arcface")
     lib.mms_arcface.restype = ctypes.c_int
-    lib.mms_arcface.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
+    lib.mms_arcface.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
                                 + [ctypes.c_float] * 2 + [ctypes.c_int]
                                 + [ctypes.c_void_p])
-    lib.mms_arcface_tile.restype = ctypes.c_int
-    lib.mms_arcface_tile.argtypes = []
-    if lib.mms_arcface_tile() != TILE:
-        raise RuntimeError(f"csrc/arcface.cu tile {lib.mms_arcface_tile()} "
-                           f"disagrees with ops/arcface.py {TILE}")
+    for fn in ("mms_arcface_tile_rows", "mms_arcface_tile_classes"):
+        getattr(lib, fn).restype = ctypes.c_int
+        getattr(lib, fn).argtypes = []
+    got = (lib.mms_arcface_tile_rows(), lib.mms_arcface_tile_classes())
+    if got != (TILE_ROWS, TILE_CLASSES):
+        raise RuntimeError(f"csrc/arcface.cu tile {got} disagrees with "
+                           f"ops/arcface.py {(TILE_ROWS, TILE_CLASSES)}")
     return lib
 
 
@@ -157,13 +163,12 @@ def arcface_logits_cuda(x: torch.Tensor, weight: torch.Tensor,
     out = torch.empty((b, c), dtype=torch.float32, device=dev)
     if b == 0 or c == 0:
         return out
-    inv_norms = torch.empty(b + c, dtype=torch.float32, device=dev)
     lib = _lib()
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         err = lib.mms_arcface(x.data_ptr(), weight.data_ptr(),
-                              label.data_ptr(), inv_norms.data_ptr(),
-                              out.data_ptr(), b, c, d, float(m), float(s),
+                              label.data_ptr(), out.data_ptr(), b, c, d,
+                              float(m), float(s),
                               int(easy_margin), stream)
     if err:
         raise RuntimeError(f"csrc/arcface.cu launch failed: cudaError {err}")
@@ -210,12 +215,16 @@ def arcface_logits_fused(x: torch.Tensor, weight: torch.Tensor,
                                bool(easy_margin))
 
 
-def bound_ms(b: int, c: int, d: int) -> Tuple[float, str]:
+def bound_ms(b: int, c: int, d: int,
+             flops_rate: float = H100_F32_ACCURATE_TC_FLOPS
+             ) -> Tuple[float, str]:
     """Least time an H100 SXM could take for one forward call, and what
-    bounds it: 2*B*C*D f32 operations on the CUDA cores against x, W and
-    the labels read once and the [B, C] logits written once."""
+    bounds it: 2*B*C*D operations at the card's fastest f32-accurate rate
+    against x, W and the labels read once and the [B, C] logits written
+    once. ``flops_rate=H100_F32_FLOPS`` gives the older CUDA-core
+    bound."""
     flops = 2.0 * b * c * d
     nbytes = 4.0 * (b * d + c * d + b * c + b)
-    t_ops, t_bytes = flops / H100_F32_FLOPS, nbytes / H100_HBM_BYTES
+    t_ops, t_bytes = flops / flops_rate, nbytes / H100_HBM_BYTES
     return (1e3 * max(t_ops, t_bytes),
             "operations" if t_ops >= t_bytes else "bytes")

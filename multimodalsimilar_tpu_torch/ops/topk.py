@@ -30,10 +30,13 @@ from typing import Optional, Tuple
 import torch
 
 MAX_K = 128          # csrc/topk.cu kMaxK
-QUERY_TILE = 64      # csrc/topk.cu kTQ: queries per block
+QUERY_TILE = 128     # csrc/topk.cu: queries per block (64 when k > 113)
 CHUNK_ROWS = 128     # csrc/topk.cu kTN: corpus rows per inner step
 MIN_SPLIT_ROWS = 1024   # keeps the merge pass negligible next to a split
 H100_F32_FLOPS = 67e12  # H100 SXM f32 peak outside the tensor cores
+# The card's fastest f32-accurate route: the TF32 tensor cores (495 TFLOP/s
+# dense) at three products per f32-accurate multiply-add (3xTF32).
+H100_F32_ACCURATE_TC_FLOPS = 165e12
 H100_HBM_BYTES = 3.35e12
 LAUNCHES: collections.Counter = collections.Counter()
 
@@ -91,12 +94,14 @@ def topk_plain(corpus: torch.Tensor, queries: torch.Tensor, k: int,
     return vals, idx.to(torch.int32)
 
 
-def plan_splits(n_queries: int, true_n: int, n_sm: int) -> Tuple[int, int]:
-    """(splits, rows_per_split) for ``csrc/topk.cu``: split the corpus
-    across blocks until about two blocks per SM are busy, keeping at least
-    ``MIN_SPLIT_ROWS`` rows per split."""
-    tiles = -(-n_queries // QUERY_TILE)
-    want = -(-2 * n_sm // tiles)
+def plan_splits(n_queries: int, true_n: int, n_sm: int,
+                tile: int = QUERY_TILE) -> Tuple[int, int]:
+    """(splits, rows_per_split) for ``csrc/topk.cu``: one block fills an
+    SM (its shared memory), so split the corpus until the blocks fill the
+    card in one wave, keeping at least ``MIN_SPLIT_ROWS`` rows per
+    split."""
+    tiles = -(-n_queries // tile)
+    want = max(1, n_sm // tiles)
     splits = max(1, min(want, true_n // MIN_SPLIT_ROWS))
     rows = -(-true_n // splits)
     rows = -(-rows // CHUNK_ROWS) * CHUNK_ROWS
@@ -108,13 +113,13 @@ def _lib() -> ctypes.CDLL:
     from multimodalsimilar_tpu_torch.ops import _build
     lib = _build.load("topk")
     lib.mms_topk.restype = ctypes.c_int
-    lib.mms_topk.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
+    lib.mms_topk.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
                              + [ctypes.c_void_p])
-    for fn in ("mms_topk_max_k", "mms_topk_query_tile",
-               "mms_topk_chunk_rows"):
+    for fn, args in (("mms_topk_max_k", []), ("mms_topk_chunk_rows", []),
+                     ("mms_topk_query_tile", [ctypes.c_int])):
         getattr(lib, fn).restype = ctypes.c_int
-        getattr(lib, fn).argtypes = []
-    got = (lib.mms_topk_max_k(), lib.mms_topk_query_tile(),
+        getattr(lib, fn).argtypes = args
+    got = (lib.mms_topk_max_k(), lib.mms_topk_query_tile(1),
            lib.mms_topk_chunk_rows())
     if got != (MAX_K, QUERY_TILE, CHUNK_ROWS):
         raise RuntimeError(f"csrc/topk.cu constants {got} disagree with "
@@ -149,17 +154,21 @@ def topk_cuda(corpus: torch.Tensor, queries: torch.Tensor, k: int,
     out_i = torch.empty((q, k), dtype=torch.int32, device=dev)
     if q == 0:
         return out_v, out_i
+    lib = _lib()
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
-    splits, rows = plan_splits(q, true_n, n_sm)
+    splits, rows = plan_splits(q, true_n, n_sm, lib.mms_topk_query_tile(k))
     if splits > 1:
         part_v = torch.empty((splits, q, k), dtype=torch.float32, device=dev)
         part_i = torch.empty((splits, q, k), dtype=torch.int32, device=dev)
     else:
         part_v, part_i = out_v, out_i
-    lib = _lib()
+    # l2: squared norms of the queries, then of the corpus rows
+    norms = torch.empty(q + true_n if metric == "l2" else 0,
+                        dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         err = lib.mms_topk(queries.data_ptr(), corpus.data_ptr(),
+                           norms.data_ptr() if norms.numel() else None,
                            part_v.data_ptr(), part_i.data_ptr(),
                            out_v.data_ptr(), out_i.data_ptr(), q, d, true_n,
                            k, int(metric == "l2"), splits, rows, stream)
@@ -181,15 +190,19 @@ def streaming_topk(corpus: torch.Tensor, queries: torch.Tensor, k: int,
 
 
 def bound_ms(n_queries: int, n_rows: int, d: int, k: int,
-             metric: str = "ip") -> Tuple[float, str]:
+             metric: str = "ip",
+             flops_rate: float = H100_F32_ACCURATE_TC_FLOPS
+             ) -> Tuple[float, str]:
     """Least time an H100 SXM could take for one call, and what bounds
-    it: f32 FMAs on the CUDA cores (2*Q*N*d, plus the corpus norms for
-    l2) against each input byte read once and each output written once."""
+    it: the 2*Q*N*d multiply-adds (plus the norms for l2) at the card's
+    fastest f32-accurate rate, against each input byte read once and each
+    output written once. ``flops_rate=H100_F32_FLOPS`` gives the older
+    CUDA-core bound."""
     flops = 2.0 * n_queries * n_rows * d
     if metric == "l2":
         flops += 2.0 * (n_rows + n_queries) * d
     nbytes = 4.0 * (n_queries + n_rows) * d + 8.0 * n_queries * k
-    t_ops, t_bytes = flops / H100_F32_FLOPS, nbytes / H100_HBM_BYTES
+    t_ops, t_bytes = flops / flops_rate, nbytes / H100_HBM_BYTES
     return (1e3 * max(t_ops, t_bytes),
             "operations" if t_ops >= t_bytes else "bytes")
 

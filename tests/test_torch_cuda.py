@@ -34,23 +34,50 @@ def _ints(rng, shape, dev):
                             .astype(np.float32)).to(dev)
 
 
+@pytest.mark.parametrize("k", [1, 13, 101, 128])
+@pytest.mark.parametrize("d", [96, 100, 37])
 @pytest.mark.parametrize("metric", ["ip", "l2"])
 @pytest.mark.parametrize("q", [1, 300, 20_000], ids=["q1", "q300", "q20k"])
-def test_kernel_equals_plain_on_exact_data(dev, metric, q):
-    """Small-integer rows make every score exact, so results must be
-    identical, ties (duplicate rows) included; q picks the split and the
-    unsplit launch."""
+def test_kernel_equals_plain_on_exact_data(dev, metric, q, d, k):
+    """Small-integer rows make every score exact (3xTF32 included: the
+    small parts are 0), so results must be identical, ties (duplicate
+    rows) included. q picks the split and the unsplit launch; d = 100 is
+    not a multiple of the 32-deep slice, d = 37 not of the 16-byte copy;
+    k = 128 leaves room for one consumer warpgroup only."""
     rng = np.random.default_rng(0)
-    corpus = _ints(rng, (5000, 96), dev)
+    corpus = _ints(rng, (5000, d), dev)
     corpus[100:200] = corpus[:100]
-    queries = _ints(rng, (q, 96), dev)
+    queries = _ints(rng, (q, d), dev)
     queries[:1] = corpus[:1]
-    for k in (1, 13, 101, 128):
-        got = T.topk_cuda(corpus, queries, k, metric, true_n=4900)
-        want = T.topk_plain(corpus, queries, k, metric, true_n=4900)
-        torch.cuda.synchronize()
-        assert torch.equal(got[1], want[1]) and torch.equal(got[0], want[0])
-        assert int(got[1].max()) < 4900
+    got = T.topk_cuda(corpus, queries, k, metric, true_n=4900)
+    want = T.topk_plain(corpus, queries, k, metric, true_n=4900)
+    torch.cuda.synchronize()
+    assert torch.equal(got[1], want[1]) and torch.equal(got[0], want[0])
+    assert int(got[1].max()) < 4900
+
+
+@pytest.mark.parametrize("metric", ["ip", "l2"])
+@pytest.mark.parametrize("q,n,d,k", [(1, 70_000, 768, 13),
+                                     (300, 20_011, 100, 128),
+                                     (1000, 50_000, 768, 101)])
+def test_kernel_matches_plain_on_unit_rows(dev, metric, q, n, d, k):
+    """Unit rows, as the job searches them. Scores within atol 1e-4, rtol
+    1e-5 (3xTF32 is f32-accurate, the sums run in another order); indices
+    equal wherever the plain version's neighbouring scores are more than
+    1e-5 apart (closer ones may swap)."""
+    rng = np.random.default_rng(q + n + d)
+    corpus = torch.from_numpy(rng.standard_normal((n, d), dtype=np.float32))
+    queries = torch.from_numpy(rng.standard_normal((q, d), dtype=np.float32))
+    corpus = (corpus / corpus.norm(dim=1, keepdim=True)).to(dev)
+    queries = (queries / queries.norm(dim=1, keepdim=True)).to(dev)
+    gv, gi = T.topk_cuda(corpus, queries, k, metric)
+    pv, pi = T.topk_plain(corpus, queries, k + 1, metric)
+    torch.cuda.synchronize()
+    assert torch.allclose(gv, pv[:, :k], atol=1e-4, rtol=1e-5)
+    gap = (pv[:, 1:] - pv[:, :-1]).abs()
+    inf = torch.full((q, 1), float("inf"), device=dev)
+    sep = (torch.cat([inf, gap], 1)[:, :k] > 1e-5) & (gap[:, :k] > 1e-5)
+    assert not ((gi != pi[:, :k]) & sep).any()
 
 
 def test_kernel_counts_launches_and_validates(dev):
@@ -99,7 +126,8 @@ def _arcface_problem(rng, b, c, d, dev):
 
 @pytest.mark.parametrize("easy", [False, True], ids=["margin", "easy"])
 @pytest.mark.parametrize("b,c,d", [(1, 1, 1), (100, 37, 64), (65, 129, 17),
-                                   (128, 10_205, 768)])
+                                   (128, 10_205, 768), (128, 10_205, 100),
+                                   (200, 300, 99)])
 def test_arcface_kernel_matches_plain(dev, b, c, d, easy):
     """Ragged B, C and D, label -1 rows, cos = +-1 and zero rows. Ordinary
     logits within atol 2e-4, rtol 1e-5 (f32 sums in another order, times

@@ -146,12 +146,28 @@ def test_plan_splits_covers_corpus_and_fills_card():
         assert (splits - 1) * rows < n <= splits * rows
     assert T.plan_splits(4096, 262_144, 132)[0] > 1      # small Q: split
     assert T.plan_splits(50_000, 50_000, 132)[0] == 1    # big Q: one pass
+    # one block per SM: 32 query tiles x 4 splits fill 132 SMs in one wave
+    splits, _ = T.plan_splits(4096, 262_144, 132)
+    tiles = -(-4096 // T.QUERY_TILE)
+    assert tiles * splits <= 132 < tiles * (splits + 1)
+    assert T.plan_splits(32_768, 50_000, 132)[0] == 1    # the job's chunk
 
 
-def test_bound_is_operations_at_main_shape():
-    ms, by = T.bound_ms(4096, 262_144, 768, 13)
-    assert by == "operations"
-    assert ms == pytest.approx(2 * 4096 * 262_144 * 768 / 67e12 * 1e3)
+@pytest.mark.parametrize("q,want_ms,want_by", [
+    (4096, 2 * 4096 * 262_144 * 768 / 165e12 * 1e3, "operations"),
+    (64, 4 * (64 + 262_144) * 768 / 3.35e12 * 1e3 + 8 * 64 * 13 / 3.35e9,
+     "bytes")], ids=["main", "serving"])
+def test_bound_is_operations_at_main_shape(q, want_ms, want_by):
+    """The bound is the card's fastest f32-accurate route: 3xTF32 on the
+    tensor cores, 495 / 3 = 165 TFLOP/s (10.0 ms at the main shape); a
+    64-query search is bound by reading the corpus (0.240 ms)."""
+    ms, by = T.bound_ms(q, 262_144, 768, 13)
+    assert by == want_by
+    assert ms == pytest.approx(want_ms)
+    assert round(ms, 1 if q == 4096 else 3) == (10.0 if q == 4096 else 0.240)
+    # the older CUDA-core figure stays available under its own rate
+    assert T.bound_ms(4096, 262_144, 768, 13, flops_rate=T.H100_F32_FLOPS
+                      )[0] == pytest.approx(24.62, abs=0.01)
 
 
 def test_kernel_rejects_cpu_tensors_and_bad_metric():
