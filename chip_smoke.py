@@ -67,6 +67,23 @@
    tower and head must have moved, the last checkpoint must restore to
    equal parameters, and on one batch with dropout off the kernel path's
    loss and gradients must match the plain path's.
+6. Phase 5 serves ``serve --tower bert`` at ``configs/serve.yaml`` (the
+   ``base`` preset at full ``roberta_wwm_ext`` width, random weights from
+   seed 0; max_length 80, batch 64, k 13, score_th 0.9, max_batch 64,
+   max_wait 5 ms) over 100,000 synthetic titles with a 40-value category
+   column, built and warmed through the port's ``_build_serve_service``
+   and ``_warm_serve_service``. It holds 512 queries (256 corpus titles,
+   256 novel ones) through the fused path at buckets 1, 8 and 64 against
+   ``embed_device`` at the same bucket and the plain top-k on the same
+   device corpus (phase 1's tolerances), and ``similar(score_th=None)``
+   against the same keys; one all-zero query goes through the host path.
+   With the top-k launch count set to 0 it then drives ``make_server``
+   over HTTP with closed-loop ``urllib`` clients at concurrency 1, 16, 64
+   and 128 (every response must be 200) and the same levels in-process;
+   the count must equal the micro-batches run. It checks /update (64 new
+   keys, each then found by its own title at score >= 0.999, and 64
+   re-embedded ones), /healthz and /embed, and splits a request's time at
+   buckets 1 and 64 with CUDA events.
 
 Prints the card's name and power limit, one JSON line per phase, the
 ``{"kernels": [...]}`` line, and last ``{"ok": true, "device": ...}``.
@@ -83,11 +100,16 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 import time
+import urllib.error
+import urllib.request
 
 import numpy as np
 import torch
 
+from multimodalsimilar_tpu_torch.cli.serve import (_build_serve_service,
+                                                   _warm_serve_service)
 from multimodalsimilar_tpu_torch.cli.train import _sampler_fn, _trainer
 from multimodalsimilar_tpu_torch.data.datasets import TextClassificationSource
 from multimodalsimilar_tpu_torch.data.prefetch import to_device
@@ -98,9 +120,13 @@ from multimodalsimilar_tpu_torch.ops import _build
 from multimodalsimilar_tpu_torch.ops import arcface as A
 from multimodalsimilar_tpu_torch.ops import topk as T
 from multimodalsimilar_tpu_torch.pipelines.embedders import TextEmbedder
+from multimodalsimilar_tpu_torch.pipelines.serving import (_read_back_later,
+                                                           make_server)
 from multimodalsimilar_tpu_torch.pipelines.similar import nlp_similar_job
 from multimodalsimilar_tpu_torch.pipelines.sinks import InMemoryKVSink
-from multimodalsimilar_tpu_torch.retrieval.engine import SimilarityEngine
+from multimodalsimilar_tpu_torch.retrieval.engine import (SimilarityEngine,
+                                                          _normalize_rows)
+from multimodalsimilar_tpu_torch.retrieval.knn import knn_search
 from multimodalsimilar_tpu_torch.train.tasks import text_arcface_task
 from multimodalsimilar_tpu_torch.utils.dtypes import DTypePolicy
 
@@ -111,6 +137,8 @@ N_TITLES = 50_000
 AF_B, AF_C, AF_D = 128, 10_205, 768          # the training slice's head
 AF_ATOL, AF_RTOL, AF_DCOS = 2e-4, 1e-5, 4e-6
 N_TRAIN, N_EVAL = 4_096, 1_024
+N_SERVE, N_CATEGORIES = 100_000, 40    # benchmarks/serving_load.py's corpus
+SERVE_LEVELS = (1, 16, 64, 128)
 
 
 def card_line() -> str:
@@ -698,6 +726,263 @@ def head_paths(model, src, dev, m: float) -> dict:
             "kernel_vs_plain_tower_grad_rel_err": worst["tower"]}
 
 
+def serve_args() -> argparse.Namespace:
+    """configs/serve.yaml written out (the card machine has no YAML
+    reader), with port 0 and the corpus passed as a table."""
+    return argparse.Namespace(
+        tower="bert", data="synthetic corpus (table=)", text_col="spu_name",
+        key_col="spu_sn", category_col="first_level_category_id",
+        tokenizer=None, checkpoint=None, bert_preset="base", num_labels=2,
+        pool="cls", max_length=80, batch_size=64, length_buckets=None,
+        k=13, score_th=0.9, host="127.0.0.1", port=0, max_batch=64,
+        max_wait_ms=5.0, emb_table=None, emb_col="embedding",
+        emb_table_cache=None, pallas_topk=False, approx_recall=None,
+        int8=False)
+
+
+def _ms_stats(lat) -> dict:
+    p = np.percentile(np.asarray(lat) * 1e3, [50, 95, 99])
+    return {"p50_ms": float(p[0]), "p95_ms": float(p[1]),
+            "p99_ms": float(p[2])}
+
+
+def serve_vs_plain(service, queries, dev) -> dict:
+    """The fused path at buckets 1, 8 and 64 against ``embed_device`` at
+    the same bucket and the plain top-k on the same device corpus; then
+    ``similar(score_th=None)`` (bucket 1) against the bucket-1 keys."""
+    embedder = service._embed_queries_device.__self__
+    corpus_dev, true_n, _ = service.engine._corpus_dev
+    k = service.k
+    keys = service.engine.keys
+    errs, plain_b1 = {}, []
+    for b in (1, 8, 64):
+        err = 0.0
+        for s in range(0, len(queries), b):
+            chunk = queries[s: s + b]
+            got = service._run_batch([{"op": "similar", "query": t}
+                                      for t in chunk])
+            gv = torch.from_numpy(np.stack([g[0] for g in got])).to(dev)
+            gi = torch.from_numpy(np.stack([g[1] for g in got])).to(dev)
+            q = _normalize_rows(embedder.embed_device(chunk, pad_to=b)
+                                .float())
+            want = T.topk_plain(corpus_dev, q, k + 1, "ip", true_n)
+            err = max(err, check_case(f"serve_b{b}", (gv, gi), want, k))
+            if b == 1:
+                plain_b1.append((want[0][0].cpu().numpy(),
+                                 want[1][0].cpu().numpy()))
+        errs[f"bucket_{b}"] = err
+    for t, (pv, pi) in zip(queries, plain_b1):
+        got = service.similar(t, score_th=None)
+        gs = np.array([g["score"] for g in got])
+        if len(got) != k or not np.allclose(gs, pv[:k], atol=ATOL,
+                                            rtol=RTOL):
+            raise AssertionError(f"similar({t!r}) scores {gs} vs plain "
+                                 f"{pv[:k]}")
+        gap = np.abs(np.diff(pv))
+        for r in range(k):
+            if (r == 0 or gap[r - 1] > GAP) and gap[r] > GAP \
+                    and got[r]["key"] != keys[pi[r]]:
+                raise AssertionError(f"similar({t!r}) rank {r}: "
+                                     f"{got[r]['key']} vs {keys[pi[r]]}")
+    zs, zi = service._search_bucketed(np.zeros((1, DIM), np.float32), 1)
+    if zs.any() or not (zi[0] == np.arange(k)).all():
+        raise AssertionError(f"zero query: scores {zs[0]}, ids {zi[0]}")
+    return {"queries": len(queries), "max_abs_err_by_bucket": errs,
+            "similar_checked": len(plain_b1), "zero_query_ids": zi[0][:4]
+            .tolist()}
+
+
+def closed_loop(call, texts, c: int) -> dict:
+    """max(192, 12 c) calls from ``c`` threads, each starting its next
+    call when the last returns; per-call latency on the host clock."""
+    n_req = max(192, 12 * c)
+    lat, failures, lock, nxt = [], [], threading.Lock(), [0]
+
+    def client():
+        while True:
+            with lock:
+                i = nxt[0]
+                nxt[0] += 1
+            if i >= n_req:
+                return
+            t0 = time.perf_counter()
+            try:
+                call(texts[i % len(texts)])
+            except Exception as e:      # counted, and the level fails
+                failures.append(repr(e))
+                continue
+            lat.append(time.perf_counter() - t0)
+
+    threads = [threading.Thread(target=client) for _ in range(c)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    wall = time.perf_counter() - t0
+    if failures:
+        raise AssertionError(f"c={c}: {len(failures)} of {n_req} calls "
+                             f"failed, first {failures[0]}")
+    return {"c": c, "requests": n_req, "qps": n_req / wall, **_ms_stats(lat)}
+
+
+def drive_levels(service, call, texts) -> list:
+    rows = []
+    for c in SERVE_LEVELS:
+        service._batcher.stats["max_batch_seen"] = 0
+        b0 = service.stats["batches"]
+        row = closed_loop(call, texts, c)
+        row["batches"] = service.stats["batches"] - b0
+        row["max_batch_seen"] = service.stats["max_batch_seen"]
+        rows.append(row)
+    return rows
+
+
+def _post(url, payload, timeout=120):
+    req = urllib.request.Request(url, data=json.dumps(payload).encode(),
+                                 headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        if r.status != 200:
+            raise AssertionError(f"{url}: HTTP {r.status}")
+        return json.loads(r.read())
+
+
+def check_update_embed(base, titles, cats, rng) -> dict:
+    """/update 64 new keys (titles with a unique suffix) and 64 existing
+    ones; each new title then finds its own key at score >= 0.999."""
+    new = [{"key": f"new{i:03d}", "text": titles[j] + f"新品{i:03d}",
+            "category": cats[j]}
+           for i, j in enumerate(rng.choice(len(titles), 64, replace=False))]
+    old = [{"key": f"spu{j:06d}", "text": titles[j] + "改",
+            "category": cats[j]}
+           for j in rng.choice(len(titles), 64, replace=False)]
+    res = _post(base + "/update", {"items": new + old})
+    if res["corpus"] != N_SERVE + 64 or res["updated"] != 128:
+        raise AssertionError(f"/update: {res}")
+    own = []
+    for it in new:
+        got = _post(base + "/similar", {"text": it["text"],
+                                        "score_th": None})["neighbors"]
+        hit = [(r, g["score"]) for r, g in enumerate(got)
+               if g["key"] == it["key"]]
+        if not hit or hit[0][1] < 0.999:
+            raise AssertionError(f"/similar after /update: {it['key']} "
+                                 f"not found at >= 0.999 in {got[:3]}")
+        own.append(hit[0])
+    with urllib.request.urlopen(base + "/healthz", timeout=60) as r:
+        health = json.loads(r.read())
+    if health["corpus"] != N_SERVE + 64:
+        raise AssertionError(f"/healthz: {health}")
+    emb = np.asarray(_post(base + "/embed", {"texts": titles[:8]})
+                     ["embeddings"], np.float32)
+    if emb.shape != (8, DIM) or not np.isfinite(emb).all():
+        raise AssertionError(f"/embed: shape {emb.shape}")
+    return {"updated": res["updated"], "corpus": health["corpus"],
+            "own_rank_max": max(r for r, _ in own),
+            "own_score_min": min(s for _, s in own),
+            "embed_shape": list(emb.shape)}
+
+
+def request_split(service, texts, dev, reps: int = 30) -> dict:
+    """Median ms of each stage of one similar-only micro-batch at buckets
+    1 and 64, by CUDA events on the worker's stream: tokenize and upload
+    (and its host time), tower, normalize + top-k, read-back into pinned
+    memory, and the host wall of the whole request."""
+    embedder = service._embed_queries_device.__self__
+    corpus_dev, true_n, _ = service.engine._corpus_dev
+    out = {}
+    for b in (1, 64):
+        rows = []
+        for r in range(reps):
+            chunk = [texts[(r * b + j) % len(texts)] for j in range(b)]
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ev[0].record()
+            toks = embedder._tokens(chunk, b)
+            t_tok = time.perf_counter() - t0
+            ev[1].record()
+            with torch.inference_mode():
+                emb = embedder.tower_fn(*toks)
+                ev[2].record()
+                v, i = knn_search(corpus_dev, _normalize_rows(emb.float()),
+                                  service.k, "ip", true_n=true_n)
+            ev[3].record()
+            deferred = _read_back_later(v, i, b)
+            ev[4].record()
+            deferred.finish()
+            wall = time.perf_counter() - t0
+            torch.cuda.synchronize()
+            rows.append([t_tok * 1e3] + [ev[j].elapsed_time(ev[j + 1])
+                                         for j in range(4)] + [wall * 1e3])
+        med = np.median(np.asarray(rows), axis=0)
+        out[f"bucket_{b}"] = dict(zip(
+            ("tokenize_upload_host_ms", "tokenize_upload_ms", "tower_ms",
+             "normalize_topk_ms", "readback_ms", "request_host_ms"),
+            med.tolist()))
+    return out
+
+
+def phase5(dev) -> dict:
+    rng = np.random.default_rng(SEED + 5)
+    titles = make_titles(N_SERVE, rng)
+    cats = [int(c) for c in rng.integers(0, N_CATEGORIES, N_SERVE)]
+    table = {"spu_sn": [f"spu{i:06d}" for i in range(N_SERVE)],
+             "spu_name": titles, "first_level_category_id": cats}
+    novel = make_titles(2048, np.random.default_rng(SEED + 6))
+    args = serve_args()
+    t0 = time.perf_counter()
+    service, n = _build_serve_service(args, table=table, device=dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    try:
+        t0 = time.perf_counter()
+        _warm_serve_service(service, args)
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+        print(json.dumps({"phase5_startup": {
+            "corpus": n, "corpus_embed_s": build_s, "warm_s": warm_s}}),
+            flush=True)
+        picked = rng.choice(N_SERVE, 256, replace=False)
+        checked = serve_vs_plain(
+            service, [titles[i] for i in picked] + novel[:256], dev)
+
+        # the main path: similar-only traffic over HTTP, then in-process
+        httpd = make_server(service, args.host, args.port)
+        server = threading.Thread(target=httpd.serve_forever, daemon=True)
+        server.start()
+        base = f"http://{args.host}:{httpd.server_address[1]}"
+        try:
+            T.LAUNCHES["topk"] = 0
+            b0 = service.stats["batches"]
+            http_rows = drive_levels(
+                service, lambda t: _post(base + "/similar", {"text": t}),
+                novel)
+            inproc_rows = drive_levels(service, service.similar, novel)
+            launches = T.LAUNCHES["topk"]
+            batches = service.stats["batches"] - b0
+            if launches != batches:
+                raise AssertionError(f"{launches} top-k launches for "
+                                     f"{batches} similar-only batches")
+            updated = check_update_embed(base, titles, cats, rng)
+        finally:
+            httpd.shutdown()
+            httpd.server_close()
+            server.join(timeout=30)
+        split = request_split(service, novel, dev)
+    finally:
+        service.close()
+    return {"corpus": n, "corpus_embed_s": build_s, "warm_s": warm_s,
+            "fused_vs_plain": checked, "topk_launches": launches,
+            "similar_batches": batches, "http": http_rows,
+            "in_process": inproc_rows, "update": updated,
+            "request_split": split,
+            "config": "configs/serve.yaml: roberta_wwm_ext (base), "
+                      "max_length 80, batch 64, k 13, score_th 0.9, "
+                      "max_batch 64, max_wait 5 ms",
+            "policy": "inference (bf16)"}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this script runs on "
@@ -721,17 +1006,24 @@ def main() -> None:
     print(json.dumps({"phase3": p3}), flush=True)
     p4 = phase4(dev, p3["main"]["ms"])
     print(json.dumps({"phase4": p4}), flush=True)
+    p5 = phase5(dev)
+    print(json.dumps({"phase5": p5}), flush=True)
     m = p1["main"]
+    sv = next(c for c in p1["cases"] if c["case"] == "serving_ip_k13")
     topk = {"name": "topk", "route": "cuda",
             "source": "multimodalsimilar_tpu_torch/csrc/topk.cu",
             "replaces": "multimodalsimilar_tpu/ops/topk.py:56",
             "launches": p2["topk_launches"],
+            "launches_serving": p5["topk_launches"],
             "max_abs_err": p1["max_abs_err"],
             "ms": m["ms"], "plain_ms": m["plain_ms"],
             "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
             "library_ms": m["library_ms"], "library_call": TOPK_LIBRARY,
             "cuda_core_bound_ms": m["cuda_core_bound_ms"],
-            "shape": {k: m[k] for k in ("q", "n", "d", "k", "metric")}}
+            "shape": {k: m[k] for k in ("q", "n", "d", "k", "metric")},
+            "serving_ms": sv["ms"], "serving_bound_ms": sv["bound_ms"],
+            "serving_library_ms": sv["library_ms"],
+            "serving_shape": {k: sv[k] for k in ("q", "n", "d", "k")}}
     a = p3["main"]
     arcface = {"name": "arcface", "route": "cuda",
                "source": "multimodalsimilar_tpu_torch/csrc/arcface.cu",

@@ -1,0 +1,80 @@
+"""Shared command helpers (counterpart of the subset of
+multimodalsimilar_tpu/cli/common.py that the text serving and embedding
+export commands use): the tokenizer, the BERT presets, checkpoint restore
+and the embedding-table sink.
+
+Options whose code is not ported raise ``NotImplementedError`` instead of
+being ignored: HF tokenizers and ``hive://`` sinks.
+"""
+
+from __future__ import annotations
+
+from multimodalsimilar_tpu_torch.data.datasets import column
+
+
+def _require_tokenizer_with_checkpoint(args):
+    """--checkpoint without --tokenizer would derive a FRESH char vocab
+    from the serving data: token ids shuffle relative to training and the
+    restored tower silently embeds garbage. Training saves
+    {output}/vocab.txt exactly so serving jobs can reuse the training
+    ids — require it."""
+    if getattr(args, "checkpoint", None) \
+            and not getattr(args, "tokenizer", None):
+        raise SystemExit(
+            "--checkpoint given without --tokenizer: a vocab derived from "
+            "the serving data would not match the training vocab and the "
+            "restored tower would embed garbage. Pass --tokenizer "
+            "{train_output}/vocab.txt (saved by train).")
+
+
+def _tokenizer(args, df=None):
+    """--tokenizer: a vocab.txt from a previous train run. Without it, a
+    char vocab is derived from ``args.text_col`` of the data (``df``, a
+    DataFrame or a ``{column: list}`` mapping, else ``args.data``)."""
+    from multimodalsimilar_tpu_torch.data.tokenizer import TextTokenizer
+    if args.tokenizer:
+        if args.tokenizer.endswith("vocab.txt"):
+            return TextTokenizer.from_vocab_file(args.tokenizer)
+        raise NotImplementedError(
+            f"--tokenizer {args.tokenizer}: HF tokenizers are not ported "
+            "(the port does not depend on transformers); pass a vocab.txt")
+    if df is None:
+        from multimodalsimilar_tpu_torch.data.datasets import read_table
+        df = read_table(args.data)
+    return TextTokenizer.from_corpus(
+        [str(t) for t in column(df, args.text_col)])
+
+
+def _restore_required(checkpoint_dir):
+    """The latest training state under ``checkpoint_dir`` (the port's own
+    ``train/checkpoint.py`` files: ``{step, model, ...}``), or a one-line
+    error when there is none."""
+    from multimodalsimilar_tpu_torch.data.datasets import InputError
+    from multimodalsimilar_tpu_torch.train.checkpoint import CheckpointManager
+    state = CheckpointManager(checkpoint_dir).restore()
+    if state is None:
+        raise InputError(f"no checkpoint found under {checkpoint_dir} "
+                         f"(expected step_*.pt files written by the "
+                         f"port's trainer)")
+    return state
+
+
+def _bert_config(preset: str):
+    """BertConfig of a preset: ``tiny``, ``base`` (roberta_wwm_ext) or
+    ``large`` (roberta_wwm_ext_large). Remat and the sequence- and
+    pipeline-parallel layouts are not ported (ROADMAP A17)."""
+    from multimodalsimilar_tpu_torch.models.bert import BertConfig
+    make = {"tiny": BertConfig.tiny, "base": BertConfig.roberta_wwm_ext,
+            "large": BertConfig.roberta_wwm_ext_large}[preset]
+    return make()
+
+
+def _make_table_sink(table: str):
+    """Embedding-table sink by address: a local parquet file standing in
+    for the warehouse table. ``hive://`` addresses raise."""
+    if table.startswith("hive://"):
+        raise NotImplementedError(
+            f"{table}: the Spark table sink is not ported (ROADMAP A16); "
+            "write to a local parquet path")
+    from multimodalsimilar_tpu_torch.pipelines.sinks import ParquetTableSink
+    return ParquetTableSink(table)

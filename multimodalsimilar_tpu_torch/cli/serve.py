@@ -1,0 +1,401 @@
+"""``serve --tower bert`` — the online similarity daemon (counterpart of
+the bert parts of multimodalsimilar_tpu/cli/serve.py): build the hot
+service, warm every path a request can take, bind the HTTP server. With
+the ``--emb_table`` corpus warm start from the nightly embedding export.
+
+As in ``cli/train.py``, the functions take the ``argparse.Namespace`` the
+JAX package's ``serve`` parser builds (``configs/serve.yaml``'s values);
+the port's own parser comes with its CLI (ROADMAP A15). The other towers
+and the search-backend flags raise ``NotImplementedError``. pandas and
+pyarrow are imported only by the ``--emb_table`` functions and
+``read_table``: pass ``table=`` to build a service without them.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import sys
+import time
+
+import numpy as np
+
+from multimodalsimilar_tpu_torch.cli.embedders import (
+    _build_text_embedder, _embed_fn_from_embedder)
+from multimodalsimilar_tpu_torch.data.datasets import column
+from multimodalsimilar_tpu_torch.utils.devices import resolve_device
+
+# --tower -> where the ROADMAP queues it
+_TOWERS_NOT_PORTED = {"cv": "A8-A10", "multimodal": "A10",
+                      "fasttext": "A14", "daodian": "A14"}
+
+# Per-tower default thresholds = the reference jobs' own operating points:
+# bert 0.9 (nlp_infer.py:152,163), cv 0.15 / fasttext -0.6
+# (daodian_infer.py:79-82), multimodal None (multimodal_infer.py:147-159
+# applies no threshold to its L2 top-13).
+_SERVE_SCORE_TH = {"bert": 0.9, "cv": 0.15, "fasttext": -0.6,
+                   "multimodal": None}
+
+
+def _serve_score_th(args):
+    if args.score_th is None:   # flag unset -> the tower's reference point
+        return _SERVE_SCORE_TH[args.tower]
+    return args.score_th
+
+
+def _serve_warm_payload(args):
+    """The one warm query of the (text) tower — used by the pre-traffic
+    warm-up ladder AND the fused-path rebuild (service._warm_payload), so
+    the two can never drift on payload shape."""
+    return "warmup"
+
+
+def _check_ported(args) -> None:
+    if args.tower in _TOWERS_NOT_PORTED:
+        raise NotImplementedError(
+            f"serve --tower {args.tower} is not ported yet (ROADMAP "
+            f"{_TOWERS_NOT_PORTED[args.tower]})")
+    for flag in ("pallas_topk", "approx_recall"):
+        if getattr(args, flag, None) not in (None, False):
+            raise NotImplementedError(
+                f"--{flag}: the port has no search-backend option; the "
+                "device picks the exact search (csrc/topk.cu on a card)")
+    if int(getattr(args, "model_parallel", 1) or 1) != 1:
+        raise NotImplementedError("--model_parallel: the port serves on "
+                                  "one card (ROADMAP A17)")
+
+
+def _columns(table) -> list:
+    return list(table.columns) if hasattr(table, "columns") else list(table)
+
+
+def _build_serve_service(args, table=None, device="cuda"):
+    """(SimilarityService, corpus_rows) for ``serve --tower bert`` on
+    ``device``. ``table`` (a DataFrame or a ``{column: list}`` mapping)
+    replaces reading ``args.data``."""
+    from multimodalsimilar_tpu_torch.ops.topk import MAX_K
+    from multimodalsimilar_tpu_torch.pipelines.serving import (
+        SimilarityService)
+    from multimodalsimilar_tpu_torch.retrieval.engine import SimilarityEngine
+
+    dev = resolve_device(device)
+    _check_ported(args)
+    if dev.type == "cuda" and args.k > MAX_K:
+        # fail at startup, not as HTTP 500s on every request
+        raise ValueError(f"--k {args.k}: the top-k kernel takes k <= "
+                         f"{MAX_K}")
+    if table is None:
+        from multimodalsimilar_tpu_torch.data.datasets import read_table
+        table = read_table(args.data)
+    cols = _columns(table)
+    for col in (args.text_col, args.key_col):
+        if col not in cols:
+            raise SystemExit(f"column {col!r} not in {args.data} "
+                             f"(has: {cols})")
+    keys = [str(k) for k in column(table, args.key_col)]
+    if not keys:
+        raise SystemExit("--data table is empty — nothing to serve")
+    cats = None
+    if args.category_col:
+        if args.category_col not in cols:
+            raise SystemExit(f"--category_col {args.category_col!r} not in "
+                             f"{args.data} (has: {cols})")
+        cats = column(table, args.category_col)
+    t0 = time.perf_counter()
+    embedder = _build_text_embedder(args, df=table, device=dev)
+    embed_queries = _embed_fn_from_embedder(embedder)
+    texts = [str(t) for t in column(table, args.text_col)]
+
+    def embed_bulk(tt):
+        # the corpus pass at a bulk batch, not the serving micro-batch
+        bulk = max(args.batch_size, 512)
+        if len(tt) >= 4 * bulk and bulk != embedder.batch_size:
+            serve_bs = embedder.batch_size
+            embedder.batch_size = bulk
+            try:
+                return embed_queries(tt)
+            finally:
+                embedder.batch_size = serve_bs
+        return embed_queries(tt)
+
+    emb = _corpus_with_emb_table(args, keys, texts, embed_bulk)
+    print(f"corpus embedded: {len(keys)} rows in "
+          f"{time.perf_counter() - t0:.1f}s", file=sys.stderr)
+    engine = SimilarityEngine(emb, keys, categories=cats, metric="ip",
+                              normalize=True, device=dev)
+    embed_device = fused = fused_factory = None
+    if args.max_batch <= args.batch_size:
+        # the best path: tower -> normalize -> exact top-k chained on the
+        # worker's stream per pow2 bucket; embed_device is the two-step
+        # fallback the service keeps wired
+        fused = embedder.fused_similar_fn(engine, args.k)
+        embed_device = embedder.embed_device
+        fused_factory = lambda: embedder.fused_similar_fn(engine, args.k)  # noqa: E731
+    service = SimilarityService(embed_queries, engine, k=args.k,
+                                score_th=_serve_score_th(args),
+                                max_batch=args.max_batch,
+                                max_wait_ms=args.max_wait_ms,
+                                embed_queries_device=embed_device,
+                                fused_similar=fused,
+                                fused_factory=fused_factory,
+                                warm_payload=_serve_warm_payload(args))
+    return service, len(keys)
+
+
+def _emb_table_key_col(args, columns):
+    if args.key_col in columns:
+        return args.key_col
+    # the embed jobs key by goods_sku while serve defaults to spu_sn;
+    # a table with exactly one plausible key column is unambiguous
+    cands = [c for c in columns if c not in (args.emb_col, "dt")]
+    if len(cands) != 1:
+        raise SystemExit(
+            f"--emb_table {args.emb_table} has no {args.key_col!r} "
+            f"column and several candidates ({cands}) — rename or "
+            "pass --key_col matching the table")
+    print(f"serve: --emb_table keyed by {cands[0]!r} "
+          f"(no {args.key_col!r} column)", file=sys.stderr)
+    return cands[0]
+
+
+def _emb_table_cache_load(cache_dir, args):
+    """(keys, emb) from the restart cache, or None on any mismatch.
+    Validated against the SOURCE table's (mtime, size): a nightly rewrite
+    invalidates the cache, so the batch layout stays the authority."""
+    meta_p = os.path.join(cache_dir, "meta.json")
+    if not os.path.exists(meta_p):
+        return None
+    try:
+        with open(meta_p) as f:
+            meta = json.load(f)
+        st = os.stat(args.emb_table)
+        if (meta.get("source") != os.path.abspath(args.emb_table)
+                or meta.get("mtime") != st.st_mtime
+                or meta.get("size") != st.st_size
+                or meta.get("emb_col") != args.emb_col
+                # key_col participates: a restart with a different
+                # --key_col must re-resolve against the table, not serve
+                # keys cached from the previously-selected column
+                or meta.get("key_col") != args.key_col):
+            return None
+        emb = np.load(os.path.join(cache_dir, "emb.npy"), mmap_mode="r")
+        keys = np.load(os.path.join(cache_dir, "keys.npy"),
+                       allow_pickle=False)
+        if emb.shape[0] != len(keys) or emb.shape != tuple(meta["shape"]):
+            return None
+    except (OSError, ValueError, KeyError):
+        return None
+    print(f"serve: --emb_table loaded from restart cache {cache_dir}",
+          file=sys.stderr)
+    return keys.astype(object), emb
+
+
+def _emb_table_cache_store(cache_dir, keys, emb, args):
+    os.makedirs(cache_dir, exist_ok=True)
+    st = os.stat(args.emb_table)
+    # data first, meta last, all atomic renames: a crashed writer leaves
+    # either the old cache or no meta (= miss), never a torn read
+    for name, arr in (("emb.npy", np.asarray(emb, np.float32)),
+                      ("keys.npy", np.asarray(keys, str))):
+        tmp = os.path.join(cache_dir, "tmp_" + name)  # keeps .npy suffix
+        np.save(tmp, arr)                             # (np.save appends
+        os.replace(tmp, os.path.join(cache_dir, name))  # it otherwise)
+    meta = {"source": os.path.abspath(args.emb_table),
+            "mtime": st.st_mtime, "size": st.st_size,
+            "emb_col": args.emb_col, "key_col": args.key_col,
+            "shape": list(emb.shape)}
+    tmp = os.path.join(cache_dir, "meta.json.tmp")
+    with open(tmp, "w") as f:
+        json.dump(meta, f)
+    os.replace(tmp, os.path.join(cache_dir, "meta.json"))
+    print(f"serve: --emb_table restart cache written to {cache_dir}",
+          file=sys.stderr)
+
+
+def _load_emb_table(args):
+    """(keys [N] str ndarray, emb [N, D] float32) from ``--emb_table`` —
+    the nightly embedding jobs' own output layout (key column +
+    '[x,y,...]' strings, goodssku_emb_bert_di.py:84-87; the bulk job's
+    raw unbracketed 'x,y,...' parses too). A parquet whose embedding
+    column holds float LISTS loads via pyarrow as one flat reshape.
+    ``--emb_table_cache DIR`` keeps an mtime-validated npy mirror so
+    daemon restarts mmap the matrix instead of decoding the table."""
+    import pandas as pd
+
+    path = args.emb_table
+    cache_dir = getattr(args, "emb_table_cache", None)
+    if cache_dir:
+        if not os.path.exists(path):
+            raise SystemExit(
+                f"--emb_table_cache needs a local --emb_table file to "
+                f"validate against (mtime/size); {path} is not one — "
+                "drop the cache flag for warehouse-direct sources")
+        hit = _emb_table_cache_load(cache_dir, args)
+        if hit is not None:
+            return hit
+    keys = emb = None
+    if str(path).endswith((".parquet", ".pq")) and os.path.exists(path):
+        import pyarrow as pa
+        import pyarrow.parquet as pq
+        tbl = pq.read_table(path)
+        if args.emb_col not in tbl.column_names:
+            raise SystemExit(f"--emb_col {args.emb_col!r} not in "
+                             f"{path} (has: {tbl.column_names})")
+        key_col = _emb_table_key_col(args, tbl.column_names)
+        keys = pd.Series(tbl.column(key_col).to_pandas()).astype(str)
+        col = tbl.column(args.emb_col).combine_chunks()
+        if pa.types.is_fixed_size_list(col.type):
+            flat = col.flatten().to_numpy(zero_copy_only=False)
+            emb = np.asarray(flat, np.float32).reshape(
+                len(col), col.type.list_size)
+        elif pa.types.is_list(col.type) or pa.types.is_large_list(col.type):
+            widths = np.diff(col.offsets.to_numpy())
+            if len(widths) and (widths != widths[0]).any():
+                raise SystemExit(f"--emb_table {path}: ragged "
+                                 f"{args.emb_col!r} column")
+            flat = col.flatten().to_numpy(zero_copy_only=False)
+            emb = np.asarray(flat, np.float32).reshape(len(col), -1)
+        else:
+            keys = None   # string-serialized — the pandas path parses it
+    if keys is None:
+        from multimodalsimilar_tpu_torch.data.datasets import read_table
+        t = read_table(path)
+        if args.emb_col not in t.columns:
+            raise SystemExit(f"--emb_col {args.emb_col!r} not in "
+                             f"{path} (has: {list(t.columns)})")
+        key_col = _emb_table_key_col(args, list(t.columns))
+        keys = t[key_col].astype(str)
+        col = t[args.emb_col]
+        first = col.iloc[0] if len(col) else ""
+        if isinstance(first, str):
+            emb = None
+        else:   # array-typed rows that arrived through pandas anyway
+            try:
+                emb = np.asarray(np.stack(col.to_numpy()), np.float32)
+            except ValueError as e:
+                raise SystemExit(f"--emb_table {path}: ragged or "
+                                 f"non-numeric {args.emb_col!r} "
+                                 f"column ({e})")
+            if emb.ndim != 2:
+                raise SystemExit(f"--emb_table {path}: {args.emb_col!r} "
+                                 "rows are not 1-d vectors")
+        if emb is None:
+            from multimodalsimilar_tpu_torch.pipelines.embed import (
+                parse_embeddings)
+            emb = parse_embeddings(col.astype(str).tolist())
+    # a key recurring across appends (shouldn't happen — incremental
+    # skips existing keys — but a hand-built table might): last wins
+    dup = keys.duplicated(keep="last").to_numpy()
+    if dup.any():
+        emb = emb[~dup]
+        keys = keys[~dup]
+    keys = keys.to_numpy()
+    if cache_dir:
+        _emb_table_cache_store(cache_dir, keys, emb, args)
+    return keys, emb
+
+
+def _corpus_with_emb_table(args, keys, texts, embed_bulk):
+    """Corpus embeddings, preferring ``--emb_table`` precomputed rows.
+
+    Loading the nightly jobs' table replaces the startup tower pass over
+    the rows it holds. Keys missing from the table (intraday additions)
+    embed fresh through the tower; a dimension mismatch between table and
+    tower fails fast (queries embed through the TOWER at request time, so
+    a stale table from a different model would otherwise serve garbage
+    scores indistinguishable from real ones)."""
+    if not args.emb_table:
+        return embed_bulk(texts)
+    import pandas as pd
+    pre_keys, pre_emb = _load_emb_table(args)
+    # vectorized key->row mapping: per-key dict lookups over a
+    # warehouse-scale corpus are minutes of host time
+    pos = pd.Index(pre_keys).get_indexer(pd.Index(np.asarray(keys,
+                                                             object)))
+    hit_mask = pos >= 0
+    n_miss = int((~hit_mask).sum())
+    if not hit_mask.any():
+        raise SystemExit(
+            f"--emb_table {args.emb_table}: no overlap with the corpus "
+            f"keys — wrong table or wrong --key_col?")
+    if n_miss:
+        miss = np.nonzero(~hit_mask)[0]
+        fresh = np.asarray(embed_bulk([texts[i] for i in miss]),
+                           np.float32)
+    else:
+        # no missing rows to reveal the tower's dim — probe one so a
+        # stale table still fails fast here
+        fresh = np.asarray(embed_bulk([texts[0]]), np.float32)
+    if fresh.shape[1] != pre_emb.shape[1]:
+        raise SystemExit(
+            f"--emb_table dim {pre_emb.shape[1]} != tower dim "
+            f"{fresh.shape[1]} — the table was built by a different "
+            "model; rebuild it or drop --emb_table")
+    if n_miss == 0 and len(pre_keys) == len(keys) \
+            and (pos == np.arange(len(keys))).all():
+        # table already row-aligned with the corpus: skip the full-size
+        # fancy gather
+        emb = np.ascontiguousarray(pre_emb, np.float32)
+    else:
+        emb = np.empty((len(keys), pre_emb.shape[1]), np.float32)
+        emb[hit_mask] = pre_emb[pos[hit_mask]]
+        if n_miss:
+            emb[~hit_mask] = fresh
+    print(f"serve: corpus {int(hit_mask.sum())} rows from --emb_table, "
+          f"{n_miss} embedded fresh", file=sys.stderr)
+    return emb
+
+
+def _warm_serve_service(service, args):
+    """Run every path a request can take BEFORE accepting traffic, so no
+    request pays a first-use cost (the kernels build at their first
+    launch): one end-to-end similar, then the real device path at every
+    pow2 bucket up to --max_batch, the two-step fallback's tower at every
+    bucket, the host path's tower, and the host path's search at every
+    bucket. Runs before traffic, so driving the engine from this thread
+    doesn't race the device worker."""
+    wp = service._warm_payload   # _serve_warm_payload(args), via _build
+    service.similar(wp, k=1)
+    # the exact bucket set _bucket_size quantizes to, INCLUDING bucket 1
+    # (the c=1 operating point)
+    ladder = service._bucket_ladder()
+    if service._fused_similar is not None \
+            or service._embed_queries_device is not None:
+        for m in ladder:
+            service._run_batch([{"op": "similar", "query": wp}] * m)
+        if service._fused_similar is not None \
+                and service._embed_queries_device is not None:
+            # with a fused path the loop above never runs the fallback
+            # chain's tower shapes
+            if service._dev_accepts_pad:
+                for m in ladder:
+                    service._embed_queries_device([wp], pad_to=m)
+            else:
+                service._embed_queries_device([wp])
+        # mixed/update batches run the HOST path: its tower must not pay
+        # first-use costs on the first update
+        service.embed([wp])
+    d = service.engine._emb.shape[1]
+    for m in ladder:
+        service.engine.search(service.k,
+                              queries=np.zeros((m, d), np.float32))
+
+
+def cmd_serve(args, device="cuda"):
+    """Online similarity daemon — the capability the reference's
+    precomputed Redis KV can't give (a query NOT in last night's batch).
+    Micro-batched HTTP serving; see pipelines/serving.py."""
+    from multimodalsimilar_tpu_torch.pipelines.serving import make_server
+    service, n = _build_serve_service(args, device=device)
+    _warm_serve_service(service, args)
+    httpd = make_server(service, args.host, args.port)
+    host, port = httpd.server_address[:2]
+    print(json.dumps({"serving": f"http://{host}:{port}", "corpus": n,
+                      "k": service.k}), flush=True)
+    try:
+        httpd.serve_forever()
+    except KeyboardInterrupt:
+        pass
+    finally:
+        httpd.server_close()
+        service.close()

@@ -5,8 +5,9 @@ The reference embeds one row at a time; here the workload streams through
 the tower in full batches (the last one padded by repeating its last row),
 with three batches in flight: later batches are launched before earlier
 results are read back, and read-backs go through pinned host memory, so the
-card computes while the host tokenizes. The image and multimodal embedders
-and the fused serving path come with later slices.
+card computes while the host tokenizes. ``fused_similar_fn`` chains the
+tower into the engine's search for the serving daemon. The image and
+multimodal embedders come with later slices.
 """
 
 from __future__ import annotations
@@ -33,6 +34,18 @@ def _pad_rows(arrs: Dict[str, np.ndarray], batch: int) -> Dict[str, np.ndarray]:
         [v, np.repeat(v[-1:], batch - n, axis=0)]) for k, v in arrs.items()}
 
 
+def _upload(toks: Dict[str, np.ndarray], device: torch.device):
+    """The token arrays as tensors on ``device``; to a card from pinned
+    host memory without blocking the host."""
+    out = []
+    for key in _TOKEN_KEYS:
+        t = torch.from_numpy(np.ascontiguousarray(toks[key]))
+        if device.type == "cuda":
+            t = t.pin_memory().to(device, non_blocking=True)
+        out.append(t)
+    return out
+
+
 def _stream(batches, run, device: torch.device) -> np.ndarray:
     """Pipelined embed loop: keep ``_IN_FLIGHT`` batches in flight.
 
@@ -45,13 +58,7 @@ def _stream(batches, run, device: torch.device) -> np.ndarray:
     cuda = device.type == "cuda"
 
     def launch(toks, n):
-        args = []
-        for key in _TOKEN_KEYS:
-            t = torch.from_numpy(np.ascontiguousarray(toks[key]))
-            if cuda:
-                t = t.pin_memory().to(device, non_blocking=True)
-            args.append(t)
-        emb = run(*args).float()
+        emb = run(*_upload(toks, device)).float()
         if not cuda:
             return emb, None, n
         host = torch.empty(emb.shape, dtype=torch.float32, pin_memory=True)
@@ -96,10 +103,26 @@ class TextEmbedder:
         self.length_buckets = bucket_ladder(length_buckets, max_length)
         self.model = model.to(self.device).eval()
 
-    def _run(self, input_ids, attention_mask, token_type_ids):
+    def tower_fn(self, input_ids, attention_mask, token_type_ids):
+        """The tower on token tensors, without a mode of its own: the
+        engine's fused chain runs it inside inference mode."""
+        return self.model.predict_emb(input_ids, attention_mask,
+                                      token_type_ids)
+
+    def _run(self, *token_tensors):
         with torch.inference_mode():
-            return self.model.predict_emb(input_ids, attention_mask,
-                                          token_type_ids)
+            return self.tower_fn(*token_tensors)
+
+    def _tokens(self, texts: Sequence[str], pad_to: int):
+        """Tokenize one micro-batch on the host, pad it to ``pad_to`` rows
+        by repeating the last, and upload the token tensors."""
+        if not len(texts) <= pad_to <= self.batch_size:
+            raise ValueError(f"need len(texts) <= pad_to <= batch_size, "
+                             f"got {len(texts)} / {pad_to} / "
+                             f"{self.batch_size}")
+        toks = _pad_rows(self.tokenizer(list(texts), self.max_length),
+                         pad_to)
+        return _upload(toks, self.device)
 
     def embed_device(self, texts: Sequence[str], pad_to: int = None
                      ) -> torch.Tensor:
@@ -108,13 +131,22 @@ class TextEmbedder:
         ``pad_to`` defaults to batch_size; len(texts) <= pad_to <=
         batch_size."""
         pad = self.batch_size if pad_to is None else pad_to
-        if not len(texts) <= pad <= self.batch_size:
-            raise ValueError(f"need len(texts) <= pad_to <= batch_size, "
-                             f"got {len(texts)} / {pad} / "
-                             f"{self.batch_size}")
-        toks = _pad_rows(self.tokenizer(list(texts), self.max_length), pad)
-        return self._run(*(torch.from_numpy(toks[key]).to(self.device)
-                           for key in _TOKEN_KEYS))
+        return self._run(*self._tokens(texts, pad))
+
+    def fused_similar_fn(self, engine, k: int):
+        """``(texts, pad_to) -> (scores, indices)`` on the device: the
+        serving hot path as one stream-ordered chain (tokenize on the
+        host, upload, then tower, normalize and exact top-k through
+        ``engine.fused_search_fn``), on the calling thread's current
+        stream. None for an empty corpus."""
+        run = engine.fused_search_fn(self.tower_fn, k)
+        if run is None:
+            return None
+
+        def fused(texts, pad_to):
+            return run(*self._tokens(texts, pad_to))
+
+        return fused
 
     def __call__(self, texts: Sequence[str]) -> np.ndarray:
         if self.length_buckets and len(texts) > self.batch_size:

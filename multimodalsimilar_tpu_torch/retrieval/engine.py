@@ -5,6 +5,8 @@ normalized on the host (eps 1e-12, like ``faiss.normalize_L2``), cached on
 the device once, padded to a block multiple, and searched exactly with
 ``knn_search`` (``csrc/topk.cu`` on a card); only the [Q, k] candidate
 lists come back to the host for the business-rule pass.
+``fused_search_fn`` chains a tower into that search for the serving
+daemon.
 
 There is no backend, mesh or approximate-recall option: the device decides
 which path runs, and the JAX package's sharded and approximate searches are
@@ -227,6 +229,43 @@ class SimilarityEngine:
             out_v[s: s + len(v)] = v.cpu().numpy()
             out_i[s: s + len(i)] = i.cpu().numpy()
         return out_v, out_i
+
+    def fused_search_fn(self, tower_fn, k: int):
+        """The serving hot path as one stream-ordered chain: ``tower_fn``
+        -> ``.float()`` -> normalize (when the engine normalizes) -> exact
+        top-k over the cached device corpus. Returns
+        ``fused(*tower_args) -> (scores, indices)``, device tensors with
+        no host sync and no read-back, or None for an empty corpus.
+
+        The JAX package compiles one program for a corpus shape and k, and
+        its fused function returns None once an /update outgrows them, so
+        that the service rebuilds it. Nothing here is compiled per shape:
+        every call reads the current device corpus and ``min(k, n)``, so
+        an /update never makes the function stale and it never returns
+        None. The single-chunk bound is planned once, here, so a request
+        makes no ``torch.cuda.mem_get_info`` call to size it.
+
+        The corpus is fetched outside inference mode (``update`` patches
+        it in place); the chain runs inside it."""
+        if self.n == 0:
+            return None
+        self._ensure_corpus_dev()
+        limit = self._chunk_rows(min(k, self.n))
+        metric, normalized = self.metric, self._normalized
+
+        def fused(*tower_args):
+            corpus_dev, true_n, _ = self._ensure_corpus_dev()
+            with torch.inference_mode():
+                q = tower_fn(*tower_args).float()
+                if q.shape[0] > limit:
+                    raise ValueError(f"fused search is single-chunk: "
+                                     f"{q.shape[0]} queries > {limit}")
+                if normalized:
+                    q = _normalize_rows(q)
+                return knn_search(corpus_dev, q.contiguous(),
+                                  min(k, self.n), metric, true_n=true_n)
+
+        return fused
 
     def search_device(self, k: int, queries):
         """Single-chunk search returning DEVICE (scores, indices) — no

@@ -187,3 +187,152 @@ def test_arcface_counts_launches_validates_and_differentiates(dev):
         A.arcface_logits_cuda(x, w, label.float(), 0.4)
     with pytest.raises(ValueError, match="shape mismatch"):
         A.arcface_logits_cuda(x, w[:, :10].contiguous(), label, 0.4)
+
+
+# ------------------------------------------------------- the serving path
+
+def _serving_engine(dev, n=5000, d=96, seed=0):
+    rng = np.random.default_rng(seed)
+    emb = rng.standard_normal((n, d), dtype=np.float32)
+    return SimilarityEngine(emb, [f"k{i}" for i in range(n)], device=dev)
+
+
+def _check_against_plain(engine, q, got, k):
+    corpus_dev, true_n, _ = engine._corpus_dev
+    qn = q / q.norm(dim=1, keepdim=True).clamp_min(1e-12)
+    pv, pi = T.topk_plain(corpus_dev, qn, k + 1, "ip", true_n)
+    gv, gi = got
+    assert torch.allclose(gv, pv[:, :k], atol=1e-4, rtol=1e-5)
+    gap = (pv[:, 1:] - pv[:, :-1]).abs()
+    inf = torch.full((q.shape[0], 1), float("inf"), device=q.device)
+    sep = (torch.cat([inf, gap], 1)[:, :k] > 1e-5) & (gap[:, :k] > 1e-5)
+    assert not ((gi != pi[:, :k]) & sep).any()
+
+
+@pytest.mark.parametrize("bucket", [1, 2, 4, 8, 16, 32, 64])
+def test_fused_search_matches_plain_at_every_bucket(dev, bucket):
+    """The fused chain (tower -> float -> normalize -> kernel) at each
+    pow2 micro-batch the service sends, one launch per call, against the
+    plain top-k on the same device corpus."""
+    engine = _serving_engine(dev)
+    run = engine.fused_search_fn(lambda x: x.half(), 13)
+    q = torch.randn(bucket, 96, device=dev)
+    before = T.LAUNCHES["topk"]
+    got = run(q)
+    assert T.LAUNCHES["topk"] == before + 1
+    assert got[0].device.type == "cuda" and got[0].shape == (bucket, 13)
+    _check_against_plain(engine, q.half().float(), got, 13)
+
+
+def test_zero_query_scores_zero_with_ties_in_index_order(dev):
+    """A zero query (the host path zero-pads to the bucket) normalizes to
+    zero: every score is 0 and the ties come back in index order."""
+    from multimodalsimilar_tpu_torch.pipelines.serving import (
+        SimilarityService)
+    engine = _serving_engine(dev)
+    q = torch.randn(4, 96, device=dev)
+    q[2] = 0.0
+    v, i = engine.fused_search_fn(lambda x: x, 13)(q)
+    torch.cuda.synchronize()
+    assert torch.equal(v[2], torch.zeros(13, device=dev))
+    assert i[2].tolist() == list(range(13))
+    svc = SimilarityService(lambda t: np.zeros((len(t), 96), np.float32),
+                            engine, k=13, max_wait_ms=1.0)
+    try:
+        scores, idx = svc._search_bucketed(np.zeros((3, 96), np.float32), 3)
+        assert scores.shape == (3, 13) and not scores.any()
+        assert (idx == np.arange(13)).all()
+    finally:
+        svc.close()
+
+
+def _tiny_serve_args(**kw):
+    import argparse
+    args = dict(tower="bert", k=5, text_col="spu_name", key_col="spu_sn",
+                category_col=None, tokenizer=None, checkpoint=None,
+                bert_preset="tiny", num_labels=2, max_length=16,
+                batch_size=8, max_batch=8, max_wait_ms=2.0, score_th=None,
+                emb_table=None, data="in-memory")
+    args.update(kw)
+    return argparse.Namespace(**args)
+
+
+TABLE = {"spu_sn": [f"sku{i}" for i in range(40)],
+         "spu_name": [f"{'甲乙丙丁戊'[i % 5] * (1 + i % 3)}商品{i}"
+                      for i in range(40)]}
+
+
+def test_serve_refuses_k_above_the_kernel_at_build(dev):
+    from multimodalsimilar_tpu_torch.cli.serve import _build_serve_service
+    with pytest.raises(ValueError, match="k <= 128"):
+        _build_serve_service(_tiny_serve_args(k=129), table=TABLE,
+                             device=dev)
+
+
+def test_serve_on_card_one_launch_per_similar_batch(dev):
+    """The port's service on the card: warmed, then concurrent similar
+    requests; the kernel launches once per micro-batch, and each title
+    finds a row at cosine ~1 (its own, or one whose bf16 embedding ties
+    with it)."""
+    import threading
+
+    from multimodalsimilar_tpu_torch.cli.serve import (_build_serve_service,
+                                                       _warm_serve_service)
+    args = _tiny_serve_args()
+    svc, n = _build_serve_service(args, table=TABLE, device=dev)
+    try:
+        _warm_serve_service(svc, args)
+        T.LAUNCHES["topk"] = 0
+        before = svc.stats["batches"]
+        out = [None] * 40
+
+        def hit(i):
+            out[i] = svc.similar(TABLE["spu_name"][i], score_th=None)
+
+        threads = [threading.Thread(target=hit, args=(i,))
+                   for i in range(40)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+        assert T.LAUNCHES["topk"] == svc.stats["batches"] - before
+        assert all(len(o) == 5 and o[0]["score"] > 0.99 for o in out)
+    finally:
+        svc.close()
+
+
+def test_deferred_readback_does_not_wait_for_the_next_batch(dev):
+    """Batch N's results are read back while batch N+1, launched after it
+    on the same stream, is still running: finish() waits on an event
+    behind batch N's copies, not on the stream."""
+    from multimodalsimilar_tpu_torch.pipelines.serving import (
+        DeferredBatch, SimilarityService)
+    engine = _serving_engine(dev)
+    run = engine.fused_search_fn(lambda x: x, 13)
+    table = {f"q{i}": np.random.default_rng(i).standard_normal(
+        96).astype(np.float32) for i in range(4)}
+
+    def fused(texts, pad_to):
+        q = np.zeros((pad_to, 96), np.float32)
+        q[: len(texts)] = np.stack([table[t] for t in texts])
+        return run(torch.from_numpy(q).to(dev))
+
+    svc = SimilarityService(lambda t: np.stack([table[x] for x in t]),
+                            engine, k=13, max_wait_ms=1.0,
+                            fused_similar=fused)
+    try:
+        deferred = svc._run_batch_async([{"op": "similar", "query": "q0"},
+                                         {"op": "similar", "query": "q1"}])
+        assert isinstance(deferred, DeferredBatch)
+        torch.cuda._sleep(2_000_000_000)          # batch N+1: ~1 s of work
+        later = torch.cuda.Event()
+        later.record()
+        results = deferred.finish()
+        assert not later.query(), "finish() waited for the later batch"
+        torch.cuda.synchronize()
+        want = svc._search_bucketed(np.stack([table["q0"], table["q1"]]), 2)
+        for r, (s, i) in enumerate(results):
+            np.testing.assert_array_equal(i, want[1][r])
+            np.testing.assert_allclose(s, want[0][r], atol=1e-4)
+    finally:
+        svc.close()

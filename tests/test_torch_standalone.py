@@ -7,6 +7,7 @@ refuse to run without a card unless asked for the CPU.
 """
 
 import ast
+import json
 import os
 import subprocess
 import sys
@@ -22,7 +23,7 @@ BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "multimodalsimilar_tpu")
 torch.set_num_threads(1)
 
 _PROBE = r"""
-import importlib, importlib.util, pkgutil, sys
+import importlib, importlib.util, json, pkgutil, sys
 BLOCKED = %r
 for name in list(sys.modules):
     if name.split(".")[0] in BLOCKED:
@@ -37,8 +38,12 @@ spec = importlib.util.spec_from_file_location("chip_smoke", %r)
 spec.loader.exec_module(importlib.util.module_from_spec(spec))
 leaked = [m for m in sys.modules if m.split(".")[0] in BLOCKED
           and sys.modules[m] is not None]
-print(len(names), leaked)
+print(json.dumps([names, leaked]))
 """
+
+# the serving and export modules, which pull in the most of the package
+SERVING = ["cli.common", "cli.embed", "cli.embedders", "cli.serve",
+           "pipelines.embed", "pipelines.microbatch", "pipelines.serving"]
 
 
 def _py_files():
@@ -54,8 +59,9 @@ def test_imports_with_jax_blocked():
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    n_modules, leaked = out.stdout.strip().split(" ", 1)
-    assert int(n_modules) >= 20 and leaked == "[]"
+    names, leaked = json.loads(out.stdout)
+    assert len(names) >= 20 and leaked == []
+    assert {f"multimodalsimilar_tpu_torch.{m}" for m in SERVING} <= set(names)
 
 
 @pytest.mark.parametrize("path", list(_py_files()),
@@ -110,6 +116,36 @@ def test_entry_points_need_cuda_or_explicit_cpu(monkeypatch):
                             "spu_sn": list("abcd")}, lambda texts: emb,
                            InMemoryKVSink(), score_th=-2.0,
                            device="cpu") == 4
+
+
+def test_serve_and_embed_need_cuda_or_explicit_cpu(monkeypatch, tmp_path):
+    import argparse
+
+    from multimodalsimilar_tpu_torch.cli.embed import cmd_embed_bulk
+    from multimodalsimilar_tpu_torch.cli.serve import _build_serve_service
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    table = {"spu_sn": ["a", "b"], "spu_name": ["苹果", "牛奶"]}
+    args = argparse.Namespace(
+        tower="bert", k=13, text_col="spu_name", key_col="spu_sn",
+        category_col=None, tokenizer=None, checkpoint=None,
+        bert_preset="tiny", num_labels=2, max_length=8, batch_size=4,
+        max_batch=4, max_wait_ms=1.0, score_th=None, emb_table=None,
+        data="unused")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        _build_serve_service(args, table=table)
+    service, n = _build_serve_service(args, table=table, device="cpu")
+    service.close()
+    assert n == 2
+    path = tmp_path / "c.csv"
+    path.write_text("goods_sku,spu_name\na,苹果\n", encoding="utf-8")
+    bulk = argparse.Namespace(
+        data=str(path), table=str(tmp_path / "t.parquet"), kinds="bert",
+        key_col="goods_sku", text_col="spu_name", tokenizer=None,
+        checkpoint=None, bert_preset="tiny", num_labels=2, max_length=8,
+        batch_size=4)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        cmd_embed_bulk(bulk)
 
 
 def test_trainer_needs_cuda_or_explicit_cpu(monkeypatch):
