@@ -12,7 +12,11 @@
    the serving daemon's 64 queries against that corpus; the job's own
    search (32,768 queries against the engine's 65,536-row padded corpus,
    ``true_n`` = 50,000); k = 128 (the largest lists); one query; d = 100
-   (not a multiple of the 32-deep slice); a ragged corpus (N not a
+   (not a multiple of the 32-deep slice); the image paths' shapes (the cv
+   daemon's 64 queries at d = 512 against its 100,000-row corpus padded
+   to 131,072, and phase 7's un-normalized l2 at d = 1,280 over 4,096
+   fused rows of norm sqrt(2): the daemon's 48 queries and the job's
+   self-search); a ragged corpus (N not a
    multiple of the 128-row chunk), a padded corpus with ``true_n < N``
    (including the l2 pad fill of 1e18, whose square overflows f32), a
    split-free launch, and small-integer data with duplicate rows where
@@ -84,6 +88,42 @@
    keys, each then found by its own title at score >= 0.999, and 64
    re-embedded ones), /healthz and /embed, and splits a request's time at
    buckets 1 and 64 with CUDA events.
+7. Phase 6 serves ``serve --tower cv`` at ``configs/serve_cv.yaml``
+   (EfficientNet-B4 at 512 px, fc 512, 4,181 labels, batch and max_batch
+   64, k 13, score_th 0.15): seed-0 weights with seeded BatchNorm
+   statistics, saved as a port checkpoint, loaded and BN-folded by
+   ``cli/embedders.py:_load_cv_tower``, bf16 inference policy. It checks
+   the folded tower against the unfolded one in full precision on 64
+   images (max abs error <= 1e-4 of the largest output), embeds 8,192
+   synthetic uint8 images through ``ImageEmbedder.embed_batch`` (made
+   from the seed 1,024 at a time), stores them with 91,808 seeded unit
+   vectors in a packed ``EmbeddingCache`` (a 100,000-key corpus with a
+   40-value category column), builds the service through
+   ``_build_serve_service(args, table=...)`` with ``--emb_cache`` (no key
+   decodes an image) and warms it. Fused answers at buckets 1, 8 and 64
+   must equal ``embed_device`` + the plain top-k; each of 64 corpus
+   images must find its own key first at score >= 0.999; in-process
+   closed-loop load at c = 1, 16, 64 must launch the top-k once per
+   micro-batch; 64 images are added by ``update`` and found first by
+   themselves; ``embed``; a CUDA-event split of a request at buckets 1
+   and 64, and the tower's kernels per call under ``torch.profiler``
+   (launches, device ms, the heaviest kernels; phases 5 and 7 too).
+8. Phase 7 serves ``serve --tower multimodal`` at
+   ``configs/serve_multimodal.yaml`` (B4 at 380 px fused with the
+   ``roberta_wwm_ext`` tower, max_length 128, 1,280-d, batch and
+   max_batch 48, k 13, un-normalized squared L2, no threshold) and runs
+   ``multimodal_similar_job``: seed-0 weights saved as a port checkpoint
+   and restored by ``_multimodal_embedder``. It embeds 4,096 synthetic
+   (title, image) pairs through ``MultimodalEmbedder``, runs the job into
+   an in-memory KV sink (the top-k launch count must rise; 256 sampled
+   rows must equal the plain l2 top-k), builds the service from the same
+   vectors through ``cli/serve.py:_service_from_corpus`` (the card can
+   neither decode ``{img_root}/{key}.jpg`` nor read an ``--emb_table``)
+   and holds it as phase 6 does, at buckets 1, 8, 48 and c = 1, 16, 48,
+   with scores ascending and each corpus pair's own key first at
+   distance <= 1e-3. The image paths take decoded uint8 arrays, so no
+   phase needs OpenCV; JPEG decode and image HTTP are held by the CPU
+   tests.
 
 Prints the card's name and power limit, one JSON line per phase, the
 ``{"kernels": [...]}`` line, and last ``{"ok": true, "device": ...}``.
@@ -108,25 +148,39 @@ import urllib.request
 import numpy as np
 import torch
 
+from multimodalsimilar_tpu_torch.cli.embedders import (_cv_embedder,
+                                                       _multimodal_embedder)
 from multimodalsimilar_tpu_torch.cli.serve import (_build_serve_service,
+                                                   _service_from_corpus,
                                                    _warm_serve_service)
 from multimodalsimilar_tpu_torch.cli.train import _sampler_fn, _trainer
 from multimodalsimilar_tpu_torch.data.datasets import TextClassificationSource
 from multimodalsimilar_tpu_torch.data.prefetch import to_device
-from multimodalsimilar_tpu_torch.data.tokenizer import TextTokenizer
+from multimodalsimilar_tpu_torch.data.tokenizer import (TextTokenizer,
+                                                        build_char_vocab)
 from multimodalsimilar_tpu_torch.models.bert import BertConfig
+from multimodalsimilar_tpu_torch.models import efficientnet as E
 from multimodalsimilar_tpu_torch.models.classifiers import NlpTextClassifier
+from multimodalsimilar_tpu_torch.models.fold_bn import fold_cv_classifier
+from multimodalsimilar_tpu_torch.models.multimodal import MultimodalClassifier
+from multimodalsimilar_tpu_torch.models.vision import (CvImageClassifier,
+                                                       backbone_config,
+                                                       device_normalize,
+                                                       to_nchw)
 from multimodalsimilar_tpu_torch.ops import _build
 from multimodalsimilar_tpu_torch.ops import arcface as A
 from multimodalsimilar_tpu_torch.ops import topk as T
+from multimodalsimilar_tpu_torch.pipelines.embcache import EmbeddingCache
 from multimodalsimilar_tpu_torch.pipelines.embedders import TextEmbedder
-from multimodalsimilar_tpu_torch.pipelines.serving import (_read_back_later,
-                                                           make_server)
-from multimodalsimilar_tpu_torch.pipelines.similar import nlp_similar_job
+from multimodalsimilar_tpu_torch.pipelines.serving import (
+    MultimodalQueryParser, _read_back_later, make_server)
+from multimodalsimilar_tpu_torch.pipelines.similar import (
+    multimodal_similar_job, nlp_similar_job)
 from multimodalsimilar_tpu_torch.pipelines.sinks import InMemoryKVSink
 from multimodalsimilar_tpu_torch.retrieval.engine import (SimilarityEngine,
                                                           _normalize_rows)
 from multimodalsimilar_tpu_torch.retrieval.knn import knn_search
+from multimodalsimilar_tpu_torch.train.checkpoint import CheckpointManager
 from multimodalsimilar_tpu_torch.train.tasks import text_arcface_task
 from multimodalsimilar_tpu_torch.utils.dtypes import DTypePolicy
 
@@ -139,6 +193,12 @@ AF_ATOL, AF_RTOL, AF_DCOS = 2e-4, 1e-5, 4e-6
 N_TRAIN, N_EVAL = 4_096, 1_024
 N_SERVE, N_CATEGORIES = 100_000, 40    # benchmarks/serving_load.py's corpus
 SERVE_LEVELS = (1, 16, 64, 128)
+BACKBONE, CV_SIZE, MM_SIZE = "efficientnet_b4", 512, 380
+CV_DIM, MM_DIM, CV_LABELS, MM_LABELS = 512, 512 + 768, 4_181, 796
+N_CV_IMAGES, CV_CHUNK, N_CV_CORPUS = 8_192, 1_024, 100_000
+N_MM = 4_096
+CV_LEVELS, MM_LEVELS = (1, 16, 64), (1, 16, 48)
+FOLD_RTOL = 1e-4
 
 
 def card_line() -> str:
@@ -183,6 +243,23 @@ def unit_rows(rng, n, d, dev):
     x = torch.from_numpy(rng.standard_normal((n, d), dtype=np.float32))
     x = x.to(dev)
     return x / x.norm(dim=1, keepdim=True)
+
+
+def fused_rows(rng, n, dev):
+    """Rows shaped like the multimodal tower's output: a unit 512-d image
+    half and a unit 768-d text half, norm sqrt(2), un-normalized."""
+    return torch.cat([unit_rows(rng, n, CV_DIM, dev),
+                      unit_rows(rng, n, MM_DIM - CV_DIM, dev)], dim=1)
+
+
+def make_images(rng, n: int, size: int) -> np.ndarray:
+    """``n`` synthetic uint8 [size, size, 3] photos: a random 16 x 16 grid
+    of colours, each cell a flat block, so pooled features differ
+    between images as they do between products."""
+    grid = rng.integers(0, 256, (n, 16, 16, 3), dtype=np.uint8)
+    cell = -(-size // 16)
+    x = np.repeat(np.repeat(grid, cell, axis=1), cell, axis=2)
+    return np.ascontiguousarray(x[:, :size, :size])
 
 
 def check_case(name, got, want, k, exact=False) -> float:
@@ -308,6 +385,19 @@ def phase1(dev) -> dict:
     # enough query tiles that the corpus is not split (no merge pass)
     run("unsplit_l2_k26", x[: 32_768 - 100], unit_rows(rng, 20_000, DIM, dev),
         26, "l2")
+
+    # the image paths: the cv daemon's 64 queries against its 100,000-row
+    # corpus at d=512 (the engine pads it to 131,072 rows), and the fused
+    # tower's un-normalized l2 at d=1,280 over phase 7's 4,096 pairs: the
+    # daemon's 48 queries and the job's self-search
+    cv = torch.cat([unit_rows(rng, N_CV_CORPUS, CV_DIM, dev),
+                    torch.zeros(131_072 - N_CV_CORPUS, CV_DIM, device=dev)])
+    run("cv_serving_ip_k13", cv, unit_rows(rng, 64, CV_DIM, dev), 13, "ip",
+        true_n=N_CV_CORPUS, timed=True)
+    mm = fused_rows(rng, N_MM, dev)
+    run("mm_serving_l2_k13", mm, fused_rows(rng, 48, dev), 13, "l2",
+        timed=True)
+    run("mm_job_l2_k13", mm, mm, 13, "l2", timed=True)
 
     ints = torch.from_numpy(rng.integers(-3, 4, size=(N_CORPUS, DIM))
                             .astype(np.float32)).to(dev)
@@ -746,16 +836,17 @@ def _ms_stats(lat) -> dict:
             "p99_ms": float(p[2])}
 
 
-def serve_vs_plain(service, queries, dev) -> dict:
-    """The fused path at buckets 1, 8 and 64 against ``embed_device`` at
-    the same bucket and the plain top-k on the same device corpus; then
-    ``similar(score_th=None)`` (bucket 1) against the bucket-1 keys."""
+def serve_vs_plain(service, queries, dev, buckets=(1, 8, 64)) -> dict:
+    """The fused path at each bucket against ``embed_device`` at the same
+    bucket and the plain top-k (the engine's metric) on the same device
+    corpus; then ``similar(score_th=None)`` (bucket 1) against the
+    bucket-1 keys, in the metric's order."""
     embedder = service._embed_queries_device.__self__
-    corpus_dev, true_n, _ = service.engine._corpus_dev
-    k = service.k
-    keys = service.engine.keys
+    engine = service.engine
+    corpus_dev, true_n, _ = engine._corpus_dev
+    k, keys, metric = service.k, engine.keys, engine.metric
     errs, plain_b1 = {}, []
-    for b in (1, 8, 64):
+    for b in buckets:
         err = 0.0
         for s in range(0, len(queries), b):
             chunk = queries[s: s + b]
@@ -763,33 +854,42 @@ def serve_vs_plain(service, queries, dev) -> dict:
                                       for t in chunk])
             gv = torch.from_numpy(np.stack([g[0] for g in got])).to(dev)
             gi = torch.from_numpy(np.stack([g[1] for g in got])).to(dev)
-            q = _normalize_rows(embedder.embed_device(chunk, pad_to=b)
-                                .float())
-            want = T.topk_plain(corpus_dev, q, k + 1, "ip", true_n)
+            q = embedder.embed_device(chunk, pad_to=b).float()
+            if engine._normalized:
+                q = _normalize_rows(q)
+            want = T.topk_plain(corpus_dev, q, k + 1, metric, true_n)
+            want = (want[0][: len(chunk)], want[1][: len(chunk)])
             err = max(err, check_case(f"serve_b{b}", (gv, gi), want, k))
             if b == 1:
                 plain_b1.append((want[0][0].cpu().numpy(),
                                  want[1][0].cpu().numpy()))
         errs[f"bucket_{b}"] = err
-    for t, (pv, pi) in zip(queries, plain_b1):
-        got = service.similar(t, score_th=None)
+    for j, (pv, pi) in enumerate(plain_b1):
+        got = service.similar(queries[j], score_th=None)
         gs = np.array([g["score"] for g in got])
         if len(got) != k or not np.allclose(gs, pv[:k], atol=ATOL,
                                             rtol=RTOL):
-            raise AssertionError(f"similar({t!r}) scores {gs} vs plain "
+            raise AssertionError(f"similar(query {j}) scores {gs} vs plain "
                                  f"{pv[:k]}")
+        order = np.diff(gs) if metric == "l2" else -np.diff(gs)
+        if (order < 0).any():
+            raise AssertionError(f"similar(query {j}): scores out of "
+                                 f"{metric} order: {gs}")
         gap = np.abs(np.diff(pv))
         for r in range(k):
             if (r == 0 or gap[r - 1] > GAP) and gap[r] > GAP \
                     and got[r]["key"] != keys[pi[r]]:
-                raise AssertionError(f"similar({t!r}) rank {r}: "
+                raise AssertionError(f"similar(query {j}) rank {r}: "
                                      f"{got[r]['key']} vs {keys[pi[r]]}")
-    zs, zi = service._search_bucketed(np.zeros((1, DIM), np.float32), 1)
-    if zs.any() or not (zi[0] == np.arange(k)).all():
-        raise AssertionError(f"zero query: scores {zs[0]}, ids {zi[0]}")
-    return {"queries": len(queries), "max_abs_err_by_bucket": errs,
-            "similar_checked": len(plain_b1), "zero_query_ids": zi[0][:4]
-            .tolist()}
+    out = {"queries": len(queries), "max_abs_err_by_bucket": errs,
+           "similar_checked": len(plain_b1)}
+    if metric == "ip":
+        d = engine._emb.shape[1]
+        zs, zi = service._search_bucketed(np.zeros((1, d), np.float32), 1)
+        if zs.any() or not (zi[0] == np.arange(k)).all():
+            raise AssertionError(f"zero query: scores {zs[0]}, ids {zi[0]}")
+        out["zero_query_ids"] = zi[0][:4].tolist()
+    return out
 
 
 def closed_loop(call, texts, c: int) -> dict:
@@ -826,9 +926,9 @@ def closed_loop(call, texts, c: int) -> dict:
     return {"c": c, "requests": n_req, "qps": n_req / wall, **_ms_stats(lat)}
 
 
-def drive_levels(service, call, texts) -> list:
+def drive_levels(service, call, texts, levels=SERVE_LEVELS) -> list:
     rows = []
-    for c in SERVE_LEVELS:
+    for c in levels:
         service._batcher.stats["max_batch_seen"] = 0
         b0 = service.stats["batches"]
         row = closed_loop(call, texts, c)
@@ -883,43 +983,87 @@ def check_update_embed(base, titles, cats, rng) -> dict:
             "embed_shape": list(emb.shape)}
 
 
-def request_split(service, texts, dev, reps: int = 30) -> dict:
-    """Median ms of each stage of one similar-only micro-batch at buckets
-    1 and 64, by CUDA events on the worker's stream: tokenize and upload
-    (and its host time), tower, normalize + top-k, read-back into pinned
-    memory, and the host wall of the whole request."""
+def request_split(service, payloads, buckets=(1, 64), reps: int = 30,
+                  first: str = "tokenize_upload") -> dict:
+    """Median ms of each stage of one similar-only micro-batch at each
+    bucket, by CUDA events on the worker's stream: host prep and upload
+    (``first``: tokenize and/or the pinned uint8 copy, and its host
+    time), tower, normalize + top-k, read-back into pinned memory, and
+    the host wall of the whole request."""
     embedder = service._embed_queries_device.__self__
-    corpus_dev, true_n, _ = service.engine._corpus_dev
+    engine = service.engine
+    corpus_dev, true_n, _ = engine._corpus_dev
     out = {}
-    for b in (1, 64):
+    for b in buckets:
         rows = []
         for r in range(reps):
-            chunk = [texts[(r * b + j) % len(texts)] for j in range(b)]
+            chunk = [payloads[(r * b + j) % len(payloads)]
+                     for j in range(b)]
             ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             ev[0].record()
-            toks = embedder._tokens(chunk, b)
-            t_tok = time.perf_counter() - t0
+            inputs = embedder._inputs(chunk, b)
+            t_prep = time.perf_counter() - t0
             ev[1].record()
             with torch.inference_mode():
-                emb = embedder.tower_fn(*toks)
+                emb = embedder.tower_fn(*inputs)
                 ev[2].record()
-                v, i = knn_search(corpus_dev, _normalize_rows(emb.float()),
-                                  service.k, "ip", true_n=true_n)
+                q = emb.float()
+                if engine._normalized:
+                    q = _normalize_rows(q)
+                v, i = knn_search(corpus_dev, q, service.k, engine.metric,
+                                  true_n=true_n)
             ev[3].record()
             deferred = _read_back_later(v, i, b)
             ev[4].record()
             deferred.finish()
             wall = time.perf_counter() - t0
             torch.cuda.synchronize()
-            rows.append([t_tok * 1e3] + [ev[j].elapsed_time(ev[j + 1])
-                                         for j in range(4)] + [wall * 1e3])
+            rows.append([t_prep * 1e3] + [ev[j].elapsed_time(ev[j + 1])
+                                          for j in range(4)] + [wall * 1e3])
         med = np.median(np.asarray(rows), axis=0)
         out[f"bucket_{b}"] = dict(zip(
-            ("tokenize_upload_host_ms", "tokenize_upload_ms", "tower_ms",
+            (f"{first}_host_ms", f"{first}_ms", "tower_ms",
              "normalize_topk_ms", "readback_ms", "request_host_ms"),
             med.tolist()))
+    return out
+
+
+def profile_tower(service, payloads, buckets, n: int = 5) -> dict:
+    """The tower's device work per call at each bucket: ``n`` calls under
+    ``torch.profiler`` on inputs uploaded beforehand, the kernels
+    launched per call, their device ms per call (the busy share of the
+    window beside it) and the heaviest kernels."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    embedder = service._embed_queries_device.__self__
+    out = {}
+    for b in buckets:
+        inputs = embedder._inputs(
+            [payloads[j % len(payloads)] for j in range(b)], b)
+        with torch.inference_mode():
+            embedder.tower_fn(*inputs)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            with torch.inference_mode():
+                for _ in range(n):
+                    embedder.tower_fn(*inputs)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA
+                   and not e.is_user_annotation]
+        busy = sum(e.self_device_time_total for e in kernels) / 1e3 / n
+        top = sorted(((e.self_device_time_total / 1e3 / n, e.count // n,
+                       e.key[:90]) for e in kernels), reverse=True)[:8]
+        out[f"bucket_{b}"] = {
+            "kernel_launches_per_call": sum(e.count for e in kernels) // n,
+            "device_ms_per_call": busy,
+            "device_busy_share": busy * n / wall_ms,
+            "top_kernels_ms_count": top}
     return out
 
 
@@ -969,17 +1113,379 @@ def phase5(dev) -> dict:
             httpd.shutdown()
             httpd.server_close()
             server.join(timeout=30)
-        split = request_split(service, novel, dev)
+        split = request_split(service, novel)
+        tower = profile_tower(service, novel, (1, 64))
     finally:
         service.close()
     return {"corpus": n, "corpus_embed_s": build_s, "warm_s": warm_s,
             "fused_vs_plain": checked, "topk_launches": launches,
             "similar_batches": batches, "http": http_rows,
             "in_process": inproc_rows, "update": updated,
-            "request_split": split,
+            "request_split": split, "tower_profile": tower,
             "config": "configs/serve.yaml: roberta_wwm_ext (base), "
                       "max_length 80, batch 64, k 13, score_th 0.9, "
                       "max_batch 64, max_wait 5 ms",
+            "policy": "inference (bf16)"}
+
+
+def seed_bn_statistics(model, seed: int, images, dev) -> None:
+    """Backbone BatchNorm statistics as training leaves them, for a
+    ``CvImageClassifier`` with random weights: variances and scales drawn
+    around 1 from ``seed``, and each BN's mean measured on what reaches it
+    from one batch of ``images``. A fresh init's 0 and 1 would make the
+    fold nearly the identity; drawn means (or shifts) would swamp a
+    random tower's activations, which shrink with depth, and collapse
+    every image onto one embedding."""
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, torch.nn.BatchNorm2d):
+                n = m.num_features
+                m.running_var.copy_(torch.empty(n).uniform_(0.5, 2.0,
+                                                            generator=g))
+                m.weight.copy_(torch.empty(n).uniform_(0.8, 1.2,
+                                                       generator=g))
+    real = E.batch_norm
+
+    def measuring(x, bn, dtype):
+        if isinstance(bn, torch.nn.BatchNorm2d):
+            bn.running_mean.copy_(x.float().mean(dim=(0, 2, 3)))
+        return real(x, bn, dtype)
+
+    model.to(dev)
+    E.batch_norm = measuring
+    try:
+        with torch.no_grad():
+            model.predict_emb(to_nchw(device_normalize(
+                torch.from_numpy(images).to(dev))))
+    finally:
+        E.batch_norm = real
+        model.cpu()
+
+
+def cv_args(work: str) -> argparse.Namespace:
+    """configs/serve_cv.yaml written out, with port 0, the corpus as a
+    table, and the checkpoint, the packed cache (``--emb_cache``) and an
+    empty image root under ``work``."""
+    return argparse.Namespace(
+        tower="cv", data="synthetic corpus (table=)", key_col="spu_sn",
+        text_col="spu_name", category_col="first_level_category_id",
+        backbone=BACKBONE, image_size=CV_SIZE, fc_dim=CV_DIM,
+        img_root=os.path.join(work, "images"), num_labels=CV_LABELS,
+        batch_size=64, k=13, score_th=0.15, host="127.0.0.1", port=0,
+        max_batch=64, max_wait_ms=5.0,
+        checkpoint=os.path.join(work, "ckpt"),
+        emb_cache=os.path.join(work, "emb_cache"), emb_table=None,
+        emb_col="embedding", emb_table_cache=None, pallas_topk=False,
+        approx_recall=None)
+
+
+def fold_check(state_dict, images, dev) -> dict:
+    """The folded tower against the unfolded one under the full-precision
+    policy (TF32 off) on ``images``. Folding is exact math, so they may
+    differ by f32 rounding only: max |a - b| <= FOLD_RTOL * max |b|."""
+    cfg = backbone_config(BACKBONE)
+    pol = DTypePolicy.full_precision()
+    plain = CvImageClassifier(cfg, CV_LABELS, fc_dim=CV_DIM, policy=pol)
+    plain.load_state_dict(state_dict)
+    fcfg, fsd = fold_cv_classifier(state_dict, cfg)
+    folded = CvImageClassifier(fcfg, CV_LABELS, fc_dim=CV_DIM, policy=pol)
+    folded.load_state_dict(fsd)
+    x = to_nchw(device_normalize(torch.from_numpy(images).to(dev)))
+    outs = []
+    for m in (plain, folded):
+        m = m.to(dev, memory_format=torch.channels_last)
+        with torch.inference_mode():
+            outs.append(m.predict_emb(x))
+    err = float((outs[0] - outs[1]).abs().max())
+    scale = float(outs[0].abs().max())
+    if not err <= FOLD_RTOL * scale:
+        raise AssertionError(f"folded vs unfolded: max abs err {err}, "
+                             f"largest |emb| {scale}")
+    return {"images": len(images), "max_abs_err": err, "max_abs": scale,
+            "tolerance": f"{FOLD_RTOL} x max |emb|, f32, TF32 off"}
+
+
+def own_first(service, payloads, keys, ok) -> dict:
+    """Each payload, queried alone, finds its own key first with a score
+    that ``ok`` accepts."""
+    worst = None
+    for p, key in zip(payloads, keys):
+        top = service.similar(p, score_th=None)[0]
+        if top["key"] != key or not ok(top["score"]):
+            raise AssertionError(f"{key}: first neighbour {top}")
+        s = top["score"]
+        worst = s if worst is None else (min(worst, s)
+                                         if service.engine.metric == "ip"
+                                         else max(worst, s))
+    return {"checked": len(keys), "worst_own_score": worst}
+
+
+def load_and_launches(service, payloads, levels) -> dict:
+    """In-process closed-loop load at ``levels``; the top-k launches,
+    counted from 0, must equal the micro-batches run."""
+    T.LAUNCHES["topk"] = 0
+    b0 = service.stats["batches"]
+    rows = drive_levels(service, service.similar, payloads, levels)
+    launches = T.LAUNCHES["topk"]
+    batches = service.stats["batches"] - b0
+    if launches != batches:
+        raise AssertionError(f"{launches} top-k launches for {batches} "
+                             f"similar-only batches")
+    return {"in_process": rows, "topk_launches": launches,
+            "similar_batches": batches}
+
+
+def update_and_embed(service, payloads, keys, cats, ok, dim) -> dict:
+    """``update`` new keys, each then found first by itself; ``embed``."""
+    n0 = service.engine.n
+    n = service.update(payloads, keys, categories=cats)
+    if n != n0 + len(keys):
+        raise AssertionError(f"update: corpus {n}, want {n0 + len(keys)}")
+    found = own_first(service, payloads, keys, ok)
+    emb = service.embed(payloads[:8])
+    if emb.shape != (8, dim) or not np.isfinite(emb).all():
+        raise AssertionError(f"embed: shape {emb.shape}")
+    return {"updated": len(keys), "corpus": n, **found,
+            "embed_shape": list(emb.shape)}
+
+
+def phase6(dev) -> dict:
+    """``serve --tower cv`` at configs/serve_cv.yaml (see the docstring)."""
+    work = tempfile.mkdtemp(prefix="chip_smoke_cv_")
+    try:
+        args = cv_args(work)
+        model = CvImageClassifier(backbone_config(BACKBONE), CV_LABELS,
+                                  fc_dim=CV_DIM,
+                                  generator=torch.Generator().manual_seed(
+                                      SEED))
+        rng = np.random.default_rng(SEED + 7)
+        probe = make_images(np.random.default_rng(SEED + 8), 64, CV_SIZE)
+        seed_bn_statistics(model, SEED + 7, probe[:8], dev)
+        CheckpointManager(args.checkpoint).save(0, {"model":
+                                                    model.state_dict()})
+        fold = fold_check(model.state_dict(), probe, dev)
+        del model
+        torch.cuda.empty_cache()
+
+        # 1. the corpus pass, through the tower the service will load
+        embedder = _cv_embedder(args, device=dev)
+        embedder.embed_batch(probe)                  # warm-up, not timed
+        parts, embed_s, first = [], 0.0, None
+        for _ in range(N_CV_IMAGES // CV_CHUNK):
+            imgs = make_images(rng, CV_CHUNK, CV_SIZE)
+            if first is None:
+                first = imgs[:64].copy()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            parts.append(embedder.embed_batch(imgs))
+            embed_s += time.perf_counter() - t0
+        img_emb = np.concatenate(parts)
+        if img_emb.shape != (N_CV_IMAGES, CV_DIM) \
+                or not np.isfinite(img_emb).all():
+            raise AssertionError(f"corpus embeddings {img_emb.shape}")
+        del embedder, parts
+        torch.cuda.empty_cache()
+
+        # 2. the corpus: those vectors and seeded unit vectors in the
+        # packed cache, so no key decodes an image
+        keys = ([f"img{i:05d}" for i in range(N_CV_IMAGES)]
+                + [f"syn{i:06d}" for i in range(N_CV_CORPUS - N_CV_IMAGES)])
+        syn = rng.standard_normal((N_CV_CORPUS - N_CV_IMAGES, CV_DIM),
+                                  dtype=np.float32)
+        syn /= np.linalg.norm(syn, axis=1, keepdims=True)
+        cache = EmbeddingCache.open(args.emb_cache, CV_DIM)
+        cache.put_many(dict(zip(keys, np.concatenate([img_emb, syn]))))
+        cats = [int(c) for c in rng.integers(0, N_CATEGORIES, N_CV_CORPUS)]
+        table = {"spu_sn": keys, "first_level_category_id": cats}
+
+        # 3. build and warm
+        t0 = time.perf_counter()
+        service, n = _build_serve_service(args, table=table, device=dev)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        try:
+            t0 = time.perf_counter()
+            _warm_serve_service(service, args)
+            torch.cuda.synchronize()
+            warm_s = time.perf_counter() - t0
+            print(json.dumps({"phase6_startup": {
+                "corpus": n, "corpus_images_per_s": N_CV_IMAGES / embed_s,
+                "build_s": build_s, "warm_s": warm_s, "fold": fold}}),
+                flush=True)
+            # 4. checks
+            novel = make_images(np.random.default_rng(SEED + 9), 64,
+                                CV_SIZE)
+            checked = serve_vs_plain(service, list(first[:32])
+                                     + list(novel[:32]), dev)
+            own = own_first(service, list(first), keys[:64],
+                            lambda s: s >= 0.999)
+            load = load_and_launches(service, list(novel), CV_LEVELS)
+            new = make_images(np.random.default_rng(SEED + 10), 64, CV_SIZE)
+            updated = update_and_embed(
+                service, list(new), [f"new{i:03d}" for i in range(64)],
+                [int(c) for c in rng.integers(0, N_CATEGORIES, 64)],
+                lambda s: s >= 0.999, CV_DIM)
+            split = request_split(service, list(novel), first="upload")
+            tower = profile_tower(service, list(novel), (1, 64))
+        finally:
+            service.close()
+        cache.close()
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return {"corpus": n, "corpus_images": N_CV_IMAGES,
+            "corpus_images_per_s": N_CV_IMAGES / embed_s,
+            "corpus_embed_s": embed_s, "build_s": build_s, "warm_s": warm_s,
+            "fold": fold, "fused_vs_plain": checked, "own_first": own,
+            **load, "update": updated, "request_split": split,
+            "tower_profile": tower,
+            "config": "configs/serve_cv.yaml: efficientnet_b4 at 512 px, "
+                      "fc 512, 4181 labels, batch 64, k 13, score_th "
+                      "0.15, max_batch 64, max_wait 5 ms, BN folded",
+            "policy": "inference (bf16)"}
+
+
+def mm_args(work: str) -> argparse.Namespace:
+    """configs/serve_multimodal.yaml written out (``bert_preset:
+    roberta_wwm_ext`` is the ``base`` preset), with port 0, the corpus as
+    a table, and the checkpoint and vocab under ``work``."""
+    return argparse.Namespace(
+        tower="multimodal", data="synthetic pairs (table=)",
+        key_col="spu_sn", text_col="spu_name", category_col=None,
+        backbone=BACKBONE, bert_preset="base", image_size=MM_SIZE,
+        fc_dim=CV_DIM, num_labels=MM_LABELS, max_length=128,
+        img_root=os.path.join(work, "images"), batch_size=48, k=13,
+        score_th=None, host="127.0.0.1", port=0, max_batch=48,
+        max_wait_ms=5.0, checkpoint=os.path.join(work, "ckpt"),
+        tokenizer=os.path.join(work, "vocab.txt"), emb_table=None,
+        emb_col="embedding", emb_table_cache=None, pallas_topk=False,
+        approx_recall=None)
+
+
+def phase7(dev) -> dict:
+    """``serve --tower multimodal`` and ``multimodal_similar_job`` (see
+    the docstring)."""
+    work = tempfile.mkdtemp(prefix="chip_smoke_mm_")
+    rng = np.random.default_rng(SEED + 11)
+    try:
+        args = mm_args(work)
+        titles = make_titles(N_MM + 96, rng)
+        keys = [f"spu{i:06d}" for i in range(N_MM)]
+        table = {"spu_sn": keys, "spu_name": titles[:N_MM]}
+        build_char_vocab(titles, out_path=args.tokenizer)
+        model = MultimodalClassifier(
+            BertConfig.roberta_wwm_ext(), backbone_config(BACKBONE),
+            num_labels=MM_LABELS, fc_dim=CV_DIM,
+            generator=torch.Generator().manual_seed(SEED))
+        seed_bn_statistics(model.cv, SEED + 12, make_images(
+            np.random.default_rng(SEED + 12), 8, MM_SIZE), dev)
+        CheckpointManager(args.checkpoint).save(0, {"model":
+                                                    model.state_dict()})
+        del model
+        embedder = _multimodal_embedder(args, table, device=dev)
+
+        # 1. embed the pairs, in _fused_embeddings' chunks of 8 batches
+        chunk = 8 * args.batch_size
+        embedder(make_images(np.random.default_rng(SEED + 13), 48, MM_SIZE),
+                 titles[:48])                        # warm-up, not timed
+        parts, embed_s, first = [], 0.0, None
+        for s in range(0, N_MM, chunk):
+            n = min(chunk, N_MM - s)
+            imgs = make_images(rng, n, MM_SIZE)
+            if first is None:
+                first = imgs[:48].copy()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            parts.append(embedder(imgs, titles[s: s + n]))
+            embed_s += time.perf_counter() - t0
+        emb = np.concatenate(parts)
+        halves = np.linalg.norm(emb[:, :CV_DIM], axis=1), np.linalg.norm(
+            emb[:, CV_DIM:], axis=1)
+        if emb.shape != (N_MM, MM_DIM) or not np.isfinite(emb).all() \
+                or max(float(np.abs(h - 1).max()) for h in halves) > 1e-2:
+            raise AssertionError(f"fused embeddings {emb.shape}, halves' "
+                                 "norms not 1")
+
+        # 2. the job, into an in-memory KV sink
+        sink = InMemoryKVSink()
+        T.LAUNCHES["topk"] = 0
+        t0 = time.perf_counter()
+        written = multimodal_similar_job(table, emb, sink, k=13, device=dev)
+        torch.cuda.synchronize()
+        job_s = time.perf_counter() - t0
+        job_launches = T.LAUNCHES["topk"]
+        if job_launches < 1 or written <= 0:
+            raise AssertionError(f"job: {job_launches} launches, "
+                                 f"{written} keys written")
+        known = set(keys)
+        for key in sink.keys()[:2000]:
+            spu = key.removeprefix("dj_similar:")
+            nbrs = sink.get(key).split(",")
+            if spu not in known or spu in nbrs or not set(nbrs) <= known \
+                    or len(nbrs) > 12:
+                raise AssertionError(f"bad KV item {key} -> {nbrs[:5]}")
+        engine = SimilarityEngine(emb, keys, metric="l2", normalize=False,
+                                  device=dev)
+        scores, idx = engine.search(13)
+        corpus_dev, true_n, _ = engine._corpus_dev
+        rows = np.sort(rng.choice(N_MM, size=min(256, N_MM), replace=False))
+        want = T.topk_plain(corpus_dev, torch.from_numpy(emb[rows]).to(dev),
+                            14, "l2", true_n)
+        job_err = check_case("mm_job", (
+            torch.from_numpy(scores[rows]).to(dev),
+            torch.from_numpy(idx[rows]).to(dev)), want, 13)
+
+        # 3. the service from the same vectors, through the helper
+        # _build_serve_service ends in
+        def embed_queries(pairs):
+            pairs = list(pairs)
+            return embedder(np.stack([img for _, img in pairs]),
+                            [text for text, _ in pairs])
+
+        t0 = time.perf_counter()
+        service = _service_from_corpus(
+            args, emb, keys, None, embed_queries, embedder,
+            parser=MultimodalQueryParser(args.image_size), metric="l2",
+            normalize=False, device=dev)
+        _warm_serve_service(service, args)
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+        try:
+            print(json.dumps({"phase7_startup": {
+                "pairs": N_MM, "pairs_per_s": N_MM / embed_s,
+                "job_s": job_s, "job_topk_launches": job_launches,
+                "warm_s": warm_s}}), flush=True)
+            pairs = list(zip(titles[:48], first))
+            novel_imgs = make_images(np.random.default_rng(SEED + 14), 48,
+                                     MM_SIZE)
+            novel = list(zip(titles[N_MM: N_MM + 48], novel_imgs))
+            checked = serve_vs_plain(service, pairs[:24] + novel[:24], dev,
+                                     buckets=(1, 8, 48))
+            own = own_first(service, pairs, keys[:48], lambda s: s <= 1e-3)
+            load = load_and_launches(service, novel, MM_LEVELS)
+            new_imgs = make_images(np.random.default_rng(SEED + 15), 48,
+                                   MM_SIZE)
+            updated = update_and_embed(
+                service, list(zip(titles[N_MM + 48: N_MM + 96], new_imgs)),
+                [f"new{i:03d}" for i in range(48)], None,
+                lambda s: s <= 1e-3, MM_DIM)
+            split = request_split(service, novel, buckets=(1, 48))
+            tower = profile_tower(service, novel, (1, 48))
+        finally:
+            service.close()
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return {"pairs": N_MM, "pairs_per_s": N_MM / embed_s,
+            "embed_s": embed_s, "job_written": written, "job_s": job_s,
+            "job_topk_launches": job_launches,
+            "job_sample_max_abs_err": job_err, "warm_s": warm_s,
+            "fused_vs_plain": checked, "own_first": own, **load,
+            "update": updated, "request_split": split,
+            "tower_profile": tower,
+            "config": "configs/serve_multimodal.yaml: efficientnet_b4 at "
+                      "380 px + roberta_wwm_ext (base), max_length 128, "
+                      "fused 1280-d, 796 labels, batch and max_batch 48, "
+                      "k 13, un-normalized l2, no threshold",
             "policy": "inference (bf16)"}
 
 
@@ -1008,13 +1514,31 @@ def main() -> None:
     print(json.dumps({"phase4": p4}), flush=True)
     p5 = phase5(dev)
     print(json.dumps({"phase5": p5}), flush=True)
+    p6 = phase6(dev)
+    print(json.dumps({"phase6": p6}), flush=True)
+    p7 = phase7(dev)
+    print(json.dumps({"phase7": p7}), flush=True)
     m = p1["main"]
-    sv = next(c for c in p1["cases"] if c["case"] == "serving_ip_k13")
+    case = {c["case"]: c for c in p1["cases"]}
+    sv = case["serving_ip_k13"]
+    image_paths = {}
+    for name in ("cv_serving_ip_k13", "mm_serving_l2_k13", "mm_job_l2_k13"):
+        c = case[name]
+        tag = name.rsplit("_", 2)[0]
+        image_paths.update({f"{tag}_ms": c["ms"], f"{tag}_plain_ms":
+                            c["plain_ms"], f"{tag}_bound_ms": c["bound_ms"],
+                            f"{tag}_bound_by": c["bound_by"],
+                            f"{tag}_library_ms": c["library_ms"],
+                            f"{tag}_shape": {k: c[k] for k in (
+                                "q", "n", "true_n", "d", "k", "metric")}})
     topk = {"name": "topk", "route": "cuda",
             "source": "multimodalsimilar_tpu_torch/csrc/topk.cu",
             "replaces": "multimodalsimilar_tpu/ops/topk.py:56",
             "launches": p2["topk_launches"],
             "launches_serving": p5["topk_launches"],
+            "launches_cv": p6["topk_launches"],
+            "launches_multimodal": p7["topk_launches"],
+            "launches_mm_job": p7["job_topk_launches"],
             "max_abs_err": p1["max_abs_err"],
             "ms": m["ms"], "plain_ms": m["plain_ms"],
             "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
@@ -1023,7 +1547,8 @@ def main() -> None:
             "shape": {k: m[k] for k in ("q", "n", "d", "k", "metric")},
             "serving_ms": sv["ms"], "serving_bound_ms": sv["bound_ms"],
             "serving_library_ms": sv["library_ms"],
-            "serving_shape": {k: sv[k] for k in ("q", "n", "d", "k")}}
+            "serving_shape": {k: sv[k] for k in ("q", "n", "d", "k")},
+            **image_paths}
     a = p3["main"]
     arcface = {"name": "arcface", "route": "cuda",
                "source": "multimodalsimilar_tpu_torch/csrc/arcface.cu",

@@ -1,7 +1,7 @@
 """Shared command helpers (counterpart of the subset of
-multimodalsimilar_tpu/cli/common.py that the text serving and embedding
-export commands use): the tokenizer, the BERT presets, checkpoint restore
-and the embedding-table sink.
+multimodalsimilar_tpu/cli/common.py that the serving and embedding export
+commands use): the tokenizer, the BERT presets, checkpoint restore, the
+packed embedding cache (``--emb_cache``) and the embedding-table sink.
 
 Options whose code is not ported raise ``NotImplementedError`` instead of
 being ignored: HF tokenizers and ``hive://`` sinks.
@@ -67,6 +67,17 @@ def _bert_config(preset: str):
     make = {"tiny": BertConfig.tiny, "base": BertConfig.roberta_wwm_ext,
             "large": BertConfig.roberta_wwm_ext_large}[preset]
     return make()
+
+
+def _emb_cache(args):
+    """--emb_cache DIR -> packed EmbeddingCache (emb.txt stays the default
+    reference-compatible layout; the packed store backfills itself from
+    any existing emb.txt)."""
+    d = getattr(args, "emb_cache", None)
+    if not d:
+        return None
+    from multimodalsimilar_tpu_torch.pipelines.embcache import EmbeddingCache
+    return EmbeddingCache.open(d, args.fc_dim)
 
 
 def _make_table_sink(table: str):

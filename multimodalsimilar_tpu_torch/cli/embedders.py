@@ -1,11 +1,18 @@
-"""Text embedder construction shared by the embed and serve commands
-(counterpart of the text part of multimodalsimilar_tpu/cli/embedders.py):
-an ``NlpTextClassifier`` tower under ``DTypePolicy.inference()`` with
-weights from a port checkpoint, or from seed 0 without ``--checkpoint``.
+"""Embedder construction shared by the embed and serve commands
+(counterpart of multimodalsimilar_tpu/cli/embedders.py), every tower under
+``DTypePolicy.inference()``:
 
-``--int8`` (``models/quant.py``, ROADMAP A16) and pipeline-parallel
-checkpoints raise ``NotImplementedError``. The cv and multimodal towers
-come with the image slice.
+* text: an ``NlpTextClassifier`` tower, weights from a port checkpoint
+  or from seed 0 without ``--checkpoint``;
+* cv: a ``CvImageClassifier`` (checkpoint or seed 0) with its backbone's
+  BatchNorm folded into the convs (``models/fold_bn.py``);
+* multimodal: a ``MultimodalClassifier`` from a port checkpoint, which
+  this path requires, as the JAX package's does.
+
+A checkpoint is the port's own (``train/checkpoint.py``: ``{step, model,
+...}``); the heads' class counts need not match ``--num_labels``, as the
+embedders never run a head. ``--int8`` (``models/quant.py``, ROADMAP A16)
+and pipeline-parallel checkpoints raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -16,8 +23,8 @@ import os
 import numpy as np
 
 from multimodalsimilar_tpu_torch.cli.common import (
-    _bert_config, _require_tokenizer_with_checkpoint, _restore_required,
-    _tokenizer)
+    _bert_config, _emb_cache, _require_tokenizer_with_checkpoint,
+    _restore_required, _tokenizer)
 from multimodalsimilar_tpu_torch.data.datasets import column
 
 
@@ -90,3 +97,143 @@ def _embed_fn_from_embedder(embedder):
         return np.asarray(embedder(list(texts)))
 
     return embed_texts
+
+
+def _is_head(key: str) -> bool:
+    return key == "head.weight" or key.endswith(".head.weight")
+
+
+def _load_without_heads(model, state_dict, checkpoint) -> None:
+    """Every tower weight of ``state_dict`` into ``model``, strictly; the
+    ArcFace heads are skipped (an embedder never runs them, and their
+    class counts need not match ``--num_labels``)."""
+    from multimodalsimilar_tpu_torch.data.datasets import InputError
+    hint = "check --backbone, --bert_preset and --fc_dim"
+    try:
+        missing, unexpected = model.load_state_dict(
+            {k: v for k, v in state_dict.items() if not _is_head(k)},
+            strict=False)
+    except RuntimeError as e:                # a tensor of another shape
+        raise InputError(f"{checkpoint}: the checkpoint does not fit the "
+                         f"model built from the flags — {hint} "
+                         f"({str(e).strip().splitlines()[-1].strip()})"
+                         ) from e
+    bad = [k for k in missing if not _is_head(k)] + list(unexpected)
+    if bad:
+        raise InputError(f"{checkpoint}: the checkpoint does not fit the "
+                         f"model built from the flags — {hint} (first "
+                         f"mismatched keys: {bad[:4]})")
+
+
+def _load_cv_tower(args, checkpoint, num_labels):
+    """The image classifier in the serving config, one construction site:
+    ``DTypePolicy.inference()`` with the backbone's BN folded into its
+    convs (exact math), weights from ``checkpoint`` or seed 0."""
+    from multimodalsimilar_tpu_torch.models.fold_bn import fold_cv_classifier
+    from multimodalsimilar_tpu_torch.models.vision import (
+        CvImageClassifier, backbone_config)
+    from multimodalsimilar_tpu_torch.utils.dtypes import DTypePolicy
+
+    cfg = backbone_config(args.backbone)
+    policy = DTypePolicy.inference()
+    model = CvImageClassifier(cfg, num_labels, fc_dim=args.fc_dim,
+                              policy=policy)
+    if checkpoint:
+        state = _restore_required(checkpoint)
+        _load_without_heads(model, state["model"], checkpoint)
+    folded_cfg, sd = fold_cv_classifier(model.state_dict(), cfg)
+    folded = CvImageClassifier(folded_cfg, num_labels, fc_dim=args.fc_dim,
+                               policy=policy)
+    folded.load_state_dict(sd)
+    return folded
+
+
+def _image_paths(args):
+    """key -> the reference layout's candidate images,
+    {img_root}/{key}/0..7.jpg."""
+    return lambda k: [os.path.join(args.img_root, str(k), f"{j}.jpg")
+                      for j in range(8)]
+
+
+def _cv_embedder(args, device="cuda"):
+    """ImageEmbedder over the folded cv tower, with the reference's
+    {img_root}/{key}/emb.txt cache and ``--emb_cache``."""
+    from multimodalsimilar_tpu_torch.pipelines.embedders import ImageEmbedder
+    return ImageEmbedder(
+        _load_cv_tower(args, args.checkpoint, args.num_labels),
+        image_size=args.image_size, batch_size=args.batch_size,
+        cache_path_for_key=lambda k: os.path.join(args.img_root, str(k),
+                                                  "emb.txt"),
+        cache=_emb_cache(args), emb_dim=args.fc_dim, device=device)
+
+
+def _build_cv_embed_fn(args, device="cuda"):
+    """key -> embedding dict interface over the cv tower: each key's
+    images averaged, emb.txt and --emb_cache respected."""
+    embedder = _cv_embedder(args, device=device)
+    paths = _image_paths(args)
+
+    def embed_fn(sub):
+        return embedder.embed_keys([str(k) for k in column(sub,
+                                                           args.key_col)],
+                                   paths)
+
+    return embed_fn
+
+
+def _multimodal_embedder(args, df, device="cuda"):
+    """MultimodalEmbedder over the checkpointed fused tower — shared by
+    the offline similar job (``_fused_embeddings``) and the serving
+    daemon (``serve --tower multimodal``)."""
+    from multimodalsimilar_tpu_torch.models.multimodal import (
+        MultimodalClassifier)
+    from multimodalsimilar_tpu_torch.models.vision import backbone_config
+    from multimodalsimilar_tpu_torch.pipelines.embedders import (
+        MultimodalEmbedder)
+    from multimodalsimilar_tpu_torch.utils.dtypes import DTypePolicy
+
+    _require_tokenizer_with_checkpoint(args)   # same garbage-vocab trap
+    tok = _tokenizer(args, df=df)
+    model = MultimodalClassifier(
+        _bert_config(args.bert_preset), backbone_config(args.backbone),
+        num_labels=args.num_labels, fc_dim=args.fc_dim,
+        policy=DTypePolicy.inference())
+    state = _restore_required(args.checkpoint)
+    _load_without_heads(model, state["model"], args.checkpoint)
+    return MultimodalEmbedder(model, tok, args.max_length, args.image_size,
+                              args.batch_size, device=device)
+
+
+def _fused_embeddings(args, df, embedder=None, device="cuda"):
+    """Fused [N, fc_dim + hidden] embeddings of the (text_col,
+    {img_root}/{key}.jpg) rows of ``df`` (a DataFrame or ``{column:
+    list}``) — what the reference job does (multimodal_infer.py:119-134).
+    Returns (embeddings, surviving row positions): rows whose image fails
+    to load are skipped like the reference's per-row try/except."""
+    from multimodalsimilar_tpu_torch.data import images as I
+
+    if embedder is None:
+        embedder = _multimodal_embedder(args, df, device=device)
+    # decode + embed in bounded chunks: a warehouse-scale table must not
+    # hold every decoded image in host RAM at once
+    chunk_rows = max(args.batch_size, 1) * 8
+    keys = [str(k) for k in column(df, args.key_col)]
+    texts_all = [str(t) for t in column(df, args.text_col)]
+    out_parts, keep = [], []
+    for s in range(0, len(keys), chunk_rows):
+        imgs, texts = [], []
+        for pos in range(s, min(s + chunk_rows, len(keys))):
+            img = I.load_eval(
+                os.path.join(args.img_root, f"{keys[pos]}.jpg"),
+                args.image_size, normalize_host=False)
+            if img is None:
+                continue
+            imgs.append(img)
+            keep.append(pos)
+            texts.append(texts_all[pos])
+        if imgs:
+            out_parts.append(embedder(np.stack(imgs), texts))
+    if not keep:
+        raise SystemExit(f"no readable images under {args.img_root} for "
+                         f"any row — check --img_root/--key_col")
+    return np.concatenate(out_parts), keep

@@ -1,14 +1,29 @@
-"""``serve --tower bert`` — the online similarity daemon (counterpart of
-the bert parts of multimodalsimilar_tpu/cli/serve.py): build the hot
+"""``serve --tower bert|cv|multimodal`` — the online similarity daemon
+(counterpart of multimodalsimilar_tpu/cli/serve.py): build the hot
 service, warm every path a request can take, bind the HTTP server. With
 the ``--emb_table`` corpus warm start from the nightly embedding export.
 
+* bert: the text tower; inner product on normalized rows.
+* cv: the folded image tower over the reference's image layout
+  ({img_root}/{key}/0..7.jpg, averaged; emb.txt and ``--emb_cache``
+  respected); queries are decoded uint8 images (ImageQueryParser).
+* multimodal: the checkpointed fused tower over (text_col,
+  {img_root}/{key}.jpg) rows; search is UN-normalized squared L2
+  (multimodal_infer.py:140-145 IndexFlatL2), so scores ascend and a
+  request's score_th is a max distance.
+
+``_service_from_corpus`` is the tail every tower shares: the engine, the
+fused tower -> normalize -> top-k path and its fallbacks, the
+``SimilarityService``; callers that embed the corpus themselves build the
+service through it too.
+
 As in ``cli/train.py``, the functions take the ``argparse.Namespace`` the
-JAX package's ``serve`` parser builds (``configs/serve.yaml``'s values);
-the port's own parser comes with its CLI (ROADMAP A15). The other towers
-and the search-backend flags raise ``NotImplementedError``. pandas and
-pyarrow are imported only by the ``--emb_table`` functions and
-``read_table``: pass ``table=`` to build a service without them.
+JAX package's ``serve`` parser builds (``configs/serve*.yaml``'s values);
+the port's own parser comes with its CLI (ROADMAP A15). The fasttext and
+daodian towers and the search-backend flags raise
+``NotImplementedError``. pandas and pyarrow are imported only by the
+``--emb_table`` functions and ``read_table``: pass ``table=`` to build a
+service without them.
 """
 
 from __future__ import annotations
@@ -21,13 +36,13 @@ import time
 import numpy as np
 
 from multimodalsimilar_tpu_torch.cli.embedders import (
-    _build_text_embedder, _embed_fn_from_embedder)
+    _build_text_embedder, _cv_embedder, _embed_fn_from_embedder,
+    _fused_embeddings, _image_paths, _multimodal_embedder)
 from multimodalsimilar_tpu_torch.data.datasets import column
 from multimodalsimilar_tpu_torch.utils.devices import resolve_device
 
 # --tower -> where the ROADMAP queues it
-_TOWERS_NOT_PORTED = {"cv": "A8-A10", "multimodal": "A10",
-                      "fasttext": "A14", "daodian": "A14"}
+_TOWERS_NOT_PORTED = {"fasttext": "A14", "daodian": "A14"}
 
 # Per-tower default thresholds = the reference jobs' own operating points:
 # bert 0.9 (nlp_infer.py:152,163), cv 0.15 / fasttext -0.6
@@ -44,9 +59,13 @@ def _serve_score_th(args):
 
 
 def _serve_warm_payload(args):
-    """The one warm query of the (text) tower — used by the pre-traffic
+    """The one warm query of ``args.tower`` — used by the pre-traffic
     warm-up ladder AND the fused-path rebuild (service._warm_payload), so
-    the two can never drift on payload shape."""
+    the two can never drift on payload shape: a title, a zero uint8
+    [S, S, 3] image, or a (title, image) pair."""
+    if args.tower in ("cv", "multimodal"):
+        warm = np.zeros((args.image_size, args.image_size, 3), np.uint8)
+        return warm if args.tower == "cv" else ("warmup", warm)
     return "warmup"
 
 
@@ -70,13 +89,10 @@ def _columns(table) -> list:
 
 
 def _build_serve_service(args, table=None, device="cuda"):
-    """(SimilarityService, corpus_rows) for ``serve --tower bert`` on
-    ``device``. ``table`` (a DataFrame or a ``{column: list}`` mapping)
-    replaces reading ``args.data``."""
+    """(SimilarityService, corpus_rows) for ``serve --tower
+    bert|cv|multimodal`` on ``device``. ``table`` (a DataFrame or a
+    ``{column: list}`` mapping) replaces reading ``args.data``."""
     from multimodalsimilar_tpu_torch.ops.topk import MAX_K
-    from multimodalsimilar_tpu_torch.pipelines.serving import (
-        SimilarityService)
-    from multimodalsimilar_tpu_torch.retrieval.engine import SimilarityEngine
 
     dev = resolve_device(device)
     _check_ported(args)
@@ -88,12 +104,13 @@ def _build_serve_service(args, table=None, device="cuda"):
         from multimodalsimilar_tpu_torch.data.datasets import read_table
         table = read_table(args.data)
     cols = _columns(table)
-    for col in (args.text_col, args.key_col):
+    need = ([args.key_col] if args.tower == "cv"
+            else [args.text_col, args.key_col])
+    for col in need:
         if col not in cols:
             raise SystemExit(f"column {col!r} not in {args.data} "
                              f"(has: {cols})")
-    keys = [str(k) for k in column(table, args.key_col)]
-    if not keys:
+    if not len(column(table, args.key_col)):
         raise SystemExit("--data table is empty — nothing to serve")
     cats = None
     if args.category_col:
@@ -102,44 +119,164 @@ def _build_serve_service(args, table=None, device="cuda"):
                              f"{args.data} (has: {cols})")
         cats = column(table, args.category_col)
     t0 = time.perf_counter()
-    embedder = _build_text_embedder(args, df=table, device=dev)
-    embed_queries = _embed_fn_from_embedder(embedder)
-    texts = [str(t) for t in column(table, args.text_col)]
+    metric, normalize, parser = "ip", True, None
+    if args.tower == "cv":
+        (embed_queries, parser, keys, emb, cats,
+         embedder) = _serve_cv_corpus(args, table, cats, dev)
+    elif args.tower == "multimodal":
+        (embed_queries, parser, keys, emb, cats,
+         embedder) = _serve_multimodal_corpus(args, table, cats, dev)
+        # the fused job searches UN-normalized squared L2
+        # (multimodal_infer.py:140-145 IndexFlatL2) — scores ascend, and
+        # a request's score_th means "max distance"
+        metric, normalize = "l2", False
+    else:
+        embedder = _build_text_embedder(args, df=table, device=dev)
+        embed_queries = _embed_fn_from_embedder(embedder)
+        keys = [str(k) for k in column(table, args.key_col)]
+        texts = [str(t) for t in column(table, args.text_col)]
 
-    def embed_bulk(tt):
-        # the corpus pass at a bulk batch, not the serving micro-batch
-        bulk = max(args.batch_size, 512)
-        if len(tt) >= 4 * bulk and bulk != embedder.batch_size:
-            serve_bs = embedder.batch_size
-            embedder.batch_size = bulk
-            try:
-                return embed_queries(tt)
-            finally:
-                embedder.batch_size = serve_bs
-        return embed_queries(tt)
+        def embed_bulk(tt):
+            # the corpus pass at a bulk batch, not the serving micro-batch
+            bulk = max(args.batch_size, 512)
+            if len(tt) >= 4 * bulk and bulk != embedder.batch_size:
+                serve_bs = embedder.batch_size
+                embedder.batch_size = bulk
+                try:
+                    return embed_queries(tt)
+                finally:
+                    embedder.batch_size = serve_bs
+            return embed_queries(tt)
 
-    emb = _corpus_with_emb_table(args, keys, texts, embed_bulk)
+        emb = _corpus_with_emb_table(args, keys, texts, embed_bulk)
     print(f"corpus embedded: {len(keys)} rows in "
           f"{time.perf_counter() - t0:.1f}s", file=sys.stderr)
-    engine = SimilarityEngine(emb, keys, categories=cats, metric="ip",
-                              normalize=True, device=dev)
+    service = _service_from_corpus(args, emb, keys, cats, embed_queries,
+                                   embedder, parser=parser, metric=metric,
+                                   normalize=normalize, device=dev)
+    return service, len(keys)
+
+
+def _service_from_corpus(args, emb, keys, cats, embed_queries, embedder,
+                         parser=None, metric="ip", normalize=True,
+                         device="cuda"):
+    """The ``SimilarityService`` over an embedded corpus (``emb`` rows
+    follow ``keys`` and ``cats``): the engine on ``device``, and, when
+    ``--max_batch`` fits the tower's batch, the best path — the whole
+    request (tower(s) [+ norm-concat fusion] -> normalize -> exact top-k)
+    chained on the worker's stream per pow2 bucket — with
+    ``embedder.embed_device`` as its two-step fallback."""
+    from multimodalsimilar_tpu_torch.pipelines.serving import (
+        SimilarityService)
+    from multimodalsimilar_tpu_torch.retrieval.engine import SimilarityEngine
+
+    engine = SimilarityEngine(emb, keys, categories=cats, metric=metric,
+                              normalize=normalize, device=device)
     embed_device = fused = fused_factory = None
     if args.max_batch <= args.batch_size:
-        # the best path: tower -> normalize -> exact top-k chained on the
-        # worker's stream per pow2 bucket; embed_device is the two-step
-        # fallback the service keeps wired
         fused = embedder.fused_similar_fn(engine, args.k)
         embed_device = embedder.embed_device
         fused_factory = lambda: embedder.fused_similar_fn(engine, args.k)  # noqa: E731
-    service = SimilarityService(embed_queries, engine, k=args.k,
-                                score_th=_serve_score_th(args),
-                                max_batch=args.max_batch,
-                                max_wait_ms=args.max_wait_ms,
-                                embed_queries_device=embed_device,
-                                fused_similar=fused,
-                                fused_factory=fused_factory,
-                                warm_payload=_serve_warm_payload(args))
-    return service, len(keys)
+    return SimilarityService(embed_queries, engine, k=args.k,
+                             score_th=_serve_score_th(args),
+                             max_batch=args.max_batch,
+                             max_wait_ms=args.max_wait_ms,
+                             query_parser=parser,
+                             embed_queries_device=embed_device,
+                             fused_similar=fused,
+                             fused_factory=fused_factory,
+                             warm_payload=_serve_warm_payload(args))
+
+
+def _serve_cv_corpus(args, table, cats, device="cuda"):
+    """(embed_queries, parser, keys, emb, cats, embedder) for ``serve
+    --tower cv``: the corpus is embedded from the reference's image
+    layout ({img_root}/{key}/0..7.jpg mean, emb.txt and the packed cache
+    respected — daodian_infer.py:259-285); queries arrive as decoded
+    uint8 images from ImageQueryParser and run ImageEmbedder's batches."""
+    from multimodalsimilar_tpu_torch.pipelines.serving import ImageQueryParser
+
+    embedder = _cv_embedder(args, device=device)
+    keys_all = [str(k) for k in column(table, args.key_col)]
+    paths_for_key = _image_paths(args)
+    if args.emb_table:
+        # warm-start from the nightly cv job's own table
+        # (goodssku_emb_cv_di layout): hit keys need NO image on disk
+        emb, live = _corpus_rows_from_table(
+            args, keys_all,
+            lambda mk: embedder.embed_keys(list(mk), paths_for_key),
+            dim_hint=embedder.emb_dim)
+    else:
+        emb_map = embedder.embed_keys(keys_all, paths_for_key)
+        # keys without a single readable image drop out of the corpus —
+        # and the category list must stay row-aligned with the survivors
+        live = [i for i, k in enumerate(keys_all) if k in emb_map]
+        if not live:
+            raise SystemExit(f"no readable images under {args.img_root} "
+                             "for any corpus row — check "
+                             "--img_root/--key_col")
+        if len(live) < len(keys_all):
+            print(f"serve: {len(keys_all) - len(live)} of {len(keys_all)} "
+                  f"corpus keys have no readable image and were dropped",
+                  file=sys.stderr)
+        emb = np.stack([emb_map[keys_all[i]] for i in live])
+    keys = [keys_all[i] for i in live]
+    if cats is not None:
+        cats = [cats[i] for i in live]
+
+    def embed_queries(images):
+        return embedder.embed_batch(np.stack(list(images)))
+
+    return (embed_queries, ImageQueryParser(args.image_size), keys, emb,
+            cats, embedder)
+
+
+def _serve_multimodal_corpus(args, table, cats, device="cuda"):
+    """(embed_queries, parser, keys, emb, cats, embedder) for ``serve
+    --tower multimodal``: corpus rows are (text_col, {img_root}/{key}.jpg)
+    pairs fused through the checkpointed tower (the multimodal_infer.py
+    input layout); queries arrive as (text, image) pairs from
+    MultimodalQueryParser and run the same fused tower."""
+    from multimodalsimilar_tpu_torch.pipelines.serving import (
+        MultimodalQueryParser)
+
+    if not args.checkpoint:
+        raise SystemExit("serve --tower multimodal requires --checkpoint "
+                         "(a trained fused model)")
+    embedder = _multimodal_embedder(args, table, device=device)
+    keys_all = [str(k) for k in column(table, args.key_col)]
+    if args.emb_table:
+        # warm-start from the nightly fused-embedding table: hit keys
+        # need NO image on disk; the rest run the fused tower pass
+        texts_all = column(table, args.text_col)
+
+        def embed_missing(mk):
+            want = set(mk)
+            rows = [i for i, k in enumerate(keys_all) if k in want]
+            sub = {args.key_col: [keys_all[i] for i in rows],
+                   args.text_col: [texts_all[i] for i in rows]}
+            semb, skeep = _fused_embeddings(args, sub, embedder=embedder)
+            return {sub[args.key_col][j]: semb[i]
+                    for i, j in enumerate(skeep)}
+
+        emb, keep = _corpus_rows_from_table(args, keys_all, embed_missing)
+    else:
+        emb, keep = _fused_embeddings(args, table, embedder=embedder)
+        if len(keep) < len(keys_all):
+            print(f"serve: {len(keys_all) - len(keep)} of {len(keys_all)} "
+                  f"corpus keys have no readable image and were dropped",
+                  file=sys.stderr)
+    keys = [keys_all[i] for i in keep]
+    if cats is not None:
+        cats = [cats[i] for i in keep]
+
+    def embed_queries(pairs):
+        pairs = list(pairs)
+        return embedder(np.stack([img for _, img in pairs]),
+                        [text for text, _ in pairs])
+
+    return (embed_queries, MultimodalQueryParser(args.image_size), keys,
+            emb, cats, embedder)
 
 
 def _emb_table_key_col(args, columns):
@@ -344,6 +481,55 @@ def _corpus_with_emb_table(args, keys, texts, embed_bulk):
     print(f"serve: corpus {int(hit_mask.sum())} rows from --emb_table, "
           f"{n_miss} embedded fresh", file=sys.stderr)
     return emb
+
+
+def _corpus_rows_from_table(args, keys, embed_missing, dim_hint=None):
+    """(emb [L, D], live row indices) — the image-side towers' analogue
+    of _corpus_with_emb_table (cv / multimodal, whose embed step can FAIL
+    per key). Corpus keys found in the nightly job's table take its
+    vectors — they need NO image on disk; the rest embed fresh through
+    ``embed_missing(miss_keys) -> {key: vec}``, and keys it cannot embed
+    (no readable image) drop exactly like the no-table path.
+    ``dim_hint`` (the tower's known output dim, when available) fails a
+    stale table fast even with zero misses."""
+    import pandas as pd
+
+    pre_keys, pre_emb = _load_emb_table(args)
+
+    def _dim_check(got_dim, what):
+        if got_dim != pre_emb.shape[1]:
+            raise SystemExit(
+                f"--emb_table dim {pre_emb.shape[1]} != {what} "
+                f"{got_dim} — the table was built by a different model; "
+                "rebuild it or drop --emb_table")
+
+    if dim_hint is not None:
+        _dim_check(dim_hint, "tower dim")
+    pos = pd.Index(pre_keys).get_indexer(pd.Index(np.asarray(keys,
+                                                             object)))
+    hit = pos >= 0
+    if not hit.any():
+        raise SystemExit(
+            f"--emb_table {args.emb_table}: no overlap with the corpus "
+            f"keys — wrong table or wrong --key_col?")
+    miss = [keys[i] for i in np.nonzero(~hit)[0]]
+    fresh = embed_missing(miss) if miss else {}
+    if fresh:
+        _dim_check(int(next(iter(fresh.values())).shape[-1]), "tower dim")
+    live, rows = [], []
+    for i, k in enumerate(keys):
+        if hit[i]:
+            live.append(i)
+            rows.append(pre_emb[pos[i]])
+        elif k in fresh:
+            live.append(i)
+            rows.append(np.asarray(fresh[k], np.float32).reshape(-1))
+    dropped = len(keys) - len(live)
+    print(f"serve: corpus {int(hit.sum())} rows from --emb_table, "
+          f"{len(live) - int(hit.sum())} embedded fresh"
+          + (f", {dropped} dropped (no table row or readable image)"
+             if dropped else ""), file=sys.stderr)
+    return np.stack(rows).astype(np.float32), live
 
 
 def _warm_serve_service(service, args):

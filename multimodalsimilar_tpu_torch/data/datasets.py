@@ -6,8 +6,10 @@ multimodalsimilar_tpu/data/datasets.py).
 * ``TextClassificationSource`` turns (title, label) rows into tokenized
   numpy batches, from a pandas DataFrame or a plain ``{column: sequence}``
   mapping.
+* ``_bounded_map`` is the decode pool's backpressure (``ImageEmbedder``'s
+  ``embed_keys``).
 
-The image, multimodal and pair sources come with later slices.
+The image, multimodal and pair training sources come with later slices.
 """
 
 from __future__ import annotations
@@ -56,6 +58,31 @@ def column(table, name: str) -> list:
     ``{column: sequence}`` mapping."""
     col = table[name]
     return col.tolist() if hasattr(col, "tolist") else list(col)
+
+
+def _bounded_map(pool, fn, iterable, window: int):
+    """``pool.map`` with backpressure: at most ``window`` tasks in flight,
+    results in submission order.
+
+    ``Executor.map`` submits the WHOLE iterable up front — with a decode
+    producer faster than the consumer, completed futures buffer decoded
+    images unboundedly, and abandoning the generator mid-stream blocks in
+    shutdown(wait=True) until every remaining decode finishes. The bounded
+    window caps buffered results at ``window`` items and cancels
+    not-yet-started work on early exit."""
+    from collections import deque
+    pending = deque()
+    it = iter(iterable)
+    try:
+        for x in it:
+            pending.append(pool.submit(fn, x))
+            if len(pending) >= window:
+                yield pending.popleft().result()
+        while pending:
+            yield pending.popleft().result()
+    finally:
+        for f in pending:
+            f.cancel()
 
 
 def _epoch_order(n: int, shuffle: bool, seed: int, epoch: int,

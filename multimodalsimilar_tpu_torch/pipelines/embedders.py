@@ -1,24 +1,48 @@
-"""Batched text embedder (counterpart of TextEmbedder in
-multimodalsimilar_tpu/pipelines/embedders.py).
+"""Batched embedders (counterpart of ``TextEmbedder``, ``ImageEmbedder``
+and ``MultimodalEmbedder`` in multimodalsimilar_tpu/pipelines/embedders.py).
 
 The reference embeds one row at a time; here the workload streams through
 the tower in full batches (the last one padded by repeating its last row),
 with three batches in flight: later batches are launched before earlier
-results are read back, and read-backs go through pinned host memory, so the
-card computes while the host tokenizes. ``fused_similar_fn`` chains the
-tower into the engine's search for the serving daemon. The image and
-multimodal embedders come with later slices.
+results are read back, and uploads and read-backs go through pinned host
+memory, so the card computes while the host tokenizes or decodes.
+``fused_similar_fn`` chains a tower into the engine's search for the
+serving daemon.
+
+* ``TextEmbedder`` — tokenizer + any model with ``predict_emb``.
+* ``ImageEmbedder`` — decoded uint8 [S, S, 3] images + a
+  ``CvImageClassifier``; uint8 goes up to the device, where
+  ``device_normalize`` and the NCHW permute run. ``embed_keys`` keeps the
+  reference's per-SKU ``emb.txt`` cache (daodian_infer.py:259-285) or the
+  packed ``EmbeddingCache``, and averages a key's images ({j}.jpg up to
+  the first gap) — *correctly* (the reference re-reads image 0 for every
+  extra image, daodian_infer.py:270-272; not reproduced).
+* ``MultimodalEmbedder`` — (title, image) pairs + a
+  ``MultimodalClassifier``: the fused [B, fc_dim + hidden] embedding.
+
+Three padding rules, each as in the JAX package: a serving micro-batch
+(``embed_device``, the fused path) pads with zeros (images) or repeated
+last rows (tokens) to its bucket; ``ImageEmbedder.embed_batch`` pads a
+partial chunk to its pow2 bucket by repeating the last image;
+``embed_keys`` pads its tail to the full batch by repeating the last
+image.
 """
 
 from __future__ import annotations
 
+import os
 from collections import deque
-from typing import Dict, List, Optional, Sequence
+from concurrent.futures import ThreadPoolExecutor
+from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
+from multimodalsimilar_tpu_torch.data import images as I
+from multimodalsimilar_tpu_torch.data.datasets import _bounded_map
 from multimodalsimilar_tpu_torch.data.tokenizer import TextTokenizer
+from multimodalsimilar_tpu_torch.models.vision import (device_normalize,
+                                                       to_nchw)
 from multimodalsimilar_tpu_torch.utils.buckets import bucket_ladder
 from multimodalsimilar_tpu_torch.utils.devices import resolve_device
 
@@ -34,22 +58,27 @@ def _pad_rows(arrs: Dict[str, np.ndarray], batch: int) -> Dict[str, np.ndarray]:
         [v, np.repeat(v[-1:], batch - n, axis=0)]) for k, v in arrs.items()}
 
 
-def _upload(toks: Dict[str, np.ndarray], device: torch.device):
-    """The token arrays as tensors on ``device``; to a card from pinned
-    host memory without blocking the host."""
+def _upload(arrays: Sequence[np.ndarray], device: torch.device):
+    """Host arrays as tensors on ``device``; to a card from pinned host
+    memory without blocking the host."""
     out = []
-    for key in _TOKEN_KEYS:
-        t = torch.from_numpy(np.ascontiguousarray(toks[key]))
+    for a in arrays:
+        t = torch.from_numpy(np.ascontiguousarray(a))
         if device.type == "cuda":
             t = t.pin_memory().to(device, non_blocking=True)
         out.append(t)
     return out
 
 
+def _token_arrays(toks: Dict[str, np.ndarray]) -> List[np.ndarray]:
+    return [toks[key] for key in _TOKEN_KEYS]
+
+
 def _stream(batches, run, device: torch.device) -> np.ndarray:
     """Pipelined embed loop: keep ``_IN_FLIGHT`` batches in flight.
 
-    ``batches`` yields ``(token dict, n_valid)``. On a card each result is
+    ``batches`` yields ``(host arrays, n_valid)``; ``run`` takes the
+    uploaded tensors. On a card each result is
     copied into pinned host memory on the compute stream and an event marks
     its arrival; the host waits on the oldest event only when more than
     ``_IN_FLIGHT`` batches are pending."""
@@ -57,8 +86,8 @@ def _stream(batches, run, device: torch.device) -> np.ndarray:
     pending = deque()
     cuda = device.type == "cuda"
 
-    def launch(toks, n):
-        emb = run(*_upload(toks, device)).float()
+    def launch(arrays, n):
+        emb = run(*_upload(arrays, device)).float()
         if not cuda:
             return emb, None, n
         host = torch.empty(emb.shape, dtype=torch.float32, pin_memory=True)
@@ -72,8 +101,8 @@ def _stream(batches, run, device: torch.device) -> np.ndarray:
             done.synchronize()
         out.append(host.numpy()[:n].copy())
 
-    for toks, n in batches:
-        pending.append(launch(toks, n))
+    for arrays, n in batches:
+        pending.append(launch(arrays, n))
         if len(pending) > _IN_FLIGHT:
             drain(*pending.popleft())
     while pending:
@@ -113,16 +142,17 @@ class TextEmbedder:
         with torch.inference_mode():
             return self.tower_fn(*token_tensors)
 
-    def _tokens(self, texts: Sequence[str], pad_to: int):
+    def _inputs(self, texts: Sequence[str], pad_to: int):
         """Tokenize one micro-batch on the host, pad it to ``pad_to`` rows
-        by repeating the last, and upload the token tensors."""
+        by repeating the last, and upload the token tensors: the
+        arguments of ``tower_fn``."""
         if not len(texts) <= pad_to <= self.batch_size:
             raise ValueError(f"need len(texts) <= pad_to <= batch_size, "
                              f"got {len(texts)} / {pad_to} / "
                              f"{self.batch_size}")
         toks = _pad_rows(self.tokenizer(list(texts), self.max_length),
                          pad_to)
-        return _upload(toks, self.device)
+        return _upload(_token_arrays(toks), self.device)
 
     def embed_device(self, texts: Sequence[str], pad_to: int = None
                      ) -> torch.Tensor:
@@ -131,7 +161,7 @@ class TextEmbedder:
         ``pad_to`` defaults to batch_size; len(texts) <= pad_to <=
         batch_size."""
         pad = self.batch_size if pad_to is None else pad_to
-        return self._run(*self._tokens(texts, pad))
+        return self._run(*self._inputs(texts, pad))
 
     def fused_similar_fn(self, engine, k: int):
         """``(texts, pad_to) -> (scores, indices)`` on the device: the
@@ -144,7 +174,7 @@ class TextEmbedder:
             return None
 
         def fused(texts, pad_to):
-            return run(*self._tokens(texts, pad_to))
+            return run(*self._inputs(texts, pad_to))
 
         return fused
 
@@ -156,8 +186,8 @@ class TextEmbedder:
         def batches():
             for s in range(0, len(texts), B):
                 chunk = list(texts[s: s + B])
-                yield (_pad_rows(self.tokenizer(chunk, self.max_length), B),
-                       len(chunk))
+                yield (_token_arrays(_pad_rows(
+                    self.tokenizer(chunk, self.max_length), B)), len(chunk))
 
         return _stream(batches(), self._run, self.device)
 
@@ -178,9 +208,9 @@ class TextEmbedder:
                     bucket = next(b for b in self.length_buckets
                                   if b >= need)
                     order_ix.append(np.asarray(w0 + sel))
-                    yield (_pad_rows({k: v[sel][:, :bucket]
-                                      for k, v in toks.items()}, B),
-                           len(sel))
+                    yield (_token_arrays(_pad_rows(
+                        {k: v[sel][:, :bucket] for k, v in toks.items()},
+                        B)), len(sel))
 
         embs = _stream(batches(), self._run, self.device)
         if not len(embs):
@@ -188,3 +218,307 @@ class TextEmbedder:
         out = np.empty_like(embs)
         out[np.concatenate(order_ix)] = embs
         return out
+
+
+class ImageEmbedder:
+    """Batched image embedding with optional per-key disk cache and
+    multi-image mean, on ``device``.
+
+    ``model`` is a ``CvImageClassifier`` (or anything with an NCHW
+    ``predict_emb``); it moves to the device once, in ``channels_last``.
+    ``paths_for_key(key) -> [path, ...]`` lists candidate images (the
+    reference reads {sku}/0.jpg..7.jpg, daodian_infer.py:266-281); their
+    embeddings are averaged. The default cache layout matches the
+    reference: one ``emb.txt`` (np.savetxt) next to the images. Passing
+    ``cache`` (an ``embcache.EmbeddingCache``) uses the packed store
+    instead, and when BOTH are given a cache miss falls back to the
+    legacy emb.txt and backfills the packed store.
+    """
+
+    def __init__(self, model: torch.nn.Module, image_size: int = 512,
+                 batch_size: int = 64,
+                 cache_path_for_key: Optional[Callable[[str], str]] = None,
+                 cache=None, emb_dim: Optional[int] = None, device="cuda"):
+        self.device = resolve_device(device)
+        # expected embedding dim for validating legacy emb.txt reads; when
+        # absent it is taken from the packed cache (if any) or learned
+        # from the first computed embedding
+        self.emb_dim = emb_dim or (cache.dim if cache is not None else None)
+        self.image_size = image_size
+        self.batch_size = batch_size
+        self.cache_path_for_key = cache_path_for_key
+        self.cache = cache
+        self.model = model.to(self.device,
+                              memory_format=torch.channels_last).eval()
+
+    def tower_fn(self, images: torch.Tensor) -> torch.Tensor:
+        """uint8 [B, S, S, 3] on the device -> [B, D]: normalize and
+        permute on the device, then the tower. No mode of its own: the
+        engine's fused chain runs it inside inference mode."""
+        return self.model.predict_emb(to_nchw(device_normalize(images)))
+
+    def _run(self, images: torch.Tensor) -> torch.Tensor:
+        with torch.inference_mode():
+            return self.tower_fn(images)
+
+    def _pad_image_batch(self, images, pad: int) -> np.ndarray:
+        """[pad, S, S, 3] host batch: the images, zero-padded to ``pad``
+        rows (shared by embed_device and the fused path)."""
+        if not 1 <= len(images) <= pad <= self.batch_size:
+            raise ValueError(f"need 1 <= len(images) <= pad_to <= "
+                             f"batch_size, got {len(images)} / {pad} / "
+                             f"{self.batch_size}")
+        first = np.asarray(images[0])
+        batch = np.zeros((pad,) + first.shape, first.dtype)
+        for i, im in enumerate(images):
+            batch[i] = im
+        return batch
+
+    def _inputs(self, images: Sequence[np.ndarray], pad_to: int):
+        """One micro-batch as ``tower_fn``'s argument: the zero-padded
+        uint8 batch, uploaded."""
+        return _upload([self._pad_image_batch(images, pad_to)], self.device)
+
+    def embed_device(self, images: Sequence[np.ndarray],
+                     pad_to: int = None) -> torch.Tensor:
+        """One micro-batch of decoded uint8 [S, S, 3] images -> a padded
+        [pad_to, D] tensor still on the device (rows past len(images)
+        embed zero images and are discarded by the caller)."""
+        pad = self.batch_size if pad_to is None else pad_to
+        return self._run(*self._inputs(images, pad))
+
+    def fused_similar_fn(self, engine, k: int):
+        """``(images, pad_to) -> (scores, indices)`` on the device: upload
+        the uint8 batch, then tower, normalize and exact top-k through
+        ``engine.fused_search_fn`` on the calling thread's stream (decode
+        and resize ran on the HTTP handler, ImageQueryParser). None for
+        an empty corpus."""
+        run = engine.fused_search_fn(self.tower_fn, k)
+        if run is None:
+            return None
+
+        def fused(images, pad_to):
+            return run(*self._inputs(images, pad_to))
+
+        return fused
+
+    def embed_batch(self, images: np.ndarray) -> np.ndarray:
+        B = self.batch_size
+
+        def batches():
+            for s in range(0, len(images), B):
+                chunk = images[s: s + B]
+                n = len(chunk)
+                # pad a partial chunk to its pow2 BUCKET, not the full
+                # batch_size: padding uploads real bytes, so a 1-image
+                # query must not ship a full batch; the bucket ladder
+                # keeps the shapes the tower sees to log2(B)
+                pad = 1
+                while pad < n:
+                    pad *= 2
+                pad = min(pad, B)
+                if n < pad:
+                    chunk = np.concatenate(
+                        [chunk, np.repeat(chunk[-1:], pad - n, axis=0)])
+                yield [chunk], n
+
+        return _stream(batches(), self._run, self.device)
+
+    def embed_paths(self, paths: Sequence[str]) -> Dict[str, np.ndarray]:
+        """Embed single images; failed decodes are skipped (absent keys)."""
+        loaded, keys = [], []
+        for p in paths:
+            img = I.load_eval(p, self.image_size, normalize_host=False)
+            if img is not None:
+                loaded.append(img)
+                keys.append(p)
+        if not loaded:
+            return {}
+        embs = self.embed_batch(np.stack(loaded))
+        return dict(zip(keys, embs))
+
+    def embed_keys(self, keys: Sequence[str],
+                   paths_for_key: Callable[[str], Sequence[str]]
+                   ) -> Dict[str, np.ndarray]:
+        """Multi-image mean embedding per key, with emb.txt caching."""
+        result: Dict[str, np.ndarray] = {}
+        to_decode: List[str] = []      # keys needing compute
+        migrate: Dict[str, np.ndarray] = {}   # legacy emb.txt -> cache
+        for key in keys:
+            if self.cache is not None:
+                hit = self.cache.get(key)
+                if hit is not None:
+                    result[key] = hit
+                    continue
+            txt = (self.cache_path_for_key(key)
+                   if self.cache_path_for_key else None)
+            if txt and os.path.exists(txt):
+                # a malformed or wrong-dim emb.txt (older run, different
+                # --fc_dim, truncated write) must not kill the job:
+                # recompute the key instead
+                emb = None
+                try:
+                    emb = np.loadtxt(txt).astype(np.float32).reshape(-1)
+                except (ValueError, OSError):
+                    pass
+                if emb is not None and (self.emb_dim is None
+                                        or emb.shape == (self.emb_dim,)):
+                    result[key] = emb
+                    if self.cache is not None:   # migrate legacy emb.txt
+                        migrate[key] = emb
+                else:
+                    to_decode.append(key)
+            else:
+                to_decode.append(key)
+        if migrate:
+            # ONE flock/append cycle for the whole batch
+            self.cache.put_many(migrate)
+
+        def load_key(key):
+            loaded = []
+            for p in paths_for_key(key):
+                if not os.path.exists(p):
+                    break  # sequentially-numbered images END at the first
+                    # gap (daodian_infer.py:269-280 stops at the first
+                    # unreadable {j}.jpg; a folder without 0.jpg yields
+                    # nothing and the key is skipped)
+                img = I.load_eval(p, self.image_size, normalize_host=False)
+                if img is not None:
+                    loaded.append(img)
+            return key, loaded
+
+        # decode streams INTO the pipelined embed loop: the pool decodes
+        # the next keys while the device embeds the current batch
+        pending: List[str] = []
+        owners: List[str] = []
+        B = self.batch_size
+
+        def batches(decoded):
+            buf: List[np.ndarray] = []
+            for key, loaded in decoded:
+                if not loaded:
+                    continue
+                pending.append(key)
+                for img in loaded:
+                    buf.append(img)
+                    owners.append(key)
+                    if len(buf) == B:
+                        yield [np.stack(buf)], B
+                        buf = []
+            if buf:
+                n = len(buf)
+                pad = np.repeat(buf[-1][None], B - n, axis=0)
+                yield [np.concatenate([np.stack(buf), pad])], n
+
+        with ThreadPoolExecutor(max_workers=8) as pool:
+            # bounded window: Executor.map would submit every key up front
+            # and buffer up to 8 decoded images per key for the whole
+            # catalog when decode outpaces the device
+            embs = _stream(batches(_bounded_map(pool, load_key, to_decode,
+                                                window=32)),
+                           self._run, self.device)
+        if len(embs):
+            sums: Dict[str, np.ndarray] = {}
+            counts: Dict[str, int] = {}
+            for key, e in zip(owners, embs):
+                sums[key] = sums.get(key, 0.0) + e
+                counts[key] = counts.get(key, 0) + 1
+            fresh: Dict[str, np.ndarray] = {}
+            for key in pending:
+                emb = (sums[key] / counts[key]).astype(np.float32)
+                if self.emb_dim is None:
+                    self.emb_dim = int(emb.shape[-1])
+                result[key] = emb
+                if self.cache is not None:
+                    fresh[key] = emb.reshape(-1)
+                elif self.cache_path_for_key:
+                    txt = self.cache_path_for_key(key)
+                    os.makedirs(os.path.dirname(txt), exist_ok=True)
+                    np.savetxt(txt, emb)
+            if fresh:
+                self.cache.put_many(fresh)   # one flock cycle per batch
+        return result
+
+
+class MultimodalEmbedder:
+    """(title, uint8 image) pairs + a ``MultimodalClassifier`` on
+    ``device``: the fused [B, fc_dim + hidden] embedding, un-normalized
+    as a whole (each half is unit-norm)."""
+
+    def __init__(self, model: torch.nn.Module, tokenizer: TextTokenizer,
+                 max_length: int = 128, image_size: int = 380,
+                 batch_size: int = 48, device="cuda"):
+        self.device = resolve_device(device)
+        self.tokenizer = tokenizer
+        self.max_length = max_length
+        self.image_size = image_size
+        self.batch_size = batch_size
+        self.model = model.to(self.device,
+                              memory_format=torch.channels_last).eval()
+
+    def tower_fn(self, images, input_ids, attention_mask, token_type_ids):
+        """Both towers and the norm-concat fusion on device tensors; no
+        mode of its own (the fused chain runs it in inference mode)."""
+        return self.model.predict_emb(to_nchw(device_normalize(images)),
+                                      input_ids, attention_mask,
+                                      token_type_ids)
+
+    def _run(self, *tensors):
+        with torch.inference_mode():
+            return self.tower_fn(*tensors)
+
+    def _pad_pair_batch(self, pairs, pad: int) -> List[np.ndarray]:
+        """[images, input_ids, attention_mask, token_type_ids] host arrays
+        for a [pad]-row batch from (text, uint8 image) pairs: tokens pad
+        by repeating the last row, images with zeros."""
+        if not 1 <= len(pairs) <= pad <= self.batch_size:
+            raise ValueError(f"need 1 <= len(pairs) <= pad_to <= "
+                             f"batch_size, got {len(pairs)} / {pad} / "
+                             f"{self.batch_size}")
+        texts = [t for t, _ in pairs]
+        toks = _pad_rows(self.tokenizer(texts, self.max_length), pad)
+        first = np.asarray(pairs[0][1])
+        images = np.zeros((pad,) + first.shape, first.dtype)
+        for i, (_, im) in enumerate(pairs):
+            images[i] = im
+        return [images] + _token_arrays(toks)
+
+    def _inputs(self, pairs: Sequence, pad_to: int):
+        """One micro-batch as ``tower_fn``'s arguments, uploaded."""
+        return _upload(self._pad_pair_batch(list(pairs), pad_to),
+                       self.device)
+
+    def embed_device(self, pairs: Sequence, pad_to: int = None
+                     ) -> torch.Tensor:
+        """One micro-batch of (text, uint8 image) pairs -> a padded
+        [pad_to, fc_dim + hidden] tensor still on the device (rows past
+        len(pairs) are padding the caller discards)."""
+        pad = self.batch_size if pad_to is None else pad_to
+        return self._run(*self._inputs(pairs, pad))
+
+    def fused_similar_fn(self, engine, k: int):
+        """``(pairs, pad_to) -> (scores, indices)`` on the device: both
+        towers, the norm-concat fusion and the exact top-k (un-normalized
+        squared L2 in the multimodal engine, multimodal_infer.py:140-145)
+        chained on one stream. None for an empty corpus."""
+        run = engine.fused_search_fn(self.tower_fn, k)
+        if run is None:
+            return None
+
+        def fused(pairs, pad_to):
+            return run(*self._inputs(pairs, pad_to))
+
+        return fused
+
+    def __call__(self, images: np.ndarray, texts: Sequence[str]
+                 ) -> np.ndarray:
+        B = self.batch_size
+
+        def batches():
+            for s in range(0, len(texts), B):
+                chunk_t = list(texts[s: s + B])
+                toks = self.tokenizer(chunk_t, self.max_length)
+                arrs = _pad_rows({**toks, "images": images[s: s + B]}, B)
+                yield [arrs["images"]] + _token_arrays(arrs), len(chunk_t)
+
+        return _stream(batches(), self._run, self.device)

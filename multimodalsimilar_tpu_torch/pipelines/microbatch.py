@@ -4,8 +4,10 @@ Copied from ``multimodalsimilar_tpu/pipelines/microbatch.py`` (which
 imports no JAX): ``DeferredBatch`` lets a device-path batch return launched
 but unread results so the worker overlaps the read-back with the next
 micro-batch; ``MicroBatcher`` is the single device-owner queue;
-``TextQueryParser`` extracts text queries from request bodies. The image
-and multimodal query parsers decode images and come with the image slice.
+``TextQueryParser``, ``ImageQueryParser`` and ``MultimodalQueryParser``
+extract text, image and (text, image) queries from request bodies. The
+image parsers decode with OpenCV (``data/images.py``, which imports it
+when an image is decoded).
 """
 
 from __future__ import annotations
@@ -15,6 +17,10 @@ import threading
 import time
 from concurrent.futures import Future
 from typing import Callable, List
+
+import numpy as np
+
+from multimodalsimilar_tpu_torch.data import images as I
 
 _CLOSE = object()
 
@@ -53,6 +59,83 @@ class TextQueryParser:
                 not all(isinstance(t, str) for t in texts):
             raise ValueError("need 'texts': [str, ...]")
         return texts
+
+
+class ImageQueryParser:
+    """Extract image-tower query payloads: ``image_b64`` (base64-encoded
+    JPEG/PNG bytes) or ``image_path`` (server-local file) -> resized RGB
+    uint8 [S, S, 3]. Decode and resize run on the HANDLER thread, so the
+    device worker's micro-batch only uploads uint8 and runs the tower
+    (normalization runs on the device)."""
+
+    def __init__(self, image_size: int):
+        self.image_size = image_size
+
+    def one(self, req: dict) -> np.ndarray:
+        if req.get("image_b64") is not None:
+            import base64
+            import binascii
+            if not isinstance(req["image_b64"], str):
+                raise ValueError("'image_b64' must be a base64 string")
+            try:
+                raw = base64.b64decode(req["image_b64"], validate=True)
+            except (binascii.Error, TypeError, ValueError) as e:
+                raise ValueError(f"bad image_b64: {e}")
+            img = I.decode_image_bytes(raw)
+            if img is None:
+                raise ValueError("image_b64 bytes did not decode to an "
+                                 "image (JPEG/PNG expected)")
+        elif req.get("image_path") is not None:
+            img = I.decode_image(str(req["image_path"]))
+            if img is None:
+                raise ValueError(
+                    f"could not read image_path {req['image_path']!r}")
+        else:
+            raise ValueError("need 'image_b64' (base64 JPEG/PNG) or "
+                             "'image_path'")
+        return I.resize(img, self.image_size)
+
+    def many(self, req: dict) -> List[np.ndarray]:
+        for field, key in (("images_b64", "image_b64"),
+                           ("image_paths", "image_path")):
+            if field in req:
+                vals = req[field]
+                if not isinstance(vals, list) or not vals:
+                    raise ValueError(f"'{field}' must be a non-empty list")
+                return [self.one({key: v}) for v in vals]
+        return [self.one(req)]
+
+
+class MultimodalQueryParser:
+    """Extract fused-tower queries: ``text`` (str) plus an image
+    (``image_b64`` / ``image_path`` — ImageQueryParser's fields) -> a
+    ``(text, resized uint8 image)`` pair for MultimodalEmbedder. The batch
+    form zips ``texts`` with ``images_b64``/``image_paths`` positionally
+    (equal lengths required), like the offline fused job's per-row
+    (title, {key}.jpg) input (multimodal_infer.py:127-134)."""
+
+    def __init__(self, image_size: int):
+        self._text = TextQueryParser()
+        self._image = ImageQueryParser(image_size)
+
+    def one(self, req: dict) -> tuple:
+        if not isinstance(req.get("text"), str):
+            raise ValueError("need 'text': str (plus 'image_b64' or "
+                             "'image_path') — the fused tower embeds a "
+                             "text+image pair")
+        return (req["text"], self._image.one(req))
+
+    def many(self, req: dict) -> List[tuple]:
+        if "texts" not in req and "images_b64" not in req \
+                and "image_paths" not in req:
+            return [self.one(req)]
+        texts = self._text.many(req)
+        images = self._image.many(req)
+        if len(texts) != len(images):
+            raise ValueError(
+                f"'texts' ({len(texts)}) and images ({len(images)}) must "
+                "have the same length — pairs are zipped positionally")
+        return list(zip(texts, images))
 
 
 class MicroBatcher:

@@ -4,8 +4,8 @@ Counterpart of ``multimodalsimilar_tpu/pipelines/serving.py`` (which
 imports no JAX): ``SimilarityService``, ``_Handler``, ``_Server`` and
 ``make_server``, with the same behaviour. The reference has no online
 query path: retrieval is precomputed by daily batch jobs and served as
-static Redis KV (nlp_infer.py:154-172). This daemon keeps the text tower
-and the corpus hot on the card and answers embed / similar queries over
+static Redis KV (nlp_infer.py:154-172). This daemon keeps a tower (text,
+image or fused) and the corpus hot on the card and answers embed / similar queries over
 HTTP, for queries that were not in last night's batch.
 
 Design:
@@ -49,7 +49,8 @@ import numpy as np
 import torch
 
 from multimodalsimilar_tpu_torch.pipelines.microbatch import (  # noqa: F401
-    _CLOSE, DeferredBatch, MicroBatcher, TextQueryParser)
+    _CLOSE, DeferredBatch, ImageQueryParser, MicroBatcher,
+    MultimodalQueryParser, TextQueryParser)
 
 _UNSET = object()
 

@@ -1,11 +1,16 @@
-"""The text similarity job — batched retrieval + KV writes.
+"""The similarity jobs — batched retrieval + KV writes.
 
-Counterpart of ``nlp_similar_job`` and ``write_neighbor_map`` in
-``multimodalsimilar_tpu/pipelines/similar.py`` (the reference's
-nlp_infer.py:105-172): text embeddings, normalize + inner product, k=13,
-threshold 0.9, no category filter; writes ``dj_similar:{spu_sn}`` =
-comma-joined neighbor spu_sns with a TTL (default 7 days). The multimodal
-and daodian jobs come with later slices.
+Counterpart of ``nlp_similar_job``, ``multimodal_similar_job`` and
+``write_neighbor_map`` in ``multimodalsimilar_tpu/pipelines/similar.py``:
+
+* ``nlp_similar_job`` <- nlp_infer.py:105-172 — text embeddings,
+  normalize + inner product, k=13, threshold 0.9, no category filter;
+* ``multimodal_similar_job`` <- multimodal_infer.py:103-159 — the fused
+  embeddings searched by **un-normalized squared L2**, top-13, no
+  threshold.
+
+Both write ``dj_similar:{spu_sn}`` = comma-joined neighbor spu_sns with a
+TTL (default 7 days). The daodian jobs come with a later slice.
 """
 
 from __future__ import annotations
@@ -48,5 +53,18 @@ def nlp_similar_job(table, embed_texts, sink: KVSink,
                               normalize=True, device=device)
     nmap = engine.similar_map(k, FilterRules(score_threshold=score_th,
                                              same_category=False))
+    return write_neighbor_map(sink, nmap, ttl_seconds,
+                              lambda s: f"dj_similar:{s}")
+
+
+def multimodal_similar_job(table, embeddings, sink: KVSink,
+                           key_col: str = "spu_sn", k: int = 13,
+                           ttl_seconds: int = WEEK, device="cuda") -> int:
+    """L2 metric on raw (un-normalized) fused embeddings, no threshold
+    (multimodal_infer.py:140-159). ``table`` is a pandas DataFrame or a
+    ``{column: list}`` mapping whose rows ``embeddings`` [N, D] follow."""
+    engine = SimilarityEngine(embeddings, column(table, key_col),
+                              metric="l2", normalize=False, device=device)
+    nmap = engine.similar_map(k, FilterRules(same_category=False))
     return write_neighbor_map(sink, nmap, ttl_seconds,
                               lambda s: f"dj_similar:{s}")

@@ -336,3 +336,201 @@ def test_deferred_readback_does_not_wait_for_the_next_batch(dev):
             np.testing.assert_allclose(s, want[0][r], atol=1e-4)
     finally:
         svc.close()
+
+
+# ------------------------------------------------------ the image paths
+
+def _fused_rows(rng, n):
+    """Rows shaped like the multimodal tower's output: unit 512-d and
+    768-d halves, norm sqrt(2), un-normalized."""
+    halves = []
+    for d in (512, 768):
+        x = rng.standard_normal((n, d), dtype=np.float32)
+        halves.append(x / np.linalg.norm(x, axis=1, keepdims=True))
+    return np.concatenate(halves, axis=1)
+
+
+@pytest.mark.parametrize("q,n", [(48, 4096), (4096, 4096), (1, 5000),
+                                 (48, 70_000)])
+def test_l2_kernel_at_the_fused_width(dev, q, n):
+    """Un-normalized squared L2 at d = 1,280 (the multimodal serving and
+    job shapes), through the engine: its l2 pad rows (1e18) never win,
+    distances ascend, and the kernel matches the plain version within
+    atol 1e-4, rtol 1e-5 (indices where the neighbours are > 1e-5
+    apart)."""
+    rng = np.random.default_rng(q + n)
+    emb = _fused_rows(rng, n)
+    engine = SimilarityEngine(emb, [f"k{i}" for i in range(n)], metric="l2",
+                              normalize=False, device=dev)
+    queries = np.concatenate([emb[: q // 2], _fused_rows(rng, q - q // 2)])
+    before = T.LAUNCHES["topk"]
+    gv, gi = engine.search_device(13, queries)
+    assert T.LAUNCHES["topk"] == before + 1
+    corpus_dev, true_n, _ = engine._corpus_dev
+    pv, pi = T.topk_plain(corpus_dev, torch.from_numpy(queries).to(dev), 14,
+                          "l2", true_n)
+    torch.cuda.synchronize()
+    assert int(gi.max()) < n and (gv[:, 1:] >= gv[:, :-1]).all()
+    assert torch.allclose(gv, pv[:, :13], atol=1e-4, rtol=1e-5)
+    gap = (pv[:, 1:] - pv[:, :-1]).abs()
+    inf = torch.full((q, 1), float("inf"), device=dev)
+    sep = (torch.cat([inf, gap], 1)[:, :13] > 1e-5) & (gap[:, :13] > 1e-5)
+    assert not ((gi != pi[:, :13]) & sep).any()
+    if q > 1:      # a corpus row finds itself first, at distance ~0
+        assert (gi[: q // 2, 0].cpu().numpy() == np.arange(q // 2)).all()
+
+
+def _image_model(policy, dev, seed=0):
+    """EfficientNet-B0 with a 64-d neck, seed-``seed`` weights and its
+    backbone's BatchNorm statistics as training leaves them: variances
+    and scales drawn around 1, means measured on one batch (see
+    ``chip_smoke.py:seed_bn_statistics``)."""
+    from multimodalsimilar_tpu_torch.models import efficientnet as E
+    from multimodalsimilar_tpu_torch.models.vision import (
+        CvImageClassifier, backbone_config, device_normalize, to_nchw)
+    model = CvImageClassifier(backbone_config("efficientnet_b0"), 10,
+                              fc_dim=64, policy=policy,
+                              generator=torch.Generator().manual_seed(seed))
+    g = torch.Generator().manual_seed(seed + 1)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, torch.nn.BatchNorm2d):
+                m.running_var.uniform_(0.5, 2.0, generator=g)
+                m.weight.uniform_(0.8, 1.2, generator=g)
+    real = E.batch_norm
+
+    def measuring(x, bn, dtype):
+        if isinstance(bn, torch.nn.BatchNorm2d):
+            bn.running_mean.copy_(x.float().mean(dim=(0, 2, 3)))
+        return real(x, bn, dtype)
+
+    E.batch_norm = measuring
+    try:
+        with torch.no_grad():
+            model.to(dev).predict_emb(to_nchw(device_normalize(
+                torch.from_numpy(_blocky(8, 64, seed + 2)).to(dev))))
+    finally:
+        E.batch_norm = real
+    return model.cpu()
+
+
+def _blocky(n, size, seed):
+    rng = np.random.default_rng(seed)
+    g = rng.integers(0, 256, (n, 8, 8, 3), dtype=np.uint8)
+    cell = size // 8
+    return np.ascontiguousarray(np.repeat(np.repeat(g, cell, 1), cell, 2))
+
+
+def test_image_fused_path_matches_unfolded_tower(dev):
+    """EfficientNet-B0 at 64 px, full precision, TF32 off: the folded
+    tower's fused search (upload, normalize and permute on the card,
+    tower, normalize, kernel) against the UNFOLDED tower's embeddings and
+    the plain top-k. Folding is exact math: embeddings within 1e-4 of the
+    largest, scores within 1e-4."""
+    from multimodalsimilar_tpu_torch.models.fold_bn import fold_cv_classifier
+    from multimodalsimilar_tpu_torch.models.vision import CvImageClassifier
+    from multimodalsimilar_tpu_torch.pipelines.embedders import ImageEmbedder
+    from multimodalsimilar_tpu_torch.utils.dtypes import DTypePolicy
+    torch.backends.cudnn.allow_tf32 = False
+    pol = DTypePolicy.full_precision()
+    plain = _image_model(pol, dev)
+    fcfg, fsd = fold_cv_classifier(plain.state_dict(), plain.cfg)
+    folded = CvImageClassifier(fcfg, 10, fc_dim=64, policy=pol)
+    folded.load_state_dict(fsd)
+    corpus, queries = _blocky(200, 64, 0), _blocky(8, 64, 1)
+    unf = ImageEmbedder(plain, image_size=64, batch_size=64, device=dev)
+    emb = ImageEmbedder(folded, image_size=64, batch_size=64, device=dev)
+    want = unf.embed_batch(corpus)
+    got = emb.embed_batch(corpus)
+    np.testing.assert_allclose(got, want, atol=1e-4 * np.abs(want).max())
+    engine = SimilarityEngine(want, [f"k{i}" for i in range(200)],
+                              device=dev)
+    before = T.LAUNCHES["topk"]
+    gv, gi = emb.fused_similar_fn(engine, 13)(list(queries), 8)
+    assert T.LAUNCHES["topk"] == before + 1
+    q = torch.from_numpy(unf.embed_batch(queries)).to(dev)
+    _check_against_plain(engine, q, (gv, gi), 13)
+    own = emb.fused_similar_fn(engine, 1)(list(corpus[:4]), 4)[1]
+    assert own[:, 0].tolist() == [0, 1, 2, 3]
+
+
+def test_image_batches_upload_from_pinned_memory(dev, monkeypatch):
+    """uint8 batches go up from pinned host memory, without a copy back:
+    the device tensor equals the host batch and every upload pinned."""
+    from multimodalsimilar_tpu_torch.pipelines import embedders as P
+    pinned = []
+    real = torch.Tensor.pin_memory
+
+    def spy(self, *a, **k):
+        out = real(self, *a, **k)
+        pinned.append(out.is_pinned())
+        return out
+
+    monkeypatch.setattr(torch.Tensor, "pin_memory", spy)
+    batch = _blocky(4, 32, 2)
+    (t,) = P._upload([batch], dev)
+    assert t.device.type == "cuda" and t.dtype == torch.uint8
+    assert torch.equal(t.cpu(), torch.from_numpy(batch)) and pinned == [True]
+    from multimodalsimilar_tpu_torch.utils.dtypes import DTypePolicy
+    emb = P.ImageEmbedder(_image_model(DTypePolicy.inference(), dev),
+                          image_size=32, batch_size=8, device=dev)
+    out = emb.embed_batch(_blocky(11, 32, 3))
+    assert out.shape == (11, 64) and np.isfinite(out).all()
+    assert len(pinned) == 3 and all(pinned)     # batches of 8 and 4
+
+
+def test_multimodal_service_on_card_one_launch_per_batch(dev):
+    """A tiny fused tower served on the card, l2: concurrent (title,
+    image) requests launch the kernel once per micro-batch, and each
+    corpus pair finds itself first at distance ~0."""
+    import argparse
+    import threading
+
+    from multimodalsimilar_tpu_torch.cli.serve import (_service_from_corpus,
+                                                       _warm_serve_service)
+    from multimodalsimilar_tpu_torch.data.tokenizer import TextTokenizer
+    from multimodalsimilar_tpu_torch.models.bert import BertConfig
+    from multimodalsimilar_tpu_torch.models.efficientnet import (
+        EfficientNetConfig)
+    from multimodalsimilar_tpu_torch.models.multimodal import (
+        MultimodalClassifier)
+    from multimodalsimilar_tpu_torch.pipelines.embedders import (
+        MultimodalEmbedder)
+    from multimodalsimilar_tpu_torch.utils.dtypes import DTypePolicy
+    titles = TABLE["spu_name"]
+    tok = TextTokenizer.from_corpus(titles)
+    model = MultimodalClassifier(BertConfig.tiny(vocab_size=tok.vocab_size),
+                                 EfficientNetConfig.tiny(), num_labels=5,
+                                 fc_dim=16, policy=DTypePolicy.inference())
+    emb = MultimodalEmbedder(model, tok, max_length=16, image_size=32,
+                             batch_size=8, device=dev)
+    imgs = _blocky(40, 32, 4)
+    vecs = emb(imgs, titles)
+    args = argparse.Namespace(tower="multimodal", k=5, max_batch=8,
+                              batch_size=8, max_wait_ms=2.0, score_th=None,
+                              image_size=32)
+    svc = _service_from_corpus(
+        args, vecs, TABLE["spu_sn"], None,
+        lambda pairs: emb(np.stack([im for _, im in pairs]),
+                          [t for t, _ in pairs]), emb, metric="l2",
+        normalize=False, device=dev)
+    try:
+        _warm_serve_service(svc, args)
+        T.LAUNCHES["topk"] = 0
+        before = svc.stats["batches"]
+        out = [None] * 40
+
+        def hit(i):
+            out[i] = svc.similar((titles[i], imgs[i]))
+
+        threads = [threading.Thread(target=hit, args=(i,))
+                   for i in range(40)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+        assert T.LAUNCHES["topk"] == svc.stats["batches"] - before
+        assert all(o[0]["key"] == TABLE["spu_sn"][i]
+                   and o[0]["score"] <= 1e-3 for i, o in enumerate(out))
+    finally:
+        svc.close()

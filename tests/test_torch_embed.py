@@ -231,9 +231,8 @@ def test_embed_bulk_bert_column_and_unported_kinds(tmp_path, capsys):
     assert list(out.columns) == ["goods_sku", "bert_emb"] and len(out) == 6
     assert not out["bert_emb"].iloc[0].startswith("[")   # raw, like bulk
     assert '"towers": ["bert"]' in capsys.readouterr().out
-    for argv in (["bulk", "--kinds", "bert,cv"],
+    for argv in (["bulk", "--kinds", "bert,fasttext"],
                  ["bulk", "--kinds", "fasttext"],
-                 ["incremental", "--kind", "cv"],
                  ["incremental", "--kind", "fasttext"]):
         a = build_parser().parse_args(
             ["embed", argv[0], "--data", data, "--table", table, *argv[1:]])

@@ -41,9 +41,12 @@ leaked = [m for m in sys.modules if m.split(".")[0] in BLOCKED
 print(json.dumps([names, leaked]))
 """
 
-# the serving and export modules, which pull in the most of the package
+# the serving and export modules, which pull in the most of the package,
+# and the image slice's
 SERVING = ["cli.common", "cli.embed", "cli.embedders", "cli.serve",
-           "pipelines.embed", "pipelines.microbatch", "pipelines.serving"]
+           "pipelines.embed", "pipelines.microbatch", "pipelines.serving",
+           "data.images", "pipelines.embcache", "models.efficientnet",
+           "models.fold_bn", "models.vision", "models.multimodal"]
 
 
 def _py_files():
@@ -146,6 +149,40 @@ def test_serve_and_embed_need_cuda_or_explicit_cpu(monkeypatch, tmp_path):
         batch_size=4)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         cmd_embed_bulk(bulk)
+
+
+def test_image_entry_points_need_cuda_or_explicit_cpu(monkeypatch):
+    from multimodalsimilar_tpu_torch.data.tokenizer import TextTokenizer
+    from multimodalsimilar_tpu_torch.models.bert import BertConfig
+    from multimodalsimilar_tpu_torch.models.efficientnet import (
+        EfficientNetConfig)
+    from multimodalsimilar_tpu_torch.models.multimodal import (
+        MultimodalClassifier)
+    from multimodalsimilar_tpu_torch.models.vision import CvImageClassifier
+    from multimodalsimilar_tpu_torch.pipelines.embedders import (
+        ImageEmbedder, MultimodalEmbedder)
+    from multimodalsimilar_tpu_torch.pipelines.similar import (
+        multimodal_similar_job)
+    from multimodalsimilar_tpu_torch.pipelines.sinks import InMemoryKVSink
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cv = CvImageClassifier(EfficientNetConfig.tiny(), num_labels=3, fc_dim=8)
+    mm = MultimodalClassifier(BertConfig.tiny(), EfficientNetConfig.tiny(),
+                              num_labels=3, fc_dim=8)
+    tok = TextTokenizer.from_corpus(["苹果"])
+    emb = np.eye(4, dtype=np.float32)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ImageEmbedder(cv)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        MultimodalEmbedder(mm, tok)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        multimodal_similar_job({"spu_sn": list("abcd")}, emb,
+                               InMemoryKVSink())
+    out = ImageEmbedder(cv, image_size=16, device="cpu").embed_batch(
+        np.zeros((2, 16, 16, 3), np.uint8))
+    assert out.shape == (2, 8)
+    assert multimodal_similar_job({"spu_sn": list("abcd")}, emb,
+                                  InMemoryKVSink(), device="cpu") == 4
 
 
 def test_trainer_needs_cuda_or_explicit_cpu(monkeypatch):
