@@ -4,8 +4,9 @@
     python3 chip_smoke.py
 
 1. Builds every kernel under ``multimodalsimilar_tpu_torch/csrc`` (the
-   ``.cu`` files, which share ``tf32x3.cuh``) with nvcc for sm_90a, one
-   process each, all started together.
+   ``.cu`` files: ``topk.cu`` and ``arcface.cu`` share ``tf32x3.cuh``;
+   ``topk_select.cu``) with nvcc for sm_90a, one process each, all
+   started together.
 2. Phase 1 holds the streaming top-k kernel (``csrc/topk.cu``) against its
    plain PyTorch version on the card, at the text job's shapes: a
    262,144 x 768 f32 corpus, 4,096 queries, k in {13, 26, 101}, ip and l2;
@@ -16,7 +17,11 @@
    daemon's 64 queries at d = 512 against its 100,000-row corpus padded
    to 131,072, and phase 7's un-normalized l2 at d = 1,280 over 4,096
    fused rows of norm sqrt(2): the daemon's 48 queries and the job's
-   self-search); a ragged corpus (N not a
+   self-search); the daodian shapes on this kernel (the v1 job's cv arm,
+   8,134 photo rows padded to 8,192 at d = 512 and k = 26 searched by
+   themselves, and ``serve --tower fasttext``, one request against
+   99,600 titles padded to 131,072 at d = 100 and k = 100, both timed);
+   a ragged corpus (N not a
    multiple of the 128-row chunk), a padded corpus with ``true_n < N``
    (including the l2 pad fill of 1e18, whose square overflows f32), a
    split-free launch, and small-integer data with duplicate rows where
@@ -27,7 +32,20 @@
    in the exact-arithmetic tie cases. It times the kernel, the plain
    version and ``torch.topk(q @ x.T)`` (a yardstick the port never calls)
    with CUDA events, beside the bound at the card's f32-accurate
-   tensor-core rate and the older CUDA-core bound.
+   tensor-core rate and the older CUDA-core bound. It then holds the
+   large-k route (the f32 products, then ``csrc/topk_select.cu``) against
+   the plain version with the same tolerances at the daodian shapes: one
+   8,300-row area at d = 100 searched by itself at k = N // 7 (the v2
+   job's depth; the kernels line's main shape) and k = N, one lv1 group
+   of 276 rows at k = N (the v1 text arm), the cv arm's 8,134 rows at
+   d = 512 and k = N // 7, 1 and 16
+   ad-hoc queries at k = N, 256 queries over 30,000 rows at k = N (longer
+   than the 16,384 columns one block holds: chunks merged), a padded
+   corpus with ``true_n`` < N (ip zeros and the l2 1e18 fill), small-integer
+   duplicate rows and {-1, 0, 1} rows with exact zero scores (-0.0 ties
+   with +0.0; exact equality), and l2 at d = 512, k = 300 over 50,000
+   rows; with the route, the plain version, ``torch.sort`` of the same
+   product (the library yardstick) and ``T.bound_ms`` timed or computed.
 3. Phase 2 runs the text similarity job (``nlp_similar_job``) on 50,000
    synthetic product titles through the full-width ``roberta_wwm_ext``
    tower (12 layers, 768 hidden, vocab 21128; random weights from a seed,
@@ -124,6 +142,37 @@
    distance <= 1e-3. The image paths take decoded uint8 arrays, so no
    phase needs OpenCV; JPEG decode and image HTTP are held by the CPU
    tests.
+9. Phase 8 runs the daodian slice from seeds. fastText
+   (``configs/train_fasttext.yaml``: dim 100, 5 epochs, word bigrams,
+   bucket 200,000, batch 256) trains on the card over 100,000 synthetic
+   titles (words of 2-3 CJK characters, half from each of 30 labels'
+   topic words) twice: at lr 0.1, the JAX defaults, and at lr 25.6 (0.1
+   per title, fastText's own step), whose model the jobs use; tokens/s,
+   the loss and held-out accuracy are reported, and the second must
+   halve its loss and pass 90%. The v2 recent-days job
+   (``configs/similar_daodian_v2_recent_days.yaml``) runs over 12 areas
+   of 8,300 rows with dts over 7 days and both arms: the cv vectors come
+   from a packed ``--emb_cache`` holding 2,048 synthetic photos embedded
+   by B4 at 512 px (seed-0 weights, seeded BN statistics, folded, bf16)
+   and seeded 512-d unit vectors by lv2 for the rest (1 row in 50 has
+   none). ``LAUNCHES["topk_select"]`` must rise, every neighbour must
+   share its key's area and carry the target dt, keys are date-keyed
+   with the 1.5-day TTL, 256 sampled rows of each arm's self-search
+   equal the plain top-k, and the time splits into embed (text, cv),
+   search, filters, sink and other. The v1 job over 2 of those areas:
+   the text arm takes the grouped path (one selection launch per lv1
+   group above 128 rows, ``csrc/topk.cu`` for the rest and the cv arm
+   at k = 26), and for one area the grouped map must equal the full
+   [n, n] search + filter. ``serve --tower daodian``
+   (``configs/serve_daodian.yaml``) over the same 2 areas through
+   ``_build_daodian_service``: 256 sampled ``similar_key`` answers equal
+   the v1 job's map; ad-hoc ``similar_query`` (k = len(area), one
+   selection launch each) under closed-loop load at c = 1 and 16; an
+   ``update`` found by its own key; HTTP /healthz, a key, an ad-hoc
+   query with ``image_b64`` (one ``csrc/topk.cu`` launch for its cv arm)
+   and /update. ``serve --tower fasttext`` (``configs/serve_fasttext.yaml``,
+   k = 100) over all 99,600 rows answers 16 requests through
+   ``csrc/topk.cu``, scores equal to the plain top-k.
 
 Prints the card's name and power limit, one JSON line per phase, the
 ``{"kernels": [...]}`` line, and last ``{"ok": true, "device": ...}``.
@@ -134,6 +183,8 @@ check fails.
 from __future__ import annotations
 
 import argparse
+import base64
+import collections
 import json
 import math
 import os
@@ -175,7 +226,7 @@ from multimodalsimilar_tpu_torch.pipelines.embedders import TextEmbedder
 from multimodalsimilar_tpu_torch.pipelines.serving import (
     MultimodalQueryParser, _read_back_later, make_server)
 from multimodalsimilar_tpu_torch.pipelines.similar import (
-    multimodal_similar_job, nlp_similar_job)
+    daodian_similar_job, multimodal_similar_job, nlp_similar_job)
 from multimodalsimilar_tpu_torch.pipelines.sinks import InMemoryKVSink
 from multimodalsimilar_tpu_torch.retrieval.engine import (SimilarityEngine,
                                                           _normalize_rows)
@@ -407,7 +458,26 @@ def phase1(dev) -> dict:
         rng.integers(-3, 4, size=(1008, DIM)).astype(np.float32)).to(dev)])
     for metric in ("ip", "l2"):
         run(f"ties_{metric}_k101", ints, qi, 101, metric, exact=True)
-    return {"cases": cases, "main": main, "max_abs_err": max_err}
+
+    # the daodian paths on this kernel: the v1 job's cv arm, an area's
+    # photo rows against themselves at d = 512 and k = 26 (the engine pads
+    # 8,134 rows to 8,192), and serve --tower fasttext, one request
+    # against all areas' titles at d = 100 and k = 100 (99,600 rows, padded
+    # to 131,072)
+    n_cv = AREA_ROWS - AREA_ROWS // 50
+    cva = torch.cat([unit_rows(rng, n_cv, CV_DIM, dev),
+                     torch.zeros(8_192 - n_cv, CV_DIM, device=dev)])
+    run("daodian_v1_cv_ip_k26", cva, cva[:n_cv], 26, "ip", true_n=n_cv,
+        timed=True)
+    n_ft = N_AREAS * AREA_ROWS
+    ft = torch.cat([unit_rows(rng, n_ft, FT_DIM, dev),
+                    torch.zeros(131_072 - n_ft, FT_DIM, device=dev)])
+    run("fasttext_serving_ip_k100", ft, unit_rows(rng, 1, FT_DIM, dev), 100,
+        "ip", true_n=n_ft, timed=True)
+    del x, q, ints, qi, job, cv, mm, x100, q100, ragged, cva, ft
+    torch.cuda.empty_cache()
+    return {"cases": cases, "main": main, "max_abs_err": max_err,
+            "select": select_cases(dev)}
 
 
 def make_titles(n: int, rng) -> list:
@@ -1489,6 +1559,555 @@ def phase7(dev) -> dict:
             "policy": "inference (bf16)"}
 
 
+# -- the large-k route (phase 1) --------------------------------------------
+
+AREA_ROWS, FT_DIM = 8_300, 100          # one daodian area, fastText width
+SELECT_LIBRARY = ("torch.sort(q @ x.T, descending=True, stable=True), first "
+                  "k columns (l2: |q|^2 - 2 q @ x.T + |x|^2 ascending; "
+                  "cuBLAS SGEMM, TF32 off)")
+
+
+def select_library(corpus, queries, k, metric, true_n=None):
+    """One library computation of the large-k route's function
+    (``SELECT_LIBRARY``); the port never calls it."""
+    real = corpus[:true_n] if true_n else corpus
+    s = queries @ real.T
+    if metric == "l2":
+        s = (queries * queries).sum(1, keepdim=True) - 2.0 * s \
+            + (real * real).sum(1)[None, :]
+        v, i = torch.sort(s, dim=1, stable=True)
+    else:
+        v, i = torch.sort(s, dim=1, descending=True, stable=True)
+    return v[:, :k], i[:, :k]
+
+
+def select_cases(dev) -> dict:
+    """The large-k route (products, then ``csrc/topk_select.cu``) against
+    the plain version at the daodian shapes, with phase 1's tolerances."""
+    rng = np.random.default_rng(SEED + 20)
+    cases, max_err = [], 0.0
+
+    def run(name, corpus, queries, k, metric="ip", true_n=None,
+            exact=False, timed=True):
+        nonlocal max_err
+        n_real = true_n or corpus.shape[0]
+        got = T.topk_select_cuda(corpus, queries, k, metric, true_n)
+        want = T.topk_plain(corpus, queries, k + 1, metric, true_n)
+        torch.cuda.synchronize()
+        if int(got[1].max()) >= n_real or int(got[1].min()) < 0:
+            raise AssertionError(f"{name}: a pad row came back")
+        max_err = max(max_err, check_case(name, got, want, min(k, n_real),
+                                          exact))
+        del got, want
+        row = {"case": name, "q": queries.shape[0], "n": corpus.shape[0],
+               "true_n": n_real, "d": queries.shape[1], "k": min(k, n_real),
+               "metric": metric}
+        if timed:
+            row["ms"] = cuda_ms(lambda: T.topk_select_cuda(
+                corpus, queries, k, metric, true_n))
+            row["plain_ms"] = cuda_ms(lambda: T.topk_plain(
+                corpus, queries, k, metric, true_n), reps=1)
+            row["library_ms"] = cuda_ms(lambda: select_library(
+                corpus, queries, k, metric, true_n))
+            row["bound_ms"], row["bound_by"] = T.bound_ms(
+                queries.shape[0], n_real, queries.shape[1], min(k, n_real),
+                metric)
+        cases.append(row)
+        torch.cuda.empty_cache()
+        return row
+
+    area = unit_rows(rng, AREA_ROWS, FT_DIM, dev)
+    main = run("area_self_k_n7", area, area, AREA_ROWS // 7)
+    run("area_self_k_n", area, area, AREA_ROWS)
+    # the v1 text arm ranks each lv1 group by itself (30 groups an area);
+    # the v2 cv arm searches the area's rows with a photo at d = 512
+    group = area[: AREA_ROWS // 30]
+    run("lv1_group_k_n", group, group, group.shape[0])
+    n_cv = AREA_ROWS - AREA_ROWS // 50
+    cv_area = unit_rows(rng, n_cv, CV_DIM, dev)
+    run("cv_area_self_k_n7", cv_area, cv_area, n_cv // 7)
+    del cv_area
+    run("adhoc_q1_k_n", area, area[:1], AREA_ROWS)
+    run("adhoc_q16_k_n", area, unit_rows(rng, 16, FT_DIM, dev), AREA_ROWS)
+    long = unit_rows(rng, 30_000, FT_DIM, dev)
+    run("long_n30000_k_n", long, long[:256], 30_000)
+    del long
+    for metric, fill in (("ip", 0.0), ("l2", 1e18)):
+        padded = torch.cat([area, torch.full((16_384 - AREA_ROWS, FT_DIM),
+                                             fill, device=dev)])
+        run(f"padded_{metric}_k_true_n", padded, area[:512], 16_384, metric,
+            true_n=AREA_ROWS, timed=False)
+    ints = torch.from_numpy(rng.integers(-3, 4, size=(AREA_ROWS, FT_DIM))
+                            .astype(np.float32)).to(dev)
+    ints[4000:4500] = ints[:500]            # duplicate rows: exact ties
+    for metric in ("ip", "l2"):
+        run(f"ties_{metric}_k_n", ints, ints[:512], AREA_ROWS, metric,
+            exact=True, timed=False)
+    zeros = torch.from_numpy(rng.integers(-1, 2, size=(AREA_ROWS, 4))
+                             .astype(np.float32)).to(dev)
+    run("zero_scores_k_n", zeros, -zeros[:256], AREA_ROWS, exact=True,
+        timed=False)
+    x512 = unit_rows(rng, 50_000, CV_DIM, dev)
+    run("l2_d512_k300", x512, unit_rows(rng, 256, CV_DIM, dev), 300, "l2")
+    return {"cases": cases, "main": main, "max_abs_err": max_err}
+
+
+# -- phase 8: the daodian slice ---------------------------------------------
+
+N_FT_TITLES, FT_LABELS, FT_WORDS = 100_000, 30, 4_000
+N_AREAS, RECENT_DAYS, N_DD_PHOTOS = 12, 7, 2_048
+DD_DAYS = [f"2026-08-{d:02d}" for d in range(10, 17)]
+DD_LEVELS = (1, 16)
+
+
+def title_words(seed: int = SEED + 30) -> tuple:
+    """(shared words, per-label topic words): 2-3 CJK characters each."""
+    rng = np.random.default_rng(seed)
+    chars = np.array([chr(0x4E00 + i) for i in range(3000)])
+    n = FT_WORDS + FT_LABELS * 120
+    words = ["".join(chars[rng.integers(0, 3000, m)])
+             for m in rng.integers(2, 4, n)]
+    return words[:FT_WORDS], [words[FT_WORDS + 120 * c:
+                                    FT_WORDS + 120 * (c + 1)]
+                              for c in range(FT_LABELS)]
+
+
+def daodian_titles(rng, labels, words) -> list:
+    """Space-separated titles of 4-10 words, half from the label's 120
+    topic words, half from the 4,000 shared ones; one in ten repeats an
+    earlier title of its label (a relisted product)."""
+    shared, topic = words
+    out, last = [], {}
+    for lab in labels:
+        lab = int(lab)
+        if lab in last and rng.random() < 0.1:
+            out.append(last[lab])
+            continue
+        m = int(rng.integers(4, 11))
+        t = " ".join([topic[lab][j] for j in rng.integers(0, 120, m // 2)]
+                     + [shared[j] for j in
+                        rng.integers(0, FT_WORDS, m - m // 2)])
+        last[lab] = t
+        out.append(t)
+    return out
+
+
+def daodian_table(rng, words) -> dict:
+    """12 areas of 8,300 rows: title, lv1 (30 labels) and lv2 (4 under
+    each), a sku per row and dts over the 7 days of the window."""
+    n = N_AREAS * AREA_ROWS
+    lv1 = rng.integers(0, FT_LABELS, n)
+    return {"area_id": [int(a) for a in np.repeat(np.arange(N_AREAS),
+                                                  AREA_ROWS)],
+            "spu_sn": [f"dd{i:06d}" for i in range(n)],
+            "sku": [f"{700000 + i}" for i in range(n)],
+            "title": daodian_titles(rng, lv1, words),
+            "first_level_category_id": [int(v) for v in lv1],
+            "second_level_category_id": [int(v) for v in
+                                         lv1 * 10 + rng.integers(0, 4, n)],
+            "dt": [DD_DAYS[int(j)] for j in rng.integers(0, RECENT_DAYS, n)]}
+
+
+def dd_args(work: str) -> argparse.Namespace:
+    """configs/serve_daodian.yaml written out (the JAX parser's defaults
+    for the rest), with port 0 and the checkpoint, fastText model, packed
+    cache and an empty image root under ``work``; ``checkpoint`` and
+    ``num_labels`` also name the cv tower for ``_cv_embedder``."""
+    ckpt = os.path.join(work, "cv_ckpt")
+    return argparse.Namespace(
+        tower="daodian", data="synthetic areas (table=)",
+        fasttext_model=os.path.join(work, "fasttext.pt"),
+        cv_checkpoint=ckpt, checkpoint=ckpt, cv_num_labels=CV_LABELS,
+        num_labels=CV_LABELS, backbone=BACKBONE, fc_dim=CV_DIM,
+        image_size=CV_SIZE, img_root=os.path.join(work, "images"),
+        key_col="spu_sn", area_col="area_id", sku_col="sku",
+        emb_cache=os.path.join(work, "emb_cache"), host="127.0.0.1",
+        port=0, batch_size=64, max_batch=64, max_wait_ms=5.0,
+        text_only=False, nlp_score_th=-0.6, cv_score_th=0.15,
+        ann_cnt_nlp=100, ann_cnt_cv=26, score_th=None, k=13,
+        pallas_topk=False, approx_recall=None)
+
+
+class _Split:
+    """Host seconds spent in wrapped callables, by stage; a call inside a
+    call of the same stage is not counted twice. ``sync`` waits for the
+    card before the clock stops (device searches return early)."""
+
+    def __init__(self):
+        self.s = {}
+        self._active = set()
+
+    def wrap(self, stage, fn, sync=False):
+        def timed(*a, **kw):
+            if stage in self._active:
+                return fn(*a, **kw)
+            self._active.add(stage)
+            t0 = time.perf_counter()
+            try:
+                out = fn(*a, **kw)
+                if sync:
+                    torch.cuda.synchronize()
+                return out
+            finally:
+                self._active.discard(stage)
+                self.s[stage] = self.s.get(stage, 0.0) \
+                    + time.perf_counter() - t0
+        return timed
+
+
+def _timed_job(table, embed_titles, embed_skus, dev, **kw) -> tuple:
+    """``daodian_similar_job`` with its stages timed: embed (text, cv),
+    search (``SimilarityEngine.search`` and ``knn_search``, read-backs
+    included), filters (``filter_neighbors``), sink (``set_many``); and
+    the first text and cv self-searches kept for the plain check."""
+    import multimodalsimilar_tpu_torch.retrieval.engine as engine_mod
+    split, kept = _Split(), {}
+    sink = InMemoryKVSink()
+    orig = (SimilarityEngine.search, engine_mod.knn_search,
+            engine_mod.filter_neighbors)
+
+    def search(self, k, queries=None):
+        out = orig[0](self, k, queries)
+        if queries is None:
+            kept.setdefault(self.dim, (self, k, out))
+        return out
+
+    SimilarityEngine.search = split.wrap("search", search)
+    engine_mod.knn_search = split.wrap("search", orig[1], sync=True)
+    engine_mod.filter_neighbors = split.wrap("filters", orig[2])
+    sink.set_many = split.wrap("sink", sink.set_many)
+    try:
+        t0 = time.perf_counter()
+        merged = daodian_similar_job(
+            table, split.wrap("embed_text", embed_titles),
+            split.wrap("embed_cv", embed_skus), sink, device=dev, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        (SimilarityEngine.search, engine_mod.knn_search,
+         engine_mod.filter_neighbors) = orig
+    split.s["other"] = wall - sum(split.s.values())
+    return merged, sink, wall, split.s, kept
+
+
+def _check_kept(kept, dev, rng, n=256) -> float:
+    """Sampled rows of each kept self-search against the plain top-k on
+    the same device corpus."""
+    err = 0.0
+    for dim, (eng, k, (scores, idx)) in kept.items():
+        corpus_dev, true_n, _ = eng._corpus_dev
+        rows = np.sort(rng.choice(eng.n, size=min(n, eng.n), replace=False))
+        want = T.topk_plain(corpus_dev, corpus_dev[torch.from_numpy(rows)
+                                                   .to(dev)],
+                            k + 1, "ip", true_n)
+        err = max(err, check_case(f"daodian_d{dim}_k{k}", (
+            torch.from_numpy(scores[rows]).to(dev),
+            torch.from_numpy(idx[rows]).to(dev)), want, min(k, eng.n)))
+    return err
+
+
+def phase8(dev) -> dict:
+    """The daodian slice (see the docstring)."""
+    from multimodalsimilar_tpu_torch.cli.serve import (
+        _build_daodian_service, _load_fasttext)
+    from multimodalsimilar_tpu_torch.cli.similar import _sku_to_spusn
+    from multimodalsimilar_tpu_torch.models.fasttext import train_supervised
+    from multimodalsimilar_tpu_torch.pipelines.daodian_serving import (
+        make_daodian_server)
+    from multimodalsimilar_tpu_torch.pipelines.similar import (
+        build_area_index, split_areas)
+    from multimodalsimilar_tpu_torch.retrieval.filters import (
+        filter_neighbors)
+
+    work = tempfile.mkdtemp(prefix="chip_smoke_dd_")
+    rng = np.random.default_rng(SEED + 31)
+    out = {}
+    try:
+        args = dd_args(work)
+        words = title_words()
+        # 1. fastText on the card: configs/train_fasttext.yaml with the
+        # JAX defaults (batch 256 on the batch-mean loss), then the same
+        # at lr 0.1 x 256, fastText's per-example step, whose model the
+        # jobs use (at lr 0.1 the batch mean moves each title 256x less
+        # than fastText's SGD does, and 1,950 steps barely move the loss)
+        labels = rng.integers(0, FT_LABELS, N_FT_TITLES)
+        titles = daodian_titles(rng, labels, words)
+        held_lab = rng.integers(0, FT_LABELS, 2048)
+        held = daodian_titles(rng, held_lab, words)
+        out["fasttext"] = {}
+        for name, lr in (("defaults_lr0.1", 0.1), ("lr25.6", 25.6)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ft = train_supervised(titles, [int(v) for v in labels],
+                                  dim=FT_DIM, lr=lr, epochs=5,
+                                  word_ngrams=2, device=dev)
+            torch.cuda.synchronize()
+            train_s = time.perf_counter() - t0
+            _, mask = ft.vocab.encode_batch(titles, ft.max_tokens,
+                                            ft.word_ngrams)
+            # tokens the steps read: batches of 256 titles, mean length
+            loss = ft.train_losses
+            tokens = len(loss) * 256 * float(mask.sum(1).mean())
+            _, acc, _ = ft.test(held, [int(v) for v in held_lab])
+            first, last = float(loss[:50].mean()), float(loss[-50:].mean())
+            if not (np.isfinite(loss).all() and last < first):
+                raise AssertionError(f"fastText {name}: loss {first} -> "
+                                     f"{last}")
+            out["fasttext"][name] = {
+                "titles": N_FT_TITLES, "labels": FT_LABELS, "dim": FT_DIM,
+                "lr": lr, "epochs": 5, "batch": 256, "steps": len(loss),
+                "train_s": train_s, "tokens_per_s": tokens / train_s,
+                "loss_first50": first, "loss_last50": last,
+                "heldout_accuracy": acc, "vocab": ft.vocab.size}
+        if not (last < 0.5 * first and acc > 0.9):
+            raise AssertionError(f"fastText at lr 25.6: loss {first} -> "
+                                 f"{last}, held-out accuracy {acc}")
+        ft.save(args.fasttext_model)
+        print(json.dumps({"phase8_fasttext": out["fasttext"]}), flush=True)
+        del ft, mask
+        ft = _load_fasttext(args, device=dev)
+
+        # 2. the cv arm's corpus: B4 photos + seeded vectors in the cache
+        model = CvImageClassifier(backbone_config(BACKBONE), CV_LABELS,
+                                  fc_dim=CV_DIM,
+                                  generator=torch.Generator().manual_seed(
+                                      SEED))
+        seed_bn_statistics(model, SEED + 32, make_images(
+            np.random.default_rng(SEED + 33), 8, CV_SIZE), dev)
+        CheckpointManager(args.checkpoint).save(0, {"model":
+                                                    model.state_dict()})
+        del model
+        table = daodian_table(rng, words)
+        n = len(table["spu_sn"])
+        embedder = _cv_embedder(args, device=dev)
+        photo_rows = np.arange(0, n, n // N_DD_PHOTOS)[:N_DD_PHOTOS]
+        photos = make_images(rng, N_DD_PHOTOS, CV_SIZE)
+        embedder.embed_batch(photos[:64])             # warm-up, not timed
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        photo_emb = np.concatenate([embedder.embed_batch(photos[s: s + 256])
+                                    for s in range(0, N_DD_PHOTOS, 256)])
+        photo_s = time.perf_counter() - t0
+        base = rng.standard_normal((FT_LABELS * 10, CV_DIM)).astype(
+            np.float32)
+        base /= np.linalg.norm(base, axis=1, keepdims=True)
+        noise = rng.standard_normal((n, CV_DIM)).astype(np.float32)
+        noise *= 0.9 / np.linalg.norm(noise, axis=1, keepdims=True)
+        vecs = base[np.asarray(table["second_level_category_id"])] + noise
+        vecs[photo_rows] = photo_emb
+        has = np.ones(n, bool)
+        has[rng.choice(n, n // 50, replace=False)] = False   # no image
+        has[photo_rows] = True
+        cache = EmbeddingCache.open(args.emb_cache, CV_DIM)
+        cache.put_many({table["sku"][i]: vecs[i] for i in np.nonzero(has)[0]})
+        cache.close()
+        del embedder, photos, vecs, noise
+        torch.cuda.empty_cache()
+        embedder = _cv_embedder(args, device=dev)
+
+        def embed_skus(area):
+            return _sku_to_spusn(area, embedder, args)
+
+        embed_titles = ft.get_sentence_vector
+        out["cv_corpus"] = {"photos": N_DD_PHOTOS,
+                            "photos_per_s": N_DD_PHOTOS / photo_s,
+                            "cached": int(has.sum()), "rows": n,
+                            "config": "B4 at 512 px, fc 512, BN folded, "
+                                      "bf16; seeded unit vectors by lv2"}
+
+        # 3. the v2 recent-days job over 12 areas
+        T.LAUNCHES["topk_select"] = T.LAUNCHES["topk"] = 0
+        merged, sink, wall, split, kept = _timed_job(
+            table, embed_titles, embed_skus, dev, date_key="20260816",
+            dt_col="dt", target_dt=DD_DAYS[-1], recent_days=RECENT_DAYS)
+        v2_select, v2_topk = T.LAUNCHES["topk_select"], T.LAUNCHES["topk"]
+        if v2_select < 2 * N_AREAS or len(sink.data) == 0:
+            raise AssertionError(f"v2 job: {v2_select} selection launches, "
+                                 f"{len(sink.data)} keys written")
+        area_of = dict(zip(table["spu_sn"], table["area_id"]))
+        dt_of = dict(zip(table["spu_sn"], table["dt"]))
+        for key, nbrs in list(merged.items())[::97]:
+            if any(area_of[x] != area_of[key] or dt_of[x] != DD_DAYS[-1]
+                   for x in nbrs) or len(nbrs) > 27 + 101:
+                raise AssertionError(f"v2 job: bad list for {key}")
+        ttl = sink.ttl(next(iter(sink.data)))
+        if not all(k.startswith("20260816:") for k in sink.data) \
+                or not 0 < ttl <= 1.5 * 86400:
+            raise AssertionError("v2 job: keys or TTL")
+        v2_err = _check_kept(kept, dev, rng)
+        out["v2_job"] = {
+            "areas": N_AREAS, "rows": n, "keys_written": len(sink.data),
+            "wall_s": wall, "split_s": split,
+            "topk_select_launches": v2_select, "topk_launches": v2_topk,
+            "sample_max_abs_err": v2_err,
+            "mean_list": float(np.mean([len(v) for v in merged.values()])),
+            "config": "configs/similar_daodian_v2_recent_days.yaml: "
+                      "recent_days 7, date-keyed, TTL 1.5 d"}
+        print(json.dumps({"phase8_v2_job": out["v2_job"]}), flush=True)
+        del merged, sink, kept
+
+        # 4. the v1 job over 2 areas: text grouped, cv at k = 26
+        two = {c: v[: 2 * AREA_ROWS] for c, v in table.items()}
+        T.LAUNCHES["topk_select"] = T.LAUNCHES["topk"] = 0
+        v1_map, sink, v1_wall, v1_split, kept = _timed_job(
+            two, embed_titles, embed_skus, dev)
+        v1_select, v1_topk = T.LAUNCHES["topk_select"], T.LAUNCHES["topk"]
+        # one search per lv1 group: groups above MAX_K rows take the
+        # selection kernel, the rest and each area's cv arm csrc/topk.cu
+        sizes = collections.Counter(zip(two["area_id"],
+                                        two["first_level_category_id"]))
+        big = sum(v > T.MAX_K for v in sizes.values())
+        if big == 0 or v1_select != big \
+                or v1_topk != len(sizes) - big + 2:
+            raise AssertionError(f"v1 job: {v1_select} selection and "
+                                 f"{v1_topk} top-k launches for {big} of "
+                                 f"{len(sizes)} groups above {T.MAX_K}")
+        v1_err = _check_kept(kept, dev, rng)
+        area0 = next(iter(split_areas(two, "area_id").values()))
+        idx = build_area_index(area0, embed_titles, embed_skus(area0),
+                               device=dev)
+        eng = idx.text_engine
+        grouped = eng.similar_map(idx.k_text, idx.text_rules)
+        scores, nbr = eng.search(eng.n)
+        full = filter_neighbors(scores, nbr, eng.keys, eng.categories,
+                                idx.text_rules, dts=eng.dts)
+        if grouped != full:
+            bad = sum(grouped[k] != full[k] for k in full)
+            raise AssertionError(f"v1: grouped map differs from the full "
+                                 f"search on {bad} keys")
+        del scores, nbr, full
+        out["v1_job"] = {
+            "areas": 2, "rows": 2 * AREA_ROWS, "keys_written": len(sink.data),
+            "wall_s": v1_wall, "split_s": v1_split,
+            "topk_select_launches": v1_select, "topk_launches": v1_topk,
+            "lv1_groups": len(sizes), "groups_above_max_k": big,
+            "cv_sample_max_abs_err": v1_err,
+            "grouped_equals_full_keys": len(grouped),
+            "config": "configs/similar_daodian_v1.yaml: text k = "
+                      "len(area) per lv1 group, cv k = 26, TTL 7 d"}
+        print(json.dumps({"phase8_v1_job": out["v1_job"]}), flush=True)
+
+        # 5. serve --tower daodian over the same 2 areas
+        t0 = time.perf_counter()
+        svc = _build_daodian_service(args, table=two, device=dev)
+        try:
+            svc.warm()
+            svc.warm_query_buckets(args.image_size)
+            torch.cuda.synchronize()
+            warm_s = time.perf_counter() - t0
+            for key in rng.choice(two["spu_sn"], 256, replace=False):
+                got = svc.similar_key(str(key))["neighbors"]
+                if got != [str(x) for x in v1_map.get(key, [])]:
+                    raise AssertionError(f"similar_key({key}) differs from "
+                                         "the v1 job")
+            queries = [(t, int(a), int(b), str(ar)) for t, a, b, ar in zip(
+                daodian_titles(rng, rng.integers(0, FT_LABELS, 512), words),
+                rng.integers(0, FT_LABELS, 512),
+                rng.integers(0, FT_LABELS * 10, 512),
+                rng.choice(two["area_id"], 512))]
+            T.LAUNCHES["topk_select"] = 0
+            load = [closed_loop(lambda p: svc.similar_query(*p), queries, c)
+                    for c in DD_LEVELS]
+            adhoc_select = T.LAUNCHES["topk_select"]
+            if adhoc_select != sum(r["requests"] for r in load):
+                raise AssertionError(f"{adhoc_select} selection launches "
+                                     f"for {sum(r['requests'] for r in load)}"
+                                     " ad-hoc queries")
+            j = int(rng.integers(0, 2 * AREA_ROWS))
+            item = {c: two[c][j] for c in two}
+            item.update(spu_sn="ddnew0", sku="ddnew0")
+            res = svc.update([item])
+            nb = svc.similar_key("ddnew0")["neighbors"]
+            if two["spu_sn"][j] not in nb[:20]:
+                raise AssertionError(f"after /update: {two['spu_sn'][j]} "
+                                     f"not among {nb[:20]}")
+            httpd = make_daodian_server(svc, args.host, 0,
+                                        image_size=args.image_size)
+            server = threading.Thread(target=httpd.serve_forever,
+                                      daemon=True)
+            server.start()
+            url = f"http://{args.host}:{httpd.server_address[1]}"
+            try:
+                import cv2
+                with urllib.request.urlopen(url + "/healthz",
+                                            timeout=60) as r:
+                    health = json.loads(r.read())
+                k0 = two["spu_sn"][5]
+                by_key = _post(url + "/similar", {"key": k0})
+                ok, buf = cv2.imencode(".jpg", make_images(rng, 1,
+                                                           CV_SIZE)[0])
+                T.LAUNCHES["topk"] = 0
+                q = queries[0]
+                img = _post(url + "/similar", {
+                    "title": q[0], "lv1": q[1], "lv2": q[2],
+                    "area_id": q[3],
+                    "image_b64": base64.b64encode(buf.tobytes()).decode()})
+                img_topk = T.LAUNCHES["topk"]       # the cv arm's k = 26
+                upd = _post(url + "/update", {"items": [dict(
+                    item, spu_sn="ddnew1")]})
+                if health["corpus"] != 2 * AREA_ROWS + 1 \
+                        or by_key["neighbors"] != svc.similar_key(
+                            k0)["neighbors"] \
+                        or img_topk != 1 \
+                        or upd["corpus"] != 2 * AREA_ROWS + 2:
+                    raise AssertionError(
+                        f"HTTP: {health}, {upd}, {img_topk} top-k launches "
+                        f"for one image query, key {k0}: "
+                        f"{by_key['neighbors'][:5]}")
+            finally:
+                httpd.shutdown()
+                httpd.server_close()
+                server.join(timeout=30)
+        finally:
+            svc.close()
+        out["daemon"] = {
+            "areas": 2, "corpus": 2 * AREA_ROWS, "warm_s": warm_s,
+            "keys_checked": 256, "adhoc": load,
+            "adhoc_topk_select_launches": adhoc_select,
+            "update": res, "http_image_cv_neighbors": img["cv_neighbors"],
+            "http_image_text_neighbors": img["text_neighbors"],
+            "config": "configs/serve_daodian.yaml: both arms, B4 at 512 "
+                      "px, max_batch 64"}
+        print(json.dumps({"phase8_daemon": out["daemon"]}), flush=True)
+
+        # 6. serve --tower fasttext over all 12 areas, k = 100
+        fargs = argparse.Namespace(**{**vars(serve_args()), **dict(
+            tower="fasttext", fasttext_model=args.fasttext_model,
+            text_col="title", k=100, score_th=-0.6, max_batch=256,
+            max_wait_ms=2.0, batch_size=64)})
+        fsvc, fn = _build_serve_service(fargs, table=table, device=dev)
+        try:
+            _warm_serve_service(fsvc, fargs)
+            T.LAUNCHES["topk"] = 0
+            corpus_dev, true_n, _ = fsvc.engine._corpus_dev
+            f_err = 0.0
+            for t in queries[:16]:
+                got = fsvc.similar(t[0], score_th=None)
+                q = _normalize_rows(torch.from_numpy(
+                    ft.get_sentence_vector([t[0]])).to(dev))
+                pv, pi = T.topk_plain(corpus_dev, q, 101, "ip", true_n)
+                gs = np.array([g["score"] for g in got])
+                f_err = max(f_err, float(np.abs(
+                    gs - pv[0, :100].cpu().numpy()).max()))
+                if len(got) != 100 or not np.allclose(
+                        gs, pv[0, :100].cpu().numpy(), atol=ATOL,
+                        rtol=RTOL):
+                    raise AssertionError(f"fasttext serve: {gs[:4]}")
+            f_launches = T.LAUNCHES["topk"]
+            if f_launches < 16:
+                raise AssertionError(f"fasttext serve: {f_launches} top-k "
+                                     "launches for 16 requests")
+        finally:
+            fsvc.close()
+        out["fasttext_serve"] = {"corpus": fn, "k": 100, "requests": 16,
+                                 "topk_launches": f_launches,
+                                 "max_abs_err": f_err,
+                                 "config": "configs/serve_fasttext.yaml"}
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this script runs on "
@@ -1506,6 +2125,7 @@ def main() -> None:
 
     p1 = phase1(dev)
     print(json.dumps({"phase1": p1["cases"]}), flush=True)
+    print(json.dumps({"phase1_select": p1["select"]["cases"]}), flush=True)
     p2 = phase2(dev)
     print(json.dumps({"phase2": p2}), flush=True)
     p3 = phase3(dev)
@@ -1518,11 +2138,14 @@ def main() -> None:
     print(json.dumps({"phase6": p6}), flush=True)
     p7 = phase7(dev)
     print(json.dumps({"phase7": p7}), flush=True)
+    p8 = phase8(dev)
+    print(json.dumps({"phase8": p8}), flush=True)
     m = p1["main"]
     case = {c["case"]: c for c in p1["cases"]}
     sv = case["serving_ip_k13"]
     image_paths = {}
-    for name in ("cv_serving_ip_k13", "mm_serving_l2_k13", "mm_job_l2_k13"):
+    for name in ("cv_serving_ip_k13", "mm_serving_l2_k13", "mm_job_l2_k13",
+                 "daodian_v1_cv_ip_k26", "fasttext_serving_ip_k100"):
         c = case[name]
         tag = name.rsplit("_", 2)[0]
         image_paths.update({f"{tag}_ms": c["ms"], f"{tag}_plain_ms":
@@ -1567,7 +2190,32 @@ def main() -> None:
                "backward_plain_ms": a["backward_plain_ms"],
                "shape": {"b": AF_B, "c": AF_C, "d": AF_D, "m": 0.4,
                          "s": 64.0}}
-    print(json.dumps({"kernels": [topk, arcface]}), flush=True)
+    sel = p1["select"]
+    sm = sel["main"]
+    extra = {}
+    for c in sel["cases"]:
+        if "ms" in c and c is not sm:
+            extra[c["case"]] = {key: c[key] for key in (
+                "q", "n", "d", "k", "metric", "ms", "plain_ms", "bound_ms",
+                "bound_by", "library_ms")}
+    topk_select = {
+        "name": "topk_select", "route": "cuda",
+        "source": "multimodalsimilar_tpu_torch/csrc/topk_select.cu",
+        "replaces": "multimodalsimilar_tpu/retrieval/knn.py:483 (XLA "
+                    "_scan_topk, the large-k route beside "
+                    "multimodalsimilar_tpu/ops/topk.py:56)",
+        "launches": p8["v2_job"]["topk_select_launches"],
+        "launches_v1_job": p8["v1_job"]["topk_select_launches"],
+        "launches_daemon_adhoc": p8["daemon"]["adhoc_topk_select_launches"],
+        "max_abs_err": sel["max_abs_err"],
+        "ms": sm["ms"], "plain_ms": sm["plain_ms"],
+        "bound_ms": sm["bound_ms"], "bound_by": sm["bound_by"],
+        "library_ms": sm["library_ms"], "library_call": SELECT_LIBRARY,
+        "shape": {key: sm[key] for key in ("q", "n", "d", "k", "metric")},
+        "other_shapes": extra}
+    topk["launches_daodian_v1_cv"] = p8["v1_job"]["topk_launches"]
+    topk["launches_fasttext_serve"] = p8["fasttext_serve"]["topk_launches"]
+    print(json.dumps({"kernels": [topk, arcface, topk_select]}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

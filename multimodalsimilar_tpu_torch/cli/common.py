@@ -1,6 +1,7 @@
 """Shared command helpers (counterpart of the subset of
 multimodalsimilar_tpu/cli/common.py that the serving and embedding export
 commands use): the tokenizer, the BERT presets, checkpoint restore, the
+fastText model (``--fasttext_model``, in the port's own format), the
 packed embedding cache (``--emb_cache``) and the embedding-table sink.
 
 Options whose code is not ported raise ``NotImplementedError`` instead of
@@ -43,6 +44,21 @@ def _tokenizer(args, df=None):
         df = read_table(args.data)
     return TextTokenizer.from_corpus(
         [str(t) for t in column(df, args.text_col)])
+
+
+def _load_fasttext(args, device="cuda"):
+    """The ``FastTextClassifier`` at ``--fasttext_model``, saved by the
+    port (``FastTextClassifier.save``; a JAX pickle holds JAX classes:
+    carry its weights over with ``models/convert.py:fasttext_from_jax``),
+    on ``device``; one-line errors when the flag is missing."""
+    from multimodalsimilar_tpu_torch.models.fasttext import (
+        FastTextClassifier)
+    path = getattr(args, "fasttext_model", None)
+    if not path:
+        raise SystemExit(
+            "--fasttext_model is required for the fasttext embedder (a "
+            "model saved by the port's FastTextClassifier.save)")
+    return FastTextClassifier.load(path, device=device)
 
 
 def _restore_required(checkpoint_dir):

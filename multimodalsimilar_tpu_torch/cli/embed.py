@@ -1,26 +1,31 @@
 """``embed {incremental,bulk}`` — the goodssku_emb* export jobs
-(counterpart of multimodalsimilar_tpu/cli/embed.py): ``--kind text|cv``
-and ``--kinds bert,cv``. fasttext comes with the daodian slice (ROADMAP
-A14).
+(counterpart of multimodalsimilar_tpu/cli/embed.py): ``--kind
+text|cv|fasttext`` and ``--kinds bert,fasttext,cv``.
 """
 
 from __future__ import annotations
 
 import json
 
-from multimodalsimilar_tpu_torch.cli.common import _make_table_sink
+from multimodalsimilar_tpu_torch.cli.common import (_load_fasttext,
+                                                    _make_table_sink)
 from multimodalsimilar_tpu_torch.cli.embedders import (_build_cv_embed_fn,
                                                        _build_embed_fn)
+from multimodalsimilar_tpu_torch.data.datasets import column
 
-_KINDS_NOT_PORTED = {"fasttext": "A14"}
 
+def _fasttext_embed_fn(args, device="cuda"):
+    """``{key: sentence vector}`` of a table's ``text_col`` rows through
+    the ``--fasttext_model`` classifier (its supervised
+    get_sentence_vector)."""
+    ft = _load_fasttext(args, device=device)
 
-def _refuse(kinds) -> None:
-    for kind in kinds:
-        if kind in _KINDS_NOT_PORTED:
-            raise NotImplementedError(
-                f"embed kind {kind!r} is not ported yet (ROADMAP "
-                f"{_KINDS_NOT_PORTED[kind]})")
+    def embed_fn(sub):
+        em = ft.get_sentence_vector([str(t) for t in
+                                     column(sub, args.text_col)])
+        return dict(zip([str(k) for k in column(sub, args.key_col)], em))
+
+    return embed_fn
 
 
 def cmd_embed_incremental(args, device="cuda"):
@@ -31,7 +36,6 @@ def cmd_embed_incremental(args, device="cuda"):
     from multimodalsimilar_tpu_torch.pipelines.embed import (
         incremental_export, rebuild_export)
     kind = getattr(args, "kind", "text")
-    _refuse([kind])
     df = read_table(args.data)
     sink = _make_table_sink(args.table)
     if kind == "cv":
@@ -44,23 +48,27 @@ def cmd_embed_incremental(args, device="cuda"):
         print(json.dumps({"written": n, "table": args.table,
                           "mode": "rebuild"}))
         return
-    n = incremental_export(df, _build_embed_fn(args, df=df, device=device),
-                           sink, key_col=args.key_col, dt=args.dt)
+    embed_fn = (_fasttext_embed_fn(args, device=device)
+                if kind == "fasttext"
+                else _build_embed_fn(args, df=df, device=device))
+    n = incremental_export(df, embed_fn, sink, key_col=args.key_col,
+                           dt=args.dt)
     print(json.dumps({"written": n, "table": args.table}))
 
 
 def cmd_embed_bulk(args, device="cuda"):
     """goodssku_emb.py capability: one table with a column per tower
-    (BERT, CV), outer-merged over the key."""
+    (fastText + BERT + CV), outer-merged over the key."""
     from multimodalsimilar_tpu_torch.data.datasets import read_table
     from multimodalsimilar_tpu_torch.pipelines.embed import bulk_export
     kinds = [k.strip() for k in args.kinds.split(",")]
-    _refuse(kinds)
     df = read_table(args.data)
     sink = _make_table_sink(args.table)
     embedders = {}
     if "bert" in kinds:
         embedders["bert"] = _build_embed_fn(args, df=df, device=device)
+    if "fasttext" in kinds:
+        embedders["fasttext"] = _fasttext_embed_fn(args, device=device)
     if "cv" in kinds:
         embedders["cv"] = _build_cv_embed_fn(args, device=device)
     merged = bulk_export(df, embedders, sink, key_col=args.key_col)

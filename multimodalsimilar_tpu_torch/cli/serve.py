@@ -1,7 +1,8 @@
-"""``serve --tower bert|cv|multimodal`` — the online similarity daemon
-(counterpart of multimodalsimilar_tpu/cli/serve.py): build the hot
-service, warm every path a request can take, bind the HTTP server. With
-the ``--emb_table`` corpus warm start from the nightly embedding export.
+"""``serve --tower bert|cv|multimodal|fasttext|daodian`` — the online
+similarity daemons (counterpart of multimodalsimilar_tpu/cli/serve.py):
+build the hot service, warm every path a request can take, bind the HTTP
+server. With the ``--emb_table`` corpus warm start from the nightly
+embedding export.
 
 * bert: the text tower; inner product on normalized rows.
 * cv: the folded image tower over the reference's image layout
@@ -11,6 +12,12 @@ the ``--emb_table`` corpus warm start from the nightly embedding export.
   {img_root}/{key}.jpg) rows; search is UN-normalized squared L2
   (multimodal_infer.py:140-145 IndexFlatL2), so scores ascend and a
   request's score_th is a max distance.
+* fasttext: the daodian job's text arm online — ``--fasttext_model``
+  sentence vectors (d=100), inner product on normalized rows; corpus
+  titles from text_col, or ``gen_title`` when the column is absent.
+* daodian: both daodian arms hot in one ``DaodianService``
+  (``_build_daodian_service``, ``_serve_daodian``): a key's answer is the
+  nightly v1 job's merged list, an ad-hoc query gets the same rules.
 
 ``_service_from_corpus`` is the tail every tower shares: the engine, the
 fused tower -> normalize -> top-k path and its fallbacks, the
@@ -19,11 +26,10 @@ service through it too.
 
 As in ``cli/train.py``, the functions take the ``argparse.Namespace`` the
 JAX package's ``serve`` parser builds (``configs/serve*.yaml``'s values);
-the port's own parser comes with its CLI (ROADMAP A15). The fasttext and
-daodian towers and the search-backend flags raise
-``NotImplementedError``. pandas and pyarrow are imported only by the
-``--emb_table`` functions and ``read_table``: pass ``table=`` to build a
-service without them.
+the port's own parser comes with its CLI (ROADMAP A15). The
+search-backend flags raise ``NotImplementedError``. pandas and pyarrow
+are imported only by the ``--emb_table`` functions and ``read_table``:
+pass ``table=`` to build a service without them.
 """
 
 from __future__ import annotations
@@ -35,14 +41,12 @@ import time
 
 import numpy as np
 
+from multimodalsimilar_tpu_torch.cli.common import _emb_cache, _load_fasttext
 from multimodalsimilar_tpu_torch.cli.embedders import (
     _build_text_embedder, _cv_embedder, _embed_fn_from_embedder,
-    _fused_embeddings, _image_paths, _multimodal_embedder)
+    _fused_embeddings, _image_paths, _load_cv_tower, _multimodal_embedder)
 from multimodalsimilar_tpu_torch.data.datasets import column
 from multimodalsimilar_tpu_torch.utils.devices import resolve_device
-
-# --tower -> where the ROADMAP queues it
-_TOWERS_NOT_PORTED = {"fasttext": "A14", "daodian": "A14"}
 
 # Per-tower default thresholds = the reference jobs' own operating points:
 # bert 0.9 (nlp_infer.py:152,163), cv 0.15 / fasttext -0.6
@@ -70,10 +74,6 @@ def _serve_warm_payload(args):
 
 
 def _check_ported(args) -> None:
-    if args.tower in _TOWERS_NOT_PORTED:
-        raise NotImplementedError(
-            f"serve --tower {args.tower} is not ported yet (ROADMAP "
-            f"{_TOWERS_NOT_PORTED[args.tower]})")
     for flag in ("pallas_topk", "approx_recall"):
         if getattr(args, flag, None) not in (None, False):
             raise NotImplementedError(
@@ -90,21 +90,18 @@ def _columns(table) -> list:
 
 def _build_serve_service(args, table=None, device="cuda"):
     """(SimilarityService, corpus_rows) for ``serve --tower
-    bert|cv|multimodal`` on ``device``. ``table`` (a DataFrame or a
-    ``{column: list}`` mapping) replaces reading ``args.data``."""
-    from multimodalsimilar_tpu_torch.ops.topk import MAX_K
-
+    bert|cv|multimodal|fasttext`` on ``device``. ``table`` (a DataFrame
+    or a ``{column: list}`` mapping) replaces reading ``args.data``."""
     dev = resolve_device(device)
+    if args.tower == "daodian":
+        raise ValueError("serve --tower daodian has its own service: "
+                         "_build_daodian_service")
     _check_ported(args)
-    if dev.type == "cuda" and args.k > MAX_K:
-        # fail at startup, not as HTTP 500s on every request
-        raise ValueError(f"--k {args.k}: the top-k kernel takes k <= "
-                         f"{MAX_K}")
     if table is None:
         from multimodalsimilar_tpu_torch.data.datasets import read_table
         table = read_table(args.data)
     cols = _columns(table)
-    need = ([args.key_col] if args.tower == "cv"
+    need = ([args.key_col] if args.tower in ("cv", "fasttext")
             else [args.text_col, args.key_col])
     for col in need:
         if col not in cols:
@@ -130,6 +127,9 @@ def _build_serve_service(args, table=None, device="cuda"):
         # (multimodal_infer.py:140-145 IndexFlatL2) — scores ascend, and
         # a request's score_th means "max distance"
         metric, normalize = "l2", False
+    elif args.tower == "fasttext":
+        embed_queries, keys, emb = _serve_fasttext_corpus(args, table, dev)
+        embedder = None
     else:
         embedder = _build_text_embedder(args, df=table, device=dev)
         embed_queries = _embed_fn_from_embedder(embedder)
@@ -161,11 +161,13 @@ def _service_from_corpus(args, emb, keys, cats, embed_queries, embedder,
                          parser=None, metric="ip", normalize=True,
                          device="cuda"):
     """The ``SimilarityService`` over an embedded corpus (``emb`` rows
-    follow ``keys`` and ``cats``): the engine on ``device``, and, when
-    ``--max_batch`` fits the tower's batch, the best path — the whole
-    request (tower(s) [+ norm-concat fusion] -> normalize -> exact top-k)
-    chained on the worker's stream per pow2 bucket — with
-    ``embedder.embed_device`` as its two-step fallback."""
+    follow ``keys`` and ``cats``): the engine on ``device``, and, when a
+    device ``embedder`` is given and ``--max_batch`` fits its batch, the
+    best path — the whole request (tower(s) [+ norm-concat fusion] ->
+    normalize -> exact top-k) chained on the worker's stream per pow2
+    bucket — with ``embedder.embed_device`` as its two-step fallback.
+    Without one (fasttext, whose embed returns host vectors) requests
+    take the host path."""
     from multimodalsimilar_tpu_torch.pipelines.serving import (
         SimilarityService)
     from multimodalsimilar_tpu_torch.retrieval.engine import SimilarityEngine
@@ -173,7 +175,7 @@ def _service_from_corpus(args, emb, keys, cats, embed_queries, embedder,
     engine = SimilarityEngine(emb, keys, categories=cats, metric=metric,
                               normalize=normalize, device=device)
     embed_device = fused = fused_factory = None
-    if args.max_batch <= args.batch_size:
+    if embedder is not None and args.max_batch <= args.batch_size:
         fused = embedder.fused_similar_fn(engine, args.k)
         embed_device = embedder.embed_device
         fused_factory = lambda: embedder.fused_similar_fn(engine, args.k)  # noqa: E731
@@ -277,6 +279,149 @@ def _serve_multimodal_corpus(args, table, cats, device="cuda"):
 
     return (embed_queries, MultimodalQueryParser(args.image_size), keys,
             emb, cats, embedder)
+
+
+def _serve_fasttext_corpus(args, table, device="cuda"):
+    """(embed_queries, keys, emb) for ``serve --tower fasttext``: the
+    daodian text arm online — ``--fasttext_model`` sentence vectors
+    (d=100) searched by inner product on normalized rows
+    (daodian_infer.py:204-247). Corpus titles come from text_col, or
+    ``gen_title`` when the column is absent (the batch job's own
+    fallback)."""
+    ft = _load_fasttext(args, device=device)
+    if args.text_col in _columns(table):
+        texts = [str(t) for t in column(table, args.text_col)]
+    else:
+        try:
+            texts = _gen_titles(table)
+        except (KeyError, AttributeError):
+            raise SystemExit(
+                f"column {args.text_col!r} not in {args.data} and the "
+                "gen_title fallback needs the daodian columns "
+                "(first/second_level_category_name, product_name, "
+                "product_title) — pass --text_col")
+        print(f"serve: {args.text_col!r} not in table — corpus titles "
+              "built with gen_title (the daodian batch job's layout)",
+              file=sys.stderr)
+    keys = [str(k) for k in column(table, args.key_col)]
+
+    def embed_queries(qtexts):
+        return ft.get_sentence_vector(list(qtexts))
+
+    return embed_queries, keys, _corpus_with_emb_table(args, keys, texts,
+                                                       embed_queries)
+
+
+def _gen_titles(table) -> list:
+    """``gen_title`` of every row of a DataFrame or ``{column: list}``
+    table (``DataFrame.apply(gen_title, axis=1)``)."""
+    from multimodalsimilar_tpu_torch.data.text import gen_title
+    from multimodalsimilar_tpu_torch.pipelines.similar import (n_rows,
+                                                               table_columns)
+    cols = table_columns(table)
+    return [gen_title({c: v[i] for c, v in cols.items()})
+            for i in range(n_rows(cols))]
+
+
+def _build_daodian_service(args, table=None, device="cuda"):
+    """DaodianService for ``serve --tower daodian`` on ``device``: BOTH
+    production arms hot (fastText sentence vectors + the CV tower's cached
+    embeddings) so one request returns the nightly job's merged per-key
+    answer online (daodian_infer.py:361-392). ``table`` replaces reading
+    ``args.data``. Without ``--cv_checkpoint`` it refuses unless
+    ``--text_only`` says to serve the fastText arm alone."""
+    from multimodalsimilar_tpu_torch.cli.similar import _sku_to_spusn
+    from multimodalsimilar_tpu_torch.pipelines.daodian_serving import (
+        DaodianService)
+    from multimodalsimilar_tpu_torch.pipelines.embedders import ImageEmbedder
+    from multimodalsimilar_tpu_torch.pipelines.similar import (n_rows,
+                                                               table_columns)
+
+    dev = resolve_device(device)
+    _check_ported(args)
+    if table is None:
+        from multimodalsimilar_tpu_torch.data.datasets import read_table
+        table = read_table(args.data)
+    cols = table_columns(table)
+    if not n_rows(cols):
+        raise SystemExit("--data table is empty — nothing to serve")
+    if "title" not in cols:
+        cols["title"] = _gen_titles(cols)
+    ft = _load_fasttext(args, device=dev)
+
+    def embed_titles(titles):
+        return ft.get_sentence_vector(list(titles))
+
+    embed_query_images = None
+    if args.cv_checkpoint:
+        emb = ImageEmbedder(
+            _load_cv_tower(args, args.cv_checkpoint, args.cv_num_labels),
+            image_size=args.image_size,
+            cache_path_for_key=lambda k: os.path.join(
+                args.img_root, str(k), "emb.txt"),
+            cache=_emb_cache(args), emb_dim=args.fc_dim, device=dev)
+
+        def embed_skus(area):
+            return _sku_to_spusn(area, emb, args)
+
+        def embed_query_images(images):
+            # one tower call per coalesced batch (uniform shapes — the
+            # HTTP parser resizes)
+            return emb.embed_batch(np.stack([np.asarray(im)
+                                             for im in images]))
+    else:
+        # the production job merges both arms: degrading to text only
+        # must be the operator's explicit choice
+        if not args.text_only:
+            raise SystemExit(
+                "serve --tower daodian: no --cv_checkpoint given. The "
+                "production job merges CV and text neighbors; pass "
+                "--text_only to deliberately serve the fastText side "
+                "alone.")
+        print("serve daodian: --text_only — CV arm disabled",
+              file=sys.stderr)
+
+        def embed_skus(area):
+            return {}
+
+    return DaodianService(
+        cols, embed_titles, embed_skus,
+        embed_query_images=embed_query_images,
+        area_col=args.area_col, key_col=args.key_col,
+        nlp_score_th=args.nlp_score_th, cv_score_th=args.cv_score_th,
+        ann_cnt_nlp=args.ann_cnt_nlp, ann_cnt_cv=args.ann_cnt_cv,
+        max_batch=args.max_batch, max_wait_ms=args.max_wait_ms, device=dev)
+
+
+def _serve_daodian(args, device="cuda"):
+    """Build and warm the daodian service (every area's index and merged
+    map, the ad-hoc buckets), then serve HTTP until interrupted."""
+    from multimodalsimilar_tpu_torch.pipelines.daodian_serving import (
+        make_daodian_server)
+    t0 = time.perf_counter()
+    service = _build_daodian_service(args, device=device)
+    try:
+        service.warm()
+        service.warm_query_buckets(args.image_size)
+        print(f"daodian indexes warm: {service.n} rows, "
+              f"{len(service.areas)} areas in "
+              f"{time.perf_counter() - t0:.1f}s", file=sys.stderr)
+        httpd = make_daodian_server(service, args.host, args.port,
+                                    image_size=args.image_size)
+    except BaseException:
+        service.close()
+        raise
+    host, port = httpd.server_address[:2]
+    print(json.dumps({"serving": f"http://{host}:{port}",
+                      "corpus": service.n,
+                      "areas": len(service.areas)}), flush=True)
+    try:
+        httpd.serve_forever()
+    except KeyboardInterrupt:
+        pass
+    finally:
+        httpd.server_close()
+        service.close()
 
 
 def _emb_table_key_col(args, columns):
@@ -572,6 +717,20 @@ def cmd_serve(args, device="cuda"):
     precomputed Redis KV can't give (a query NOT in last night's batch).
     Micro-batched HTTP serving; see pipelines/serving.py."""
     from multimodalsimilar_tpu_torch.pipelines.serving import make_server
+    if args.tower == "daodian":
+        # the merged tower has two thresholds and two depths: the generic
+        # single-value knobs would be silently ignored, so refuse them
+        if args.score_th is not None:
+            raise SystemExit(
+                "serve --tower daodian: --score_th is not read by the "
+                "merged tower (it has TWO thresholds) — use "
+                "--nlp_score_th / --cv_score_th")
+        if args.k != 13:
+            raise SystemExit(
+                "serve --tower daodian: --k is not read by the merged "
+                "tower (it has TWO retrieval depths) — use "
+                "--ann_cnt_nlp / --ann_cnt_cv")
+        return _serve_daodian(args, device=device)
     service, n = _build_serve_service(args, device=device)
     _warm_serve_service(service, args)
     httpd = make_server(service, args.host, args.port)

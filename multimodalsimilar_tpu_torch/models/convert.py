@@ -18,11 +18,14 @@ the tree.
   BatchNorm), the image classifier (backbone, fc, neck BatchNorm, head)
   and the fused classifier (its ``cv`` and ``nlp`` sub-classifiers and
   its head).
+* ``fasttext_from_jax``: a ``FastTextClassifier`` from a JAX model's
+  numpy ``{"input", "output"}`` tables, its vocab's word -> id table and
+  bucket, its labels and its ``dim`` / ``word_ngrams`` / ``max_tokens``.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Sequence
 
 import numpy as np
 import torch
@@ -188,3 +191,22 @@ def multimodal_classifier_from_jax(variables: Mapping,
     sd.update({f"nlp.{k}": v for k, v in nlp.items()})
     sd["head.weight"] = _t(params["head"]["weight"])
     return sd
+
+
+def fasttext_from_jax(params: Mapping, words: Mapping[str, int], bucket: int,
+                      labels: Sequence, dim: int, word_ngrams: int = 2,
+                      max_tokens: int = 64, min_count: int = 1,
+                      device="cuda"):
+    """The port's ``FastTextClassifier`` with a JAX model's weights: the
+    vocab ids, and so every sentence vector, stay as they were."""
+    from multimodalsimilar_tpu_torch.models.fasttext import (
+        FastTextClassifier, FastTextVocab)
+    vocab = FastTextVocab(dict(words), int(bucket), int(min_count))
+    tables = {name: _t(params[name]) for name in ("input", "output")}
+    if tables["input"].shape != (vocab.size, dim) \
+            or tables["output"].shape != (len(labels), dim):
+        raise ValueError(f"tables {[tuple(t.shape) for t in tables.values()]}"
+                         f" do not fit {vocab.size} ids, {len(labels)} "
+                         f"labels and dim {dim}")
+    return FastTextClassifier(vocab, tables, list(labels), dim,
+                              word_ngrams, max_tokens, device=device)

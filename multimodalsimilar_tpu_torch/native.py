@@ -1,12 +1,13 @@
-"""ctypes bridge to the native host-side char encoder (native/fastpack.cpp).
+"""ctypes bridge to the native host-side encoders (native/fastpack.cpp).
 
-The port's own copy of ``multimodalsimilar_tpu/native.py`` (char encoder
-only). The shared library is built lazily on first use with g++ from the
+The port's own copy of ``multimodalsimilar_tpu/native.py``: the char
+encoder and the fastText word/bigram encoder. The shared library is built lazily on first use with g++ from the
 repository's ``native/fastpack.cpp`` into the port's git-ignored
 ``build/`` directory, never into ``native/libfastpack.so``, so the two
 packages never race on one file. When the toolchain or the build is
-unavailable, ``TextTokenizer.from_vocab`` falls back to its pure-Python
-encoder: this is host tokenization, not a device path.
+unavailable, ``TextTokenizer.from_vocab`` and
+``FastTextVocab.encode_batch`` fall back to their pure-Python encoders:
+this is host tokenization, not a device path.
 """
 
 from __future__ import annotations
@@ -67,6 +68,17 @@ def load() -> Optional[ctypes.CDLL]:
                 lib = ctypes.CDLL(_LIB)
             except OSError:
                 return None
+        lib.ft_vocab_create.restype = ctypes.c_void_p
+        lib.ft_vocab_create.argtypes = [
+            ctypes.POINTER(ctypes.c_char_p), ctypes.POINTER(ctypes.c_int32),
+            ctypes.c_int32, ctypes.c_int64, ctypes.c_int64]
+        lib.ft_vocab_free.restype = None
+        lib.ft_vocab_free.argtypes = [ctypes.c_void_p]
+        lib.ft_encode_batch.restype = None
+        lib.ft_encode_batch.argtypes = [
+            ctypes.c_void_p, ctypes.POINTER(ctypes.c_char_p),
+            ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,
+            ctypes.POINTER(ctypes.c_int32), ctypes.POINTER(ctypes.c_float)]
         lib.char_vocab_create.restype = ctypes.c_void_p
         lib.char_vocab_create.argtypes = [
             ctypes.POINTER(ctypes.c_char_p), ctypes.c_int32,
@@ -88,6 +100,37 @@ def _c_strings(strings: Sequence[str]):
     encoded = [s.encode("utf-8") for s in strings]
     arr[:] = encoded
     return arr, encoded  # keep `encoded` alive
+
+
+class NativeFtEncoder:
+    """Native fastText word/bigram packer (FastTextVocab.encode_batch)."""
+
+    def __init__(self, words: dict, bucket: int, nwords: int):
+        self.lib = load()
+        if self.lib is None:
+            raise RuntimeError("native fastpack unavailable")
+        keys = list(words)
+        ids = np.asarray([words[k] for k in keys], np.int32)
+        arr, keep = _c_strings(keys)
+        self._handle = self.lib.ft_vocab_create(
+            arr, ids.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+            len(keys), bucket, nwords)
+
+    def encode_batch(self, lines: Sequence[str], max_tokens: int,
+                     word_ngrams: int = 2):
+        n = len(lines)
+        ids = np.zeros((n, max_tokens), np.int32)
+        mask = np.zeros((n, max_tokens), np.float32)
+        arr, keep = _c_strings(list(lines))
+        self.lib.ft_encode_batch(
+            self._handle, arr, n, max_tokens, word_ngrams,
+            ids.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+            mask.ctypes.data_as(ctypes.POINTER(ctypes.c_float)))
+        return ids, mask
+
+    def __del__(self):
+        if getattr(self, "_handle", None) and self.lib is not None:
+            self.lib.ft_vocab_free(self._handle)
 
 
 class NativeCharEncoder:

@@ -1,21 +1,33 @@
 """The similarity jobs — batched retrieval + KV writes.
 
-Counterpart of ``nlp_similar_job``, ``multimodal_similar_job`` and
-``write_neighbor_map`` in ``multimodalsimilar_tpu/pipelines/similar.py``:
+Counterpart of ``multimodalsimilar_tpu/pipelines/similar.py``:
 
 * ``nlp_similar_job`` <- nlp_infer.py:105-172 — text embeddings,
   normalize + inner product, k=13, threshold 0.9, no category filter;
+  writes ``dj_similar:{spu_sn}``;
 * ``multimodal_similar_job`` <- multimodal_infer.py:103-159 — the fused
   embeddings searched by **un-normalized squared L2**, top-13, no
-  threshold.
+  threshold; writes ``dj_similar:{spu_sn}``;
+* ``daodian_similar_job`` <- daodian_infer.py:329-392 (+ the _v2
+  variants) — per area: the fastText text arm (th -0.6, same lv1, cap
+  100) and the CV image arm (k 26, th 0.15, same lv2), merged cv-first;
+  keys ``{spu_sn}`` (v1) or ``{yyyymmdd}:{spu_sn}`` (v2 date-keyed, TTL
+  1.5 days); the v2 "recent days" window keeps only neighbors whose dt
+  is the target date. ``build_area_index`` / ``area_merged_map`` are
+  the one place both the job and the daemon
+  (``pipelines/daodian_serving.py``) build an area's retrieval state.
 
-Both write ``dj_similar:{spu_sn}`` = comma-joined neighbor spu_sns with a
-TTL (default 7 days). The daodian jobs come with a later slice.
+Tables are pandas DataFrames or ``{column: list}`` mappings (the card
+machine has no pandas); the daodian job hands each area to its embedders
+as a ``{column: list}`` mapping.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, List
+import dataclasses
+from typing import Callable, Dict, List, Optional, Sequence
+
+import numpy as np
 
 from multimodalsimilar_tpu_torch.data.datasets import column
 from multimodalsimilar_tpu_torch.pipelines.sinks import KVSink
@@ -23,6 +35,7 @@ from multimodalsimilar_tpu_torch.retrieval.engine import SimilarityEngine
 from multimodalsimilar_tpu_torch.retrieval.filters import FilterRules
 
 WEEK = 7 * 24 * 3600
+DAY_AND_HALF = int(1.5 * 24 * 3600)
 
 
 def write_neighbor_map(sink: KVSink, neighbor_map: Dict[str, List[str]],
@@ -68,3 +81,196 @@ def multimodal_similar_job(table, embeddings, sink: KVSink,
     nmap = engine.similar_map(k, FilterRules(same_category=False))
     return write_neighbor_map(sink, nmap, ttl_seconds,
                               lambda s: f"dj_similar:{s}")
+
+
+def norm_dt(v) -> str:
+    """'2026-08-16', '20260816', or date objects all compare equal — the
+    reference mixes raw SQL dt values with compacted key dates
+    (daodian_infer_v2_recent_days.py:242 vs :342); comparing them verbatim
+    would silently filter every neighbor out."""
+    return "".join(ch for ch in str(v) if ch.isdigit())
+
+
+def table_columns(table) -> Dict[str, list]:
+    """A DataFrame or ``{column: sequence}`` mapping as ``{column:
+    list}``, column order kept."""
+    names = list(table.columns) if hasattr(table, "columns") \
+        else list(table)
+    return {c: column(table, c) for c in names}
+
+
+def take_rows(cols: Dict[str, list], rows: Sequence[int]) -> Dict[str, list]:
+    """The ``rows`` of a ``{column: list}`` table, in that order."""
+    return {c: [v[i] for i in rows] for c, v in cols.items()}
+
+
+def n_rows(cols: Dict[str, list]) -> int:
+    return len(next(iter(cols.values()))) if cols else 0
+
+
+@dataclasses.dataclass
+class DaodianAreaIndex:
+    """One area's hot retrieval state — built identically by the batch job
+    (daodian_similar_job) and the online daemon (pipelines/daodian_serving),
+    so the two can never drift on engines, depths, or filter rules."""
+    area: Dict[str, list]                   # the area's rows
+    text_engine: SimilarityEngine           # fastText sentence vectors
+    k_text: int
+    text_rules: FilterRules
+    cv_rows: Dict[str, list]                # rows with a CV embedding
+    cv_engine: Optional[SimilarityEngine]   # None when no row has one
+    k_cv: int
+    cv_rules: Optional[FilterRules]
+
+
+def build_area_index(
+    area,
+    embed_titles: Callable[[Sequence[str]], np.ndarray],
+    sku_embs: Dict[str, np.ndarray],
+    key_col: str = "spu_sn",
+    title_col: str = "title",
+    lv1_col: str = "first_level_category_id",
+    lv2_col: str = "second_level_category_id",
+    nlp_score_th: float = -0.6,
+    cv_score_th: float = 0.15,
+    ann_cnt_nlp: int = 100,
+    ann_cnt_cv: int = 26,
+    dt_col: Optional[str] = None,
+    require_dt: Optional[str] = None,       # already norm_dt'd
+    recent_days: int = 7,
+    device="cuda",
+) -> DaodianAreaIndex:
+    """Both arms' engines + the reference variant's retrieval depths/rules
+    for ONE area (daodian_infer.py:361-375; see daodian_similar_job's
+    docstring for the v1/v2 depth semantics). ``area`` is a DataFrame or
+    a ``{column: list}`` mapping."""
+    area = table_columns(area)
+    n = n_rows(area)
+    windowed = bool(require_dt and dt_col)
+    text_emb = embed_titles([str(t) for t in area[title_col]])
+    rules_kw = dict(require_dt=require_dt) if windowed else {}
+    if windowed:
+        k_text = max(1, min(n, n // recent_days))
+    else:
+        k_text = n
+    text_engine = SimilarityEngine(
+        text_emb, area[key_col], area[lv1_col],
+        dts=([norm_dt(v) for v in area[dt_col]] if dt_col else None),
+        metric="ip", normalize=True, device=device)
+    # +1: the reference appends, then breaks once len > ann_cnt
+    text_rules = FilterRules(score_threshold=nlp_score_th,
+                             same_category=True,
+                             max_neighbors=ann_cnt_nlp + 1, **rules_kw)
+    cv_rows = take_rows(area, [i for i, k in enumerate(area[key_col])
+                               if k in sku_embs])
+    cv_engine = cv_rules = None
+    k_cv = 0
+    n_cv = n_rows(cv_rows)
+    if n_cv:
+        if windowed:
+            k_cv = max(1, min(n_cv, n_cv // recent_days))
+            cv_cap = ann_cnt_cv + 1
+        else:
+            k_cv = min(ann_cnt_cv, n_cv)
+            cv_cap = None        # v1 CV loop never breaks
+        cv_emb = np.stack([sku_embs[k] for k in cv_rows[key_col]])
+        cv_engine = SimilarityEngine(
+            cv_emb, cv_rows[key_col], cv_rows[lv2_col],
+            dts=([norm_dt(v) for v in cv_rows[dt_col]]
+                 if dt_col else None),
+            metric="ip", normalize=True, device=device)
+        cv_rules = FilterRules(score_threshold=cv_score_th,
+                               same_category=True, max_neighbors=cv_cap,
+                               **rules_kw)
+    return DaodianAreaIndex(area=area, text_engine=text_engine,
+                            k_text=k_text, text_rules=text_rules,
+                            cv_rows=cv_rows, cv_engine=cv_engine,
+                            k_cv=k_cv, cv_rules=cv_rules)
+
+
+def area_merged_map(index: DaodianAreaIndex) -> Dict[str, List[str]]:
+    """The area's production answer: cv-first-then-text merged neighbor
+    map (daodian_infer.py:368-375)."""
+    nlp_map = index.text_engine.similar_map(index.k_text, index.text_rules)
+    cv_map = (index.cv_engine.similar_map(index.k_cv, index.cv_rules)
+              if index.cv_engine is not None else {})
+    return SimilarityEngine.merge(cv_map, nlp_map)
+
+
+def split_areas(table, area_col: str) -> Dict[object, Dict[str, list]]:
+    """``{area value: its rows as {column: list}}`` in first-seen order
+    (``DataFrame[area_col].unique()``'s)."""
+    cols = table_columns(table)
+    groups: Dict[object, List[int]] = {}
+    for i, a in enumerate(cols[area_col]):
+        groups.setdefault(a, []).append(i)
+    return {a: take_rows(cols, rows) for a, rows in groups.items()}
+
+
+def daodian_similar_job(
+    table,
+    embed_titles: Callable[[Sequence[str]], np.ndarray],   # fastText side
+    embed_skus: Callable[[Dict[str, list]], Dict[str, np.ndarray]],  # CV
+    sink: KVSink,
+    area_col: str = "area_id",
+    key_col: str = "spu_sn",
+    title_col: str = "title",
+    lv1_col: str = "first_level_category_id",
+    lv2_col: str = "second_level_category_id",
+    nlp_score_th: float = -0.6,       # daodian_infer.py:79-82
+    cv_score_th: float = 0.15,
+    ann_cnt_nlp: int = 100,
+    ann_cnt_cv: int = 26,
+    ttl_seconds: Optional[int] = None,   # default: WEEK for v1 keys,
+                                         # DAY_AND_HALF when date-keyed
+                                         # (daodian_infer_v2_*.py:342)
+    date_key: Optional[str] = None,   # 'yyyymmdd' -> v2 date-keyed writes
+    dt_col: Optional[str] = None,     # with a target date: v2 history filter
+    target_dt: Optional[str] = None,  # dt value neighbors must carry (raw
+                                      # --dt, e.g. '2026-08-16'; the KV key
+                                      # uses the compacted date_key instead —
+                                      # daodian_infer_v2_recent_days.py:242
+                                      # vs :342). Defaults to date_key.
+    recent_days: int = 7,             # v2 window (daodian_infer_v2_recent_days)
+    device="cuda",
+) -> Dict[str, List[str]]:
+    """Per-area fastText + CV retrieval, cv-first merge, KV write.
+
+    ``table`` is a DataFrame or a ``{column: list}`` mapping; each area
+    reaches ``embed_skus`` as a ``{column: list}`` mapping. Retrieval
+    depths and caps follow the reference variant selected by the date
+    arguments:
+
+    * v1 / v2_today (no ``dt_col``): text searches the whole area
+      (k=len(arr), daodian_infer.py:230), CV searches ann_cnt_cv=26
+      (daodian_infer.py:302); the CV filter loop has no break, the text
+      loop breaks only after exceeding ann_cnt_nlp (daodian_infer.py:244-246)
+      so its true cap is ann_cnt_nlp+1.
+    * v2_recent_days (``dt_col`` set): BOTH sides search
+      k = len(arr)//recent_days (daodian_infer_v2_recent_days.py:235,310) —
+      the corpus holds ``recent_days`` days of history and only neighbors
+      whose dt equals ``date_key`` survive; both loops break after exceeding
+      their ann_cnt (:248-250, :323-325), so caps are ann_cnt+1.
+
+    Returns the merged neighbor map (all areas) for inspection/testing.
+    """
+    merged_all: Dict[str, List[str]] = {}
+    key_fn = ((lambda s: f"{date_key}:{s}") if date_key
+              else (lambda s: s))
+    if ttl_seconds is None:
+        ttl_seconds = DAY_AND_HALF if date_key else WEEK
+    require_dt = target_dt if target_dt is not None else date_key
+    windowed = bool(require_dt and dt_col)
+    require_dt = norm_dt(require_dt) if windowed else require_dt
+    for area in split_areas(table, area_col).values():
+        index = build_area_index(
+            area, embed_titles, embed_skus(area), key_col=key_col,
+            title_col=title_col, lv1_col=lv1_col, lv2_col=lv2_col,
+            nlp_score_th=nlp_score_th, cv_score_th=cv_score_th,
+            ann_cnt_nlp=ann_cnt_nlp, ann_cnt_cv=ann_cnt_cv,
+            dt_col=dt_col, require_dt=require_dt if windowed else None,
+            recent_days=recent_days, device=device)
+        merged = area_merged_map(index)
+        merged_all.update(merged)
+        write_neighbor_map(sink, merged, ttl_seconds, key_fn)
+    return merged_all

@@ -10,20 +10,21 @@ daemon.
 
 There is no backend, mesh or approximate-recall option: the device decides
 which path runs, and the JAX package's sharded and approximate searches are
-TPU paths. The grouped full-ranking path of the daodian jobs
-(``_grouped_self_similar_map``) is not ported yet; ``similar_map`` always
-runs the full search, which gives the same map.
+TPU paths. A full-ranking self-search (k >= n) under a same-category rule,
+the daodian text arm's, runs per category group
+(``_grouped_self_similar_map``), as in the JAX package.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from multimodalsimilar_tpu_torch.retrieval.filters import (
-    FilterRules, filter_neighbors, merge_neighbor_maps)
+    FilterRules, _factorize, filter_neighbors, merge_neighbor_maps)
 from multimodalsimilar_tpu_torch.retrieval.knn import (
     corpus_block_rows, knn_search, pad_corpus, plan_query_chunk)
 from multimodalsimilar_tpu_torch.utils.devices import resolve_device
@@ -65,6 +66,11 @@ class SimilarityEngine:
         self._corpus_dev = None       # cached device corpus, true_n, block
         self._key_pos = None          # lazy key -> row map for update()
         self._buf = None              # capacity buffer once update() appends
+
+    @property
+    def dim(self) -> int:
+        """Width of the corpus rows (and of the queries it takes)."""
+        return self._emb.shape[1]
 
     # -- corpus upsert ------------------------------------------------------
 
@@ -189,8 +195,8 @@ class SimilarityEngine:
         return self._corpus_dev
 
     def _chunk_rows(self, k_eff: int) -> int:
-        return plan_query_chunk(self._emb.shape[1], k_eff, self.device,
-                                cap=self.QUERY_CHUNK)
+        return plan_query_chunk(self.n, self._emb.shape[1], k_eff,
+                                self.device, cap=self.QUERY_CHUNK)
 
     def _dispatch_chunk(self, chunk: torch.Tensor, k: int):
         """Search ONE query chunk on the cached device corpus; returns
@@ -296,9 +302,57 @@ class SimilarityEngine:
 
     def similar_map(self, k: int, rules: FilterRules
                     ) -> Dict[object, List[object]]:
+        if (rules.same_category and self.categories is not None
+                and self.n > 0 and k >= self.n):
+            return self._grouped_self_similar_map(rules)
         scores, idx = self.search(k)
         return filter_neighbors(scores, idx, self.keys, self.categories,
                                 rules, dts=self.dts)
+
+    def _grouped_self_similar_map(self, rules: FilterRules
+                                  ) -> Dict[object, List[object]]:
+        """FULL-ranking self-search (k >= n) under a same-category rule,
+        evaluated per category GROUP — the daodian text arm's operating
+        point (k = len(area), daodian_infer.py:230-246).
+
+        Every rule is within-row and the category rule keeps only the
+        query's own group, so the global ranking restricted to a group IS
+        the group's own ranking (ties break by index, and group-relative
+        index order is monotone in global order): the result equals the
+        full [n, n] search + filter, row by row, while the search drops
+        from n x n to the sum of n_c x n_c. Rows with a missing category
+        (``_factorize`` code -1) match nothing. Duplicate-key queries keep
+        last-global-row-wins via the positional stitch."""
+        codes, _ = _factorize(list(self.categories))
+        dts = (np.asarray(self.dts, dtype=object)
+               if self.dts is not None else None)
+        sub_rules = dataclasses.replace(rules, same_category=False)
+        per_row: List[List[object]] = [[] for _ in range(self.n)]
+        keys_arr = np.asarray(self.keys, dtype=object)
+        for code in np.unique(codes):
+            if code < 0:
+                continue    # missing categories never match anything
+            rows = np.nonzero(codes == code)[0]
+            n_c = len(rows)
+            sub_dev = torch.from_numpy(np.ascontiguousarray(
+                self._emb[rows])).to(self.device)
+            chunk = plan_query_chunk(n_c, self.dim, n_c, self.device,
+                                     cap=self.QUERY_CHUNK)
+            lists: List[List[object]] = []
+            for s in range(0, n_c, chunk):
+                v, i = knn_search(sub_dev, sub_dev[s: s + chunk], n_c,
+                                  self.metric)
+                lists.extend(filter_neighbors(
+                    v.cpu().numpy(), i.cpu().numpy(), keys_arr[rows],
+                    categories=None, rules=sub_rules,
+                    query_rows=np.arange(s, s + len(v)),
+                    dts=dts[rows] if dts is not None else None,
+                    return_lists=True))
+            for r, lst in zip(rows, lists):
+                per_row[r] = lst
+        # dict assembly in global row order: duplicate query keys keep
+        # the full path's last-row-wins
+        return {keys_arr[r]: per_row[r] for r in range(self.n)}
 
     @staticmethod
     def merge(primary: Dict, secondary: Dict, cap: Optional[int] = None):

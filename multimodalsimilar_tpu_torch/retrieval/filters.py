@@ -53,13 +53,23 @@ class FilterRules:
 
 
 def _missing(v) -> bool:
-    return v is None or (isinstance(v, (float, np.floating)) and v != v)
+    """True for every value ``pandas.factorize`` codes -1: None, and any
+    value unequal to itself (float and numpy NaN, ``pd.NaT``,
+    ``np.datetime64('NaT')``) or whose self-comparison is no bool
+    (``pd.NA`` compares to NA, which raises ``TypeError`` in ``bool``).
+    pandas itself is not imported."""
+    if v is None:
+        return True
+    try:
+        return bool(v != v)
+    except (TypeError, ValueError):
+        return True
 
 
 def _factorize(values):
     """(int64 codes, uniques) in first-seen order, like
-    ``pandas.factorize``: None and NaN get -1; equal values (1 == 1.0)
-    share a code."""
+    ``pandas.factorize``: missing values (``_missing``) get -1; equal
+    values (1 == 1.0) share a code."""
     table: Dict[object, int] = {}
     codes = np.empty(len(values), np.int64)
     for i, v in enumerate(values):

@@ -6,11 +6,13 @@ returns inner products sorted descending, 'l2' squared L2 distances sorted
 ascending, ties go to the lower index, rows past ``true_n`` never win, and
 ``k`` shrinks to ``min(k, true_n)``.
 
-On a CUDA tensor the search is ``csrc/topk.cu``; on a CPU tensor its plain
-version (``ops/topk.py``). The JAX package's HBM-budget probe, window-max
-prefilter and merge-every-M schedule are how XLA reaches that result on a
-TPU; the kernel keeps its running top-k on chip and needs none of them.
-Query chunks are bounded by the card's free memory instead.
+On a CUDA tensor the search is ``csrc/topk.cu`` for k <= 128 and the
+large-k route (f32 products, then ``csrc/topk_select.cu``) above; on a CPU
+tensor their plain version (``ops/topk.py``). The JAX package's HBM-budget
+probe, window-max prefilter and merge-every-M schedule are how XLA reaches
+that result on a TPU; the kernels need none of them. Query chunks are
+bounded by the card's free memory instead (``plan_query_chunk``, which
+counts the large-k route's [Qc, N] product tile and selection scratch).
 """
 
 from __future__ import annotations
@@ -20,7 +22,8 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from multimodalsimilar_tpu_torch.ops.topk import streaming_topk
+from multimodalsimilar_tpu_torch.ops.topk import (MAX_K, select_scratch_bytes,
+                                                  streaming_topk)
 
 
 def l2_normalize_rows(x: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
@@ -61,14 +64,27 @@ def corpus_block_rows(n: int) -> int:
     return min(next_pow2(n, lo=512), 32768)
 
 
-def plan_query_chunk(d: int, k: int, device: torch.device, cap: int) -> int:
-    """Query rows per search call. On a card, the most whose query upload,
-    results and split scratch fit in half of the free device memory
-    (``torch.cuda.mem_get_info``); on the CPU, ``cap``."""
+def query_bytes(n: int, d: int, k: int) -> float:
+    """Device bytes one query row of a search over ``n`` rows of width
+    ``d`` holds at depth ``k`` (already ``min(k, n)``): its f32 row and
+    its [k] scores and indices, plus the route's scratch. ``csrc/topk.cu``
+    (k <= ``MAX_K``) keeps up to three more lists per query for its corpus
+    splits; the large-k route holds the query's [n] f32 product row and
+    the selection's running lists (``select_scratch_bytes``)."""
+    if k <= MAX_K:
+        return 4.0 * d + 8.0 * k * 4
+    return 4.0 * d + 8.0 * k + 4.0 * n + select_scratch_bytes(n, k)
+
+
+def plan_query_chunk(n: int, d: int, k: int, device: torch.device,
+                     cap: int) -> int:
+    """Query rows per search call over ``n`` corpus rows at depth ``k``.
+    On a card, the most whose ``query_bytes`` fit in half of the free
+    device memory (``torch.cuda.mem_get_info``); on the CPU, ``cap``."""
     if torch.device(device).type != "cuda":
         return cap
     free, _ = torch.cuda.mem_get_info(device)
-    per_query = 4.0 * d + 8.0 * k * 4    # f32 row + outputs + scratch
+    per_query = query_bytes(n, d, min(k, n))
     return int(max(1, min(cap, 0.5 * free // per_query)))
 
 

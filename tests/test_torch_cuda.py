@@ -95,6 +95,102 @@ def test_kernel_counts_launches_and_validates(dev):
         T.topk_cuda(x.cpu(), x, 5)
 
 
+@pytest.mark.parametrize("metric", ["ip", "l2"])
+@pytest.mark.parametrize("q,n,k", [(1, 300, 300), (50, 5000, 129),
+                                   (20, 5000, 5000), (3, 16_384, 16_384),
+                                   (8, 40_000, 40_000), (8, 40_000, 1000),
+                                   (5, 33_000, 200)])
+def test_select_route_equals_plain_on_exact_data(dev, metric, q, n, k):
+    """The large-k route (products + csrc/topk_select.cu) on small-integer
+    rows, where every score is exact: identical to the plain version,
+    ties (duplicate rows) in index order, padding rows never returned.
+    n = 16,384 is one whole chunk; 33,000 and 40,000 are merged chunks."""
+    rng = np.random.default_rng(q + n + k)
+    corpus = _ints(rng, (n, 24), dev)
+    corpus[n // 2: n // 2 + 100] = corpus[:100]
+    true_n = n - 7
+    queries = _ints(rng, (q, 24), dev)
+    queries[:1] = corpus[:1]
+    before = T.LAUNCHES["topk_select"]
+    got = T.streaming_topk(corpus, queries, k, metric, true_n=true_n)
+    want = T.topk_plain(corpus, queries, k, metric, true_n=true_n)
+    torch.cuda.synchronize()
+    assert T.LAUNCHES["topk_select"] == before + 1
+    assert torch.equal(got[1], want[1]) and torch.equal(got[0], want[0])
+    assert int(got[1].max()) < true_n
+
+
+@pytest.mark.parametrize("n", [37, 5000, 20_000])
+def test_select_kernel_orders_zeros_infinities_and_nan(dev, n):
+    """-0.0 ties with +0.0 by index, -inf ranks below every finite score,
+    +inf above, NaN first (torch.sort's descending order), on scores
+    handed to the kernel directly."""
+    rng = np.random.default_rng(n)
+    vals = np.array([0.0, -0.0, np.inf, -np.inf, np.nan, 1.5, -2.0],
+                    np.float32)
+    s = torch.from_numpy(rng.choice(vals, size=(4, n))).to(dev)
+    got_v, got_i = T.select_cuda(s.contiguous(), n)
+    want_v, want_i = torch.sort(s, dim=1, descending=True, stable=True)
+    torch.cuda.synchronize()
+    assert torch.equal(got_i.long(), want_i)
+    same = (got_v == want_v) | (torch.isnan(got_v) & torch.isnan(want_v))
+    assert bool(same.all())
+
+
+def test_select_kernel_validates(dev):
+    s = torch.randn(3, 10, device=dev)
+    with pytest.raises(ValueError, match="k <= n"):
+        T.select_cuda(s, 11)
+    with pytest.raises(ValueError, match="contiguous"):
+        T.select_cuda(s.t(), 2)
+    with pytest.raises(ValueError, match="float32"):
+        T.select_cuda(s.double(), 2)
+
+
+@pytest.mark.parametrize("n,k", [(5000, 700), (20_000, 1000),
+                                 (40_000, 129)])
+def test_select_kernel_orders_specials_through_the_radix_select(dev, n, k):
+    """At k <= n / 2 (per chunk) the kernel selects the k-th key before
+    sorting: with many equal specials (-0.0 and +0.0, infinities, NaN)
+    the threshold falls among ties, which go by index as in torch.sort."""
+    rng = np.random.default_rng(n + k)
+    vals = np.array([0.0, -0.0, np.inf, -np.inf, np.nan, 1.5, -2.0],
+                    np.float32)
+    row = np.where(rng.random((4, n)) < 0.5, rng.choice(vals, (4, n)),
+                   rng.normal(size=(4, n))).astype(np.float32)
+    s = torch.from_numpy(row).to(dev)
+    got_v, got_i = T.select_cuda(s, k)
+    want_v, want_i = torch.sort(s, dim=1, descending=True, stable=True)
+    torch.cuda.synchronize()
+    assert torch.equal(got_i.long(), want_i[:, :k])
+    want_v = want_v[:, :k]
+    same = (got_v == want_v) | (torch.isnan(got_v) & torch.isnan(want_v))
+    assert bool(same.all())
+
+
+@pytest.mark.parametrize("metric", ["ip", "l2"])
+def test_select_route_is_f32_accurate_with_tf32_on(dev, metric):
+    """A process that turns TF32 on (``set_float32_matmul_precision
+    ('high')``) still gets f32-accurate products on the large-k route:
+    the same answer as with TF32 off, within phase 1's tolerances."""
+    rng = np.random.default_rng(3)
+    x = torch.from_numpy(rng.normal(size=(3000, 100)).astype(np.float32))
+    x = (x / x.norm(dim=1, keepdim=True)).to(dev)
+    want = T.topk_select_cuda(x, x[:64], 3000, metric)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        got = T.topk_select_cuda(x, x[:64], 3000, metric)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.synchronize()
+    assert torch.allclose(got[0], want[0], atol=1e-4, rtol=1e-5)
+    gap = (want[0][:, 1:] - want[0][:, :-1]).abs()
+    sep = torch.ones_like(want[0], dtype=torch.bool)
+    sep[:, 1:] &= gap > 1e-5
+    sep[:, :-1] &= gap > 1e-5
+    assert bool((got[1] == want[1])[sep].all())
+
+
 def test_engine_on_card_matches_engine_on_cpu(dev):
     rng = np.random.default_rng(1)
     emb = rng.normal(size=(3000, 64)).astype(np.float32)
@@ -262,11 +358,23 @@ TABLE = {"spu_sn": [f"sku{i}" for i in range(40)],
                       for i in range(40)]}
 
 
-def test_serve_refuses_k_above_the_kernel_at_build(dev):
+def test_serve_above_max_k_uses_the_selection_route(dev):
+    """A --k above the small-k kernel's 128 no longer refuses: the
+    service builds and answers through the large-k route
+    (csrc/topk_select.cu), the whole corpus ranked."""
     from multimodalsimilar_tpu_torch.cli.serve import _build_serve_service
-    with pytest.raises(ValueError, match="k <= 128"):
-        _build_serve_service(_tiny_serve_args(k=129), table=TABLE,
-                             device=dev)
+    table = {"spu_sn": [f"sku{i}" for i in range(300)],
+             "spu_name": [f"{'甲乙丙丁戊'[i % 5] * (1 + i % 3)}商品{i}"
+                          for i in range(300)]}
+    svc, n = _build_serve_service(_tiny_serve_args(k=200), table=table,
+                                  device=dev)
+    try:
+        before = T.LAUNCHES["topk_select"]
+        out = svc.similar(table["spu_name"][7], score_th=None)
+        assert T.LAUNCHES["topk_select"] > before
+        assert len(out) == 200
+    finally:
+        svc.close()
 
 
 def test_serve_on_card_one_launch_per_similar_batch(dev):

@@ -326,10 +326,13 @@ def test_cli_serve_multimodal_matches_jax_cli(mm_setup, monkeypatch,
 def test_refusals(cv_setup, mm_setup, tmp_path):
     d, keys, _ = cv_setup
     table = {"spu_sn": ["a"], "spu_name": ["b"]}
-    for tower in ("fasttext", "daodian"):
+    # the fasttext tower needs its model; daodian has its own service
+    for tower, err, match in (("fasttext", SystemExit, "--fasttext_model"),
+                              ("daodian", ValueError,
+                               "_build_daodian_service")):
         args = build_parser().parse_args(["serve", "--tower", tower,
                                           "--data", "x"])
-        with pytest.raises(NotImplementedError, match="A14"):
+        with pytest.raises(err, match=match):
             cli._build_serve_service(args, table=table, device="cpu")
     md, _, vocab, _ = mm_setup
     args = _mm_args(md, vocab)

@@ -983,9 +983,11 @@ def test_warm_serve_service_drives_every_path(tmp_path):
 
 def test_serve_score_th_defaults_and_unported_flags(tmp_path):
     """Unset --score_th resolves to the tower's reference operating point
-    (nlp_infer.py:152); an explicit flag wins. The towers not ported yet
-    (fasttext, daodian) and the search-backend flags raise instead of
-    being ignored."""
+    (nlp_infer.py:152); an explicit flag wins. The search-backend flags
+    raise instead of being ignored; the fasttext and daodian towers are
+    ported (tests/test_torch_daodian.py): without a model the fasttext
+    tower stops with a one-line error, and daodian has its own
+    service."""
     args = build_parser().parse_args(["serve", "--data", "x"])
     assert cli._serve_score_th(args) == 0.9
     args = build_parser().parse_args(["serve", "--data", "x",
@@ -997,14 +999,17 @@ def test_serve_score_th_defaults_and_unported_flags(tmp_path):
             ["serve", "--tower", tower, "--data", "x"])
         assert cli._serve_score_th(args) == want
         assert cli._serve_score_th(args) == jserve._serve_score_th(args)
-    for argv in (["--tower", "fasttext"], ["--tower", "daodian"],
-                 ["--pallas_topk"], ["--approx_recall", "0.9"],
+    table = {"spu_sn": ["a"], "spu_name": ["b"]}
+    for argv in (["--pallas_topk"], ["--approx_recall", "0.9"],
                  ["--int8"]):
         args = build_parser().parse_args(["serve", "--data", "x"] + argv)
         with pytest.raises(NotImplementedError):
-            cli._build_serve_service(args, table={"spu_sn": ["a"],
-                                                  "spu_name": ["b"]},
-                                     device="cpu")
+            cli._build_serve_service(args, table=table, device="cpu")
+    for tower, err in (("fasttext", SystemExit), ("daodian", ValueError)):
+        args = build_parser().parse_args(["serve", "--data", "x",
+                                          "--tower", tower])
+        with pytest.raises(err):
+            cli._build_serve_service(args, table=table, device="cpu")
 
 
 def test_build_text_embedder_refuses_unported_checkpoints(tmp_path):

@@ -42,11 +42,13 @@ print(json.dumps([names, leaked]))
 """
 
 # the serving and export modules, which pull in the most of the package,
-# and the image slice's
+# the image slice's and the daodian slice's
 SERVING = ["cli.common", "cli.embed", "cli.embedders", "cli.serve",
            "pipelines.embed", "pipelines.microbatch", "pipelines.serving",
            "data.images", "pipelines.embcache", "models.efficientnet",
-           "models.fold_bn", "models.vision", "models.multimodal"]
+           "models.fold_bn", "models.vision", "models.multimodal",
+           "models.fasttext", "models.convert", "pipelines.similar",
+           "pipelines.daodian_serving", "cli.similar", "native"]
 
 
 def _py_files():
@@ -183,6 +185,35 @@ def test_image_entry_points_need_cuda_or_explicit_cpu(monkeypatch):
     assert out.shape == (2, 8)
     assert multimodal_similar_job({"spu_sn": list("abcd")}, emb,
                                   InMemoryKVSink(), device="cpu") == 4
+
+
+def test_daodian_entry_points_need_cuda_or_explicit_cpu(monkeypatch):
+    from multimodalsimilar_tpu_torch.models.fasttext import train_supervised
+    from multimodalsimilar_tpu_torch.pipelines.daodian_serving import (
+        DaodianService)
+    from multimodalsimilar_tpu_torch.pipelines.similar import (
+        daodian_similar_job)
+    from multimodalsimilar_tpu_torch.pipelines.sinks import InMemoryKVSink
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    table = {"area_id": [1, 1], "spu_sn": ["a", "b"], "title": ["x", "y"],
+             "first_level_category_id": [1, 1],
+             "second_level_category_id": [2, 2]}
+
+    def embed(titles):
+        return np.eye(2, dtype=np.float32)[: len(titles)]
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train_supervised(["苹果", "牛奶"], [0, 1], dim=4, bucket=10)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        daodian_similar_job(table, embed, lambda a: {}, InMemoryKVSink())
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        DaodianService(table, embed, lambda a: {})
+    assert train_supervised(["苹果", "牛奶"], [0, 1], dim=4, bucket=10,
+                            device="cpu").dim == 4
+    assert daodian_similar_job(table, embed, lambda a: {}, InMemoryKVSink(),
+                               nlp_score_th=-2.0, device="cpu") == {
+        "a": ["b"], "b": ["a"]}
 
 
 def test_trainer_needs_cuda_or_explicit_cpu(monkeypatch):

@@ -177,3 +177,157 @@ def test_kernel_rejects_cpu_tensors_and_bad_metric():
     with pytest.raises(ValueError, match="unknown metric"):
         T.streaming_topk(x, x, 3, metric="cos")
 
+
+
+@pytest.mark.parametrize("metric", ["ip", "l2"])
+@pytest.mark.parametrize("q,n,k,true_n", [
+    (150, 150, 150, None),          # k = n: the whole area ranked
+    (150, 150, 150 // 7, None),     # k = n // recent_days
+    (1, 150, 150, None),            # one ad-hoc query
+    (40, 192, 300, 171),            # k past true_n, padded corpus
+    (37, 37, 37, None)],            # k = n_c, one category group
+    ids=["k_n", "k_n7", "q1", "padded", "group"])
+def test_large_k_cpu_route_matches_jax(metric, q, n, k, true_n):
+    """The CPU route at the daodian depths (k > 128 or k = n), duplicate
+    rows included, against JAX ``knn_search``: indices exact, scores
+    within 1e-5."""
+    rng = np.random.default_rng(n + k)
+    corpus = rng.normal(size=(n, 16)).astype(np.float32)
+    corpus[n // 2: n // 2 + 5] = corpus[:5]            # exact ties
+    queries = corpus[:q].copy()
+    got = knn_search(torch.from_numpy(corpus), torch.from_numpy(queries), k,
+                     metric, true_n=true_n)
+    want = _jax(corpus, queries, k, metric, true_n=true_n)
+    assert got[0].shape == (q, min(k, true_n or n))
+    _same((got[0].numpy(), got[1].numpy()), want)
+
+
+def _ordered(scores: np.ndarray) -> np.ndarray:
+    """``csrc/topk_select.cu``'s order-preserving uint32 of each score
+    (-0.0 made +0.0, NaN the largest)."""
+    s = np.where(scores == 0, np.float32(0), scores).astype(np.float32)
+    u = s.view(np.uint32).astype(np.uint64)
+    o = np.where(u & 0x80000000, ~u & 0xFFFFFFFF, u | 0x80000000)
+    return np.where(np.isnan(s), 0xFFC00000, o).astype(np.uint64)
+
+
+def _chunk_top(vals: np.ndarray, cols: np.ndarray, m: int):
+    """One chunk in the kernel: where m is at most half the chunk, the
+    radix select of the m-th key (8-bit digits from the top) and the
+    compaction in column order; then the stable sort, value descending."""
+    if 2 * m <= len(vals):
+        prefix, mask, need = 0, 0, m
+        for shift in (24, 16, 8, 0):
+            match = vals[(vals & mask) == prefix]
+            hist = np.bincount(((match >> shift) & 255).astype(np.int64),
+                               minlength=256)
+            run, d = 0, 255
+            while run + hist[d] < need:
+                run += hist[d]
+                d -= 1
+            need -= run
+            prefix |= d << shift
+            mask |= 255 << shift
+        eq = vals == prefix
+        keep = (vals > prefix) | (eq & (np.cumsum(eq) - eq < need))
+        vals, cols = vals[keep], cols[keep]
+        assert len(vals) == m
+    order = np.argsort(0xFFFFFFFF - vals, kind="stable")[:m]
+    return vals[order], cols[order]
+
+
+def _select_emulated(scores: np.ndarray, k: int, chunk: int) -> np.ndarray:
+    """The kernel's algorithm on one row: each chunk's best min(k, len)
+    (``_chunk_top``), merged with the running top-k by rank as uint64
+    keys (the value above the complemented column), k kept. Returns the
+    selected columns."""
+    vals = _ordered(scores)
+    run = np.zeros(0, np.uint64)
+    for base in range(0, len(vals), chunk):
+        part_v = vals[base: base + chunk]
+        v, c = _chunk_top(part_v, np.arange(base, base + len(part_v)),
+                          min(k, len(part_v)))
+        part = (v << np.uint64(32)) | (np.uint64(0xFFFFFFFF)
+                                       - c.astype(np.uint64))
+        out = np.zeros(min(k, len(run) + len(part)), np.uint64)
+        for j, x in enumerate(run):       # place = own rank + larger others
+            pos = j + int((part > x).sum())
+            if pos < len(out):
+                out[pos] = x
+        for j, y in enumerate(part):
+            pos = j + int((run > y).sum())
+            if pos < len(out):
+                out[pos] = y
+        run = out
+    return (np.uint64(0xFFFFFFFF) - (run & np.uint64(0xFFFFFFFF))).astype(
+        np.int64)
+
+
+@pytest.mark.parametrize("k,chunk", [(57, 1024), (57, 16), (300, 64),
+                                     (300, 7), (20, 64), (5, 1024),
+                                     (149, 300)])
+def test_selection_algorithm_is_the_stable_descending_sort(k, chunk):
+    """The selection kernel's key order, radix select, compaction and
+    chunked merge, emulated on the CPU: the same columns as
+    ``torch.sort(descending, stable)``, with -0.0 tied to +0.0 by index,
+    -inf below every finite score, +inf above and NaN first. Repeated
+    specials put ties at the selected threshold."""
+    rng = np.random.default_rng(k + chunk)
+    specials = np.array([0.0, -0.0, np.inf, -np.inf, np.nan, 1.5, -2.0],
+                        np.float32)
+    row = np.where(rng.random(300) < 0.4, rng.choice(specials, 300),
+                   rng.normal(size=300)).astype(np.float32)
+    want = torch.sort(torch.from_numpy(row), descending=True,
+                      stable=True)[1][:k].numpy()
+    np.testing.assert_array_equal(_select_emulated(row, k, chunk), want)
+
+
+def test_f32_products_are_f32_accurate_with_tf32_on(monkeypatch):
+    """``f32_products`` under ``allow_tf32 = True``: the big parts are
+    exact in TF32 and big + small gives each operand back exactly; with
+    every product operand cut to TF32 as the tensor cores take it, the
+    split stays within f32 error of the f64 product where one TF32
+    product does not. On the CPU the flag's path runs with exact f32
+    products."""
+    rng = np.random.default_rng(7)
+    q = torch.from_numpy(rng.normal(size=(64, 100)).astype(np.float32))
+    x = torch.from_numpy(rng.normal(size=(300, 100)).astype(np.float32))
+    want = q.double() @ x.double().T
+    qb, xb = T._tf32_big(q), T._tf32_big(x)
+    assert int((qb.view(torch.int32) & 8191).abs().sum()) == 0
+    assert torch.equal(qb + (q - qb), q) and torch.equal(xb + (x - xb), x)
+    cut = T._tf32_big                    # truncation: worse than rounding
+    split = (cut(qb) @ cut(x - xb).T + cut(q - qb) @ cut(xb).T
+             + cut(qb) @ cut(xb).T)
+    scale = float(want.abs().max())
+    assert float((split.double() - want).abs().max()) < 1e-6 * scale
+    assert float((cut(q) @ cut(x).T - want).abs().max()) > 1e-4 * scale
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+    got = T.f32_products(q, x)
+    assert float((got.double() - want).abs().max()) < 1e-6 * scale
+
+
+def test_query_chunk_plan_counts_the_large_k_route(monkeypatch):
+    """``plan_query_chunk``'s arithmetic with a stubbed free-memory
+    figure: half the free bytes over ``query_bytes``, which for k > 128
+    counts the query's [n] f32 product row and, past one selection chunk,
+    the two running lists of k uint64 keys."""
+    from multimodalsimilar_tpu_torch.retrieval import knn
+    free = 8 * 2**30
+    monkeypatch.setattr(torch.cuda, "mem_get_info", lambda dev: (free, 0))
+    dev = torch.device("cuda")
+    assert knn.query_bytes(262_144, 768, 13) == 4 * 768 + 32 * 13
+    assert knn.query_bytes(8300, 100, 8300) == 400 + 8 * 8300 + 4 * 8300
+    assert knn.query_bytes(30_000, 100, 30_000) == (
+        400 + 8 * 30_000 + 4 * 30_000 + 16 * 30_000)
+    for n, d, k in [(8300, 100, 8300), (8300, 100, 8300 // 7),
+                    (30_000, 100, 30_000), (262_144, 768, 13)]:
+        got = knn.plan_query_chunk(n, d, k, dev, cap=32_768)
+        assert got == int(min(32_768, free // 2 // knn.query_bytes(n, d, k)))
+    # an 8.3k self-search at k = n: 100 KB a query, so ~43k queries fit
+    # in 4 GiB and the cap holds; at 80 MB free the plan shrinks to 400
+    assert knn.plan_query_chunk(8300, 100, 8300, dev, 32_768) == 32_768
+    monkeypatch.setattr(torch.cuda, "mem_get_info",
+                        lambda dev: (80 * 10**6, 0))
+    assert knn.plan_query_chunk(8300, 100, 8300, dev, 32_768) == 400
+    assert knn.plan_query_chunk(8300, 100, 8300, "cpu", 32_768) == 32_768
