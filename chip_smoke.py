@@ -76,7 +76,11 @@
    ``torch.matmul(x_hat, W_hat.T)`` on inputs normalized beforehand
    (cuBLAS SGEMM, TF32 off; no single PyTorch call computes the whole
    function), and under ``torch.profiler`` the device time of each
-   kernel the call launches.
+   kernel the call launches. It then holds the kernel, forward and
+   gradients, at the training recipes' heads with Zipf labels that reach
+   class C - 1: cv 24 x 4,181 x 512 (m 0.2), multimodal 48 x 796 x 1,280
+   (m 0.5) and the multilabel heads 256 x {10,205, 590, 38} x 768 (m 0.1,
+   0.2, 0.4), each timed beside its bound and the yardstick.
 5. Phase 4 trains the text ArcFace slice at full width: the
    ``roberta_wwm_ext`` tower (dropout 0.1) with a 10,205-class head at the
    ``configs/train_nlp_v2.yaml`` recipe (batch 128, max_length 128, seq
@@ -173,6 +177,30 @@
    and /update. ``serve --tower fasttext`` (``configs/serve_fasttext.yaml``,
    k = 100) over all 99,600 rows answers 16 requests through
    ``csrc/topk.cu``, scores equal to the plain top-k.
+10. Phase 9 trains the other recipes through ``cli/train.py``'s
+   ``cmd_train_*`` (a table each, the JAX parser's defaults and the
+   config's values written out, random weights from the seed, two short
+   epochs, ``log_every`` 1, eval and save cadence left long), with the
+   ArcFace launch count set to 0 before each and read after: ``train cv``
+   at ``configs/train_cv_daodian.yaml`` (B4 at 512 px, batch 24, fc 512,
+   4,181 Zipf classes, 144 synthetic JPEGs written by cv2 and read
+   through ``ImageClassificationSource`` as uint8, AdamW under
+   ``cosine_warm_restarts``, class-balanced sampling, margin 0.2 + 0.04
+   an epoch: the margin must reach 0.24, launches equal steps and every
+   BN's running statistics move) and at ``configs/train_cv_timm.yaml``
+   (380 px, batch 96, dual AdamP under ``timm_cosine``, cooldown cut to 0
+   with the epochs); ``train multilabel`` at
+   ``configs/train_multilabel_v3.yaml`` (base tower, batch 256 x
+   ``--grad_accum 8``, buckets 48/64/96, heads 38/590/10,205) with the
+   plain heads (3 launches a micro-step) and with ``--fused_loss`` (none):
+   the first logged losses agree within 1e-3 relative; ``train
+   multimodal`` at ``configs/train_multimodal.yaml`` (B4 at 380 px + the
+   base tower, batch 48, 796 classes at D = 1,280); ``train pair`` at
+   ``configs/train_pair.yaml`` with the base tower (the width users train;
+   the config leaves the CLI's tiny default), batch 128, max_length 64,
+   with ``--profile`` (the trace's files are counted). Each reports
+   examples/s at the median step, step p50 and p95, peak memory and,
+   from a short ``torch.profiler`` window, the device's busy share.
 
 Prints the card's name and power limit, one JSON line per phase, the
 ``{"kernels": [...]}`` line, and last ``{"ok": true, "device": ...}``.
@@ -241,6 +269,12 @@ N_CORPUS, N_QUERY, DIM = 262_144, 4_096, 768
 N_TITLES = 50_000
 AF_B, AF_C, AF_D = 128, 10_205, 768          # the training slice's head
 AF_ATOL, AF_RTOL, AF_DCOS = 2e-4, 1e-5, 4e-6
+# (recipe, B, C, D, m) of the training recipes' ArcFace heads
+RECIPE_HEADS = (("cv", 24, 4_181, 512, 0.2),
+                ("multimodal", 48, 796, 1_280, 0.5),
+                ("multilabel_tag", 256, 10_205, 768, 0.1),
+                ("multilabel_lv2", 256, 590, 768, 0.2),
+                ("multilabel_lv1", 256, 38, 768, 0.4))
 N_TRAIN, N_EVAL = 4_096, 1_024
 N_SERVE, N_CATEGORIES = 100_000, 40    # benchmarks/serving_load.py's corpus
 SERVE_LEVELS = (1, 16, 64, 128)
@@ -625,21 +659,9 @@ def phase3(dev) -> dict:
                              "steep region")
 
     # gradients of one CE loss: kernel forward + plain backward vs plain
-    def grads(fn):
-        xr = x.clone().requires_grad_(True)
-        wr = w.clone().requires_grad_(True)
-        loss = torch.nn.functional.cross_entropy(
-            fn(xr, wr, label, 0.4, 64.0, False), label.long())
-        return torch.autograd.grad(loss, (xr, wr))
-
-    grad_err = 0.0
-    for got, want in zip(grads(A.arcface_logits_fused),
-                         grads(A.arcface_logits)):
-        tol = 1e-3 * float(want.abs().max())
-        if not torch.allclose(got, want, rtol=1e-3, atol=tol):
-            raise AssertionError(f"arcface gradients differ: max abs err "
-                                 f"{float((got - want).abs().max())}")
-        grad_err = max(grad_err, float((got - want).abs().max()))
+    grad_err = grads_vs_plain(x, w, label, 0.4)
+    heads = [recipe_head(dev, *shape) for shape in RECIPE_HEADS]
+    max_err = max([max_err] + [h["max_abs_err"] for h in heads])
 
     xn, wn = A.l2_normalize(x), A.l2_normalize(w)
     xr = x.clone().requires_grad_(True)
@@ -663,9 +685,72 @@ def phase3(dev) -> dict:
             "device_ms_by_kernel": kernel_split(
                 lambda: A.arcface_logits_cuda(x, w, label, 0.4, 64.0),
                 ("arcface_kernel",))}
-    return {"cases": cases, "main": main, "max_abs_err": max_err,
-            "steep_target_max_abs_err": edge_err,
-            "grad_max_abs_err": grad_err}
+    return {"cases": cases, "main": main, "recipe_heads": heads,
+            "max_abs_err": max_err, "steep_target_max_abs_err": edge_err,
+            "grad_max_rel_err": grad_err}
+
+
+def grads_vs_plain(x, w, label, m) -> float:
+    """dx and dW of one CE loss through ``ArcFaceLogits`` (kernel forward,
+    plain backward) against plain autograd: within rtol 1e-3 and 1e-3 of
+    the largest gradient (the logits agree to 2e-4). Returns the largest
+    error relative to that gradient."""
+    def grads(fn):
+        xr = x.clone().requires_grad_(True)
+        wr = w.clone().requires_grad_(True)
+        loss = torch.nn.functional.cross_entropy(
+            fn(xr, wr, label, m, 64.0, False), label.long())
+        return torch.autograd.grad(loss, (xr, wr))
+
+    worst = 0.0
+    for got, want in zip(grads(A.arcface_logits_fused),
+                         grads(A.arcface_logits)):
+        top = float(want.abs().max())
+        if not torch.allclose(got, want, rtol=1e-3, atol=1e-3 * top):
+            raise AssertionError(f"arcface gradients differ at "
+                                 f"{tuple(x.shape)} x {tuple(w.shape)}: max "
+                                 f"abs err {float((got - want).abs().max())}")
+        worst = max(worst, float((got - want).abs().max()) / top)
+    return worst
+
+
+def recipe_head(dev, name, b, c, d, m) -> dict:
+    """The kernel at one training recipe's head: Zipf labels over C
+    classes with C - 1 present (the head has exactly C rows), the forward
+    against the plain version (``af_tolerance``), the gradients
+    (``grads_vs_plain``), and cold-L2 times of the kernel, the plain
+    version and the product-only yardstick beside the bound."""
+    rng = np.random.default_rng(SEED + c)
+    x = torch.from_numpy(rng.standard_normal((b, d), dtype=np.float32))
+    w = torch.from_numpy(rng.standard_normal((c, d), dtype=np.float32))
+    labels = zipf_labels(b, c, rng)
+    labels[-1] = c - 1
+    x, w = x.to(dev), w.to(dev) * 0.02
+    label = torch.from_numpy(labels.astype(np.int32)).to(dev)
+    got = A.arcface_logits_cuda(x, w, label, m, 64.0)
+    want = A.arcface_logits(x, w, label, m, 64.0)
+    cos = A.cosine_logits(x, w)
+    torch.cuda.synchronize()
+    err = (got - want).abs()
+    allow, _ = af_tolerance(want, cos, label, m)
+    if got.shape != (b, c) or not torch.isfinite(got).all() \
+            or (err > allow).any():
+        raise AssertionError(f"arcface at the {name} head: "
+                             f"{int((err > allow).sum())} logits beyond "
+                             f"tolerance, max abs err {float(err.max())}")
+    xn, wn = A.l2_normalize(x), A.l2_normalize(w)
+    bound, bound_by = A.bound_ms(b, c, d)
+    return {"head": name, "b": b, "c": c, "d": d, "m": m,
+            "max_abs_err": float(err.max()),
+            "grad_max_rel_err": grads_vs_plain(x, w, label, m),
+            "ms": cuda_ms_cold(lambda: A.arcface_logits_cuda(
+                x, w, label, m, 64.0)),
+            "plain_ms": cuda_ms_cold(lambda: A.arcface_logits(
+                x, w, label, m, 64.0)),
+            "yardstick_ms": cuda_ms_cold(lambda: torch.matmul(xn, wn.T)),
+            "bound_ms": bound, "bound_by": bound_by,
+            "device_ms": kernel_split(lambda: A.arcface_logits_cuda(
+                x, w, label, m, 64.0), ("arcface_kernel",))}
 
 
 def kernel_split(fn, names, n: int = 20) -> dict:
@@ -791,8 +876,8 @@ def phase4(dev, arcface_ms: float) -> dict:
         shutil.rmtree(out, ignore_errors=True)
 
 
-def profile_steps(trainer, src, n: int = 6) -> dict:
-    """Where a training step's device time goes: ``n`` steps under
+def profile_steps(trainer, src, batch_size: int = 128, n: int = 6) -> dict:
+    """Where a training step's device time goes: ``n`` (micro-)steps under
     ``torch.profiler`` on batches copied beforehand (so the loader is out
     of the window), kernel time by kind per step, and the device's busy
     share of the window's wall time (the profiler's own overhead makes
@@ -800,7 +885,7 @@ def profile_steps(trainer, src, n: int = 6) -> dict:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     batches = [to_device(b, trainer.device) for b, _ in zip(
-        src.batches(128, seed=SEED + 9), range(n + 1))]
+        src.batches(batch_size, seed=SEED + 9), range(n + 1))]
     trainer.train_step(batches[0])
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -811,10 +896,14 @@ def profile_steps(trainer, src, n: int = 6) -> dict:
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     kinds = {"arcface kernel": ("arcface_kernel", "inv_norms_kernel"),
+             "convolution (cuDNN)": ("fprop", "dgrad", "wgrad", "convolve",
+                                     "conv2d", "depthwise"),
              "matmul (cuBLAS)": ("gemm", "nvjet", "sm90_", "cutlass",
                                  "xmma"),
              "optimizer": ("multi_tensor_apply",),
-             "dtype casts and copies": ("copy_kernel",)}
+             "dtype casts and copies": ("copy_kernel",),
+             "reductions (BN statistics, means)": ("reduce_kernel",),
+             "elementwise": ("elementwise_kernel", "Functor")}
     by_kind = dict.fromkeys(list(kinds) + ["other"], 0.0)
     top = []
     for e in prof.key_averages():
@@ -2108,6 +2197,301 @@ def phase8(dev) -> dict:
     return out
 
 
+# -- phase 9: the training recipes -------------------------------------------
+
+RECIPE_EPOCHS = 2
+N_CV_ROWS, N_TIMM_ROWS, TIMM_BATCH, TIMM_ACCUM = 144, 288, 96, 1
+N_ML_ROWS, ML_LABELS = 4_096, (38, 590, 10_205)
+N_MMT_ROWS, N_PAIR_ROWS = 144, 384
+
+
+def train_flags(output: str, **values) -> argparse.Namespace:
+    """The JAX parser's common ``train`` flags at their defaults, then
+    ``values`` (a subcommand's defaults, a config's values and the run's
+    cuts; the card machine has no YAML reader)."""
+    flags = dict(
+        data="synthetic table (table=)", eval_data=None, output=output,
+        tokenizer=None, text_col="spu_name", label_col="labels",
+        batch_size=256, epochs=30, max_length=128, tower_lr=5e-5,
+        head_lr=1e-2, head_warmup_frac=0.15, tower_warmup_frac=0.0,
+        optimizer="adamw", scheduler="linear", t0_epochs=7,
+        warmup_epochs=5, warmup_lr_init=1e-3, lr_min=0.0,
+        cooldown_epochs=0, weight_decay=0.0, head_weight_decay=0.0,
+        eval_every=100, save_every=1000, log_every=20,
+        weighted_sampling=False, no_clean=False, margin=0.4,
+        margin_delta_per_epoch=0.0, bert_preset="tiny", fused_loss=False,
+        remat=False, remat_policy="full", remat_skip=0, async_save=False,
+        resume=False, overwrite=False, profile=None, model_parallel=1,
+        tensor_parallel=False, sequence_parallel=False,
+        pipeline_parallel=0, grad_accum=1, bf16_grads=False, seed=SEED,
+        seq_buckets=None)
+    flags.update(values)
+    return argparse.Namespace(**flags)
+
+
+def cv_flags(output, img_root, **values):
+    """``train cv``'s defaults (eval and save once an epoch) and
+    ``values``."""
+    flags = dict(eval_every=None, save_every=None, img_root=img_root,
+                 key_col="goods_sku", image_size=512, fc_dim=512,
+                 backbone=BACKBONE, decode_cache=None, margin=0.2,
+                 margin_delta_per_epoch=0.04, label_col="tag_new_id")
+    flags.update(values)
+    return train_flags(output, **flags)
+
+
+def zipf_with_last(n, n_cls, rng) -> np.ndarray:
+    """Zipf labels over ``n_cls`` classes with class n_cls - 1 present, so
+    the head built from the labels has exactly ``n_cls`` rows."""
+    labels = zipf_labels(n, n_cls, rng)
+    labels[-1] = n_cls - 1
+    return labels
+
+
+def write_jpegs(root: str, keys, size: int, rng) -> None:
+    """Synthetic photos (``make_images``) as {root}/{key}.jpg, by cv2."""
+    import cv2
+    os.makedirs(root, exist_ok=True)
+    for i in range(0, len(keys), 64):
+        chunk = keys[i:i + 64]
+        for key, img in zip(chunk, make_images(rng, len(chunk), size)):
+            if not cv2.imwrite(os.path.join(root, f"{key}.jpg"), img):
+                raise AssertionError(f"cv2 could not write {key}.jpg")
+
+
+def run_recipe(name, cmd, args, table, dev, batch_size) -> tuple:
+    """``cmd(args, table=table, device=dev)`` with the ArcFace launch
+    count set to 0 just before and read just after; its wall seconds,
+    peak memory, the Trainer's step times and the logged metrics. Fails
+    on a non-finite or missing loss."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    A.LAUNCHES["arcface"] = 0
+    t0 = time.perf_counter()
+    trainer = cmd(args, table=table, device=dev)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = A.LAUNCHES["arcface"]
+    lines = [json.loads(ln) for ln in open(
+        os.path.join(args.output, "metrics.jsonl"), encoding="utf-8")]
+    losses = [ln["train/loss"] for ln in lines if "train/loss" in ln]
+    if not losses or not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"{name}: losses {losses}")
+    summary = trainer.timer.summary(batch_size)
+    return trainer, lines, {
+        "recipe": name, "micro_steps": trainer.step,
+        "optimizer_steps": trainer.schedules.count, "fit_s": fit_s,
+        "batch_size": batch_size, "grad_accum": args.grad_accum,
+        "examples_per_s": summary["examples_per_sec"],
+        "step_ms_p50": summary["p50_ms"], "step_ms_p95": summary["p95_ms"],
+        "timed_steps": summary["steps"],
+        "max_memory_allocated": torch.cuda.max_memory_allocated(),
+        "arcface_launches": launches, "first_loss": losses[0],
+        "last_loss": losses[-1]}
+
+
+def bn_moved(model) -> bool:
+    """Did every BatchNorm's running statistics leave the init's 0 and
+    1?"""
+    bns = [m for m in model.modules()
+           if isinstance(m, torch.nn.modules.batchnorm._BatchNorm)]
+    return bool(bns) and all(
+        bool((m.running_mean != 0).any()) and bool((m.running_var != 1).any())
+        for m in bns)
+
+
+def release(trainer) -> None:
+    """Free a finished recipe's device memory for the next one."""
+    trainer.optimizer.state.clear()
+    trainer.model.zero_grad(set_to_none=True)
+    trainer.model.cpu()
+    torch.cuda.empty_cache()
+
+
+def phase9(dev) -> dict:
+    """The training recipes (see the docstring)."""
+    from multimodalsimilar_tpu_torch.cli import train as CT
+    from multimodalsimilar_tpu_torch.data.datasets import (
+        ImageClassificationSource, MultimodalSource, PairTextSource)
+
+    work = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    rng = np.random.default_rng(SEED + 41)
+    out = {}
+    try:
+        img_root = os.path.join(work, "images")
+        n_img = max(N_CV_ROWS, N_TIMM_ROWS, N_MMT_ROWS)
+        keys = [f"sku{i:05d}" for i in range(n_img)]
+        t0 = time.perf_counter()
+        write_jpegs(img_root, keys, CV_SIZE, rng)
+        out["jpeg_write_s"] = time.perf_counter() - t0
+
+        # 1. train cv at configs/train_cv_daodian.yaml: B4 at 512 px
+        cv_table = {"goods_sku": keys[:N_CV_ROWS],
+                    "tag_new_id": zipf_with_last(N_CV_ROWS, CV_LABELS, rng)}
+        args = cv_flags(os.path.join(work, "cv"), img_root,
+                        image_size=CV_SIZE, fc_dim=CV_DIM, batch_size=24,
+                        epochs=RECIPE_EPOCHS, optimizer="adamw",
+                        scheduler="cosine_warm_restarts", t0_epochs=7,
+                        tower_lr=1e-4, head_lr=1e-4, weighted_sampling=True,
+                        log_every=1)
+        trainer, lines, r = run_recipe("cv (train_cv_daodian.yaml)",
+                                       CT.cmd_train_cv, args, cv_table, dev,
+                                       24)
+        margins = [ln["train/margin"] for ln in lines
+                   if "train/margin" in ln]
+        if not any(abs(m - 0.24) < 1e-6 for m in margins) \
+                or r["arcface_launches"] != trainer.step \
+                or not bn_moved(trainer.model):
+            raise AssertionError(f"cv: margins {margins}, "
+                                 f"{r['arcface_launches']} launches in "
+                                 f"{trainer.step} steps, or BN still")
+        r["margins"] = sorted(set(margins))
+        r["profile"] = profile_steps(trainer, ImageClassificationSource(
+            cv_table, img_root, "goods_sku", "tag_new_id", CV_SIZE,
+            train_aug=True), 24, n=4)
+        out["cv_daodian"] = r
+        release(trainer)
+
+        # 2. train cv at configs/train_cv_timm.yaml: B4 at 380 px, AdamP
+        timm_table = {"goods_sku": keys[:N_TIMM_ROWS],
+                      "tag_new_id": zipf_with_last(N_TIMM_ROWS, CV_LABELS,
+                                                   rng)}
+        args = cv_flags(os.path.join(work, "timm"), img_root,
+                        image_size=MM_SIZE, fc_dim=CV_DIM,
+                        batch_size=TIMM_BATCH, grad_accum=TIMM_ACCUM,
+                        epochs=RECIPE_EPOCHS, cooldown_epochs=0,
+                        optimizer="adamp", scheduler="timm_cosine",
+                        warmup_epochs=5, warmup_lr_init=1e-3, tower_lr=1e-4,
+                        head_lr=1e-4, weight_decay=1e-5,
+                        head_weight_decay=0.0, margin=0.2,
+                        margin_delta_per_epoch=0.0, save_every=1000,
+                        eval_every=1000, log_every=1)
+        trainer, _, r = run_recipe("cv (train_cv_timm.yaml)",
+                                   CT.cmd_train_cv, args, timm_table, dev,
+                                   TIMM_BATCH)
+        if type(trainer.optimizer).__name__ != "AdamP" \
+                or r["arcface_launches"] != trainer.step:
+            raise AssertionError(f"timm: {type(trainer.optimizer)}, "
+                                 f"{r['arcface_launches']} launches")
+        r["profile"] = profile_steps(trainer, ImageClassificationSource(
+            timm_table, img_root, "goods_sku", "tag_new_id", MM_SIZE,
+            train_aug=True), TIMM_BATCH, n=3)
+        out["cv_timm"] = r
+        release(trainer)
+
+        # 3. train multilabel at configs/train_multilabel_v3.yaml, plain
+        # heads and --fused_loss, 2,048 examples an optimizer step
+        ml_table = {"spu_name": make_titles(N_ML_ROWS, rng)}
+        for col, n_cls in zip(("lv1_category_id", "lv2_category_id",
+                               "tag_new_id"), ML_LABELS):
+            ml_table[col] = zipf_with_last(N_ML_ROWS, n_cls, rng)
+        first = {}
+        for fused in (False, True):
+            args = train_flags(
+                os.path.join(work, f"ml{int(fused)}"),
+                lv1_col="lv1_category_id", lv2_col="lv2_category_id",
+                tag_col="tag_new_id", lv1_weight=10.0, lv2_weight=5.0,
+                tag_weight=1.0, bert_preset="base", batch_size=256,
+                max_length=128, epochs=RECIPE_EPOCHS, tower_lr=5e-5,
+                head_lr=5e-5, weighted_sampling=True, eval_every=1000,
+                save_every=1000, weight_decay=0.01, head_weight_decay=0.01,
+                seq_buckets="48,64,96", no_clean=True, grad_accum=8,
+                fused_loss=fused, log_every=1)
+            name = "multilabel_fused" if fused else "multilabel"
+            trainer, _, r = run_recipe(
+                f"{name} (train_multilabel_v3.yaml)",
+                CT.cmd_train_multilabel, args, ml_table, dev, 256)
+            want = 0 if fused else 3 * trainer.step
+            if r["arcface_launches"] != want \
+                    or [h.weight.shape[0] for h in (
+                        trainer.model.lv1_head, trainer.model.lv2_head,
+                        trainer.model.tag_head)] != list(ML_LABELS):
+                raise AssertionError(f"{name}: {r['arcface_launches']} "
+                                     f"launches, want {want}")
+            first[fused] = r["first_loss"]
+            src = CT._Renamed(TextClassificationSource(
+                ml_table, TextTokenizer.from_vocab_file(
+                    os.path.join(args.output, "vocab.txt")),
+                args.text_col, [args.lv1_col, args.lv2_col, args.tag_col],
+                args.max_length, clean=False, seq_buckets=args.seq_buckets),
+                [args.lv1_col, args.lv2_col, args.tag_col])
+            r["profile"] = profile_steps(trainer, src, 256, n=4)
+            out[name] = r
+            release(trainer)
+        rel = abs(first[True] - first[False]) / abs(first[False])
+        if rel > 1e-3:
+            raise AssertionError(f"multilabel first-step losses: plain "
+                                 f"{first[False]}, fused {first[True]}")
+        out["multilabel_fused"]["first_loss_rel_diff_vs_plain"] = rel
+
+        # 4. train multimodal at configs/train_multimodal.yaml
+        mm_table = {"spu_sn": keys[:N_MMT_ROWS],
+                    "spu_name": make_titles(N_MMT_ROWS, rng),
+                    "cateid": zipf_with_last(N_MMT_ROWS, MM_LABELS, rng)}
+        args = train_flags(
+            os.path.join(work, "mm"), img_root=img_root, key_col="spu_sn",
+            label_col="cateid", image_size=MM_SIZE, fc_dim=CV_DIM,
+            backbone=BACKBONE, decode_cache=None, batch_size=48,
+            max_length=128, epochs=RECIPE_EPOCHS, tower_lr=5e-5,
+            head_lr=1e-2, head_warmup_frac=0.15, margin=0.5,
+            eval_every=1000, save_every=1000, weight_decay=0.01,
+            head_weight_decay=0.01, bert_preset="base", log_every=1)
+        trainer, _, r = run_recipe("multimodal (train_multimodal.yaml)",
+                                   CT.cmd_train_multimodal, args, mm_table,
+                                   dev, 48)
+        if r["arcface_launches"] != trainer.step \
+                or trainer.model.head.weight.shape != (MM_LABELS, MM_DIM) \
+                or not bn_moved(trainer.model.cv):
+            raise AssertionError(f"multimodal: {r['arcface_launches']} "
+                                 f"launches in {trainer.step} steps")
+        r["profile"] = profile_steps(trainer, MultimodalSource(
+            mm_table, TextTokenizer.from_vocab_file(
+                os.path.join(args.output, "vocab.txt")), img_root,
+            "spu_name", "spu_sn", "cateid", 128, MM_SIZE, train_aug=True),
+            48, n=4)
+        out["multimodal"] = r
+        release(trainer)
+
+        # 5. train pair at configs/train_pair.yaml with the base tower,
+        # and --profile
+        titles = make_titles(N_PAIR_ROWS, rng)
+        lv1 = rng.integers(0, 8, N_PAIR_ROWS)
+        lv2 = lv1 * 10 + rng.integers(0, 5, N_PAIR_ROWS)
+        pair_table = {"title": titles,
+                      "sku_sn_name": [f"s{i // 2}" for i in
+                                      range(N_PAIR_ROWS)],
+                      "tag_id": (lv2 * 10 + rng.integers(0, 4, N_PAIR_ROWS)
+                                 ).tolist(),
+                      "lv2_category_id": lv2.tolist(),
+                      "lv1_category_id": lv1.tolist()}
+        trace_dir = os.path.join(work, "trace")
+        args = train_flags(
+            os.path.join(work, "pair"), batch_size=128, max_length=64,
+            epochs=RECIPE_EPOCHS, tower_lr=1e-3, head_lr=1e-3,
+            tower_warmup_frac=0.25, head_warmup_frac=0.25,
+            weighted_sampling=True, save_every=1000, weight_decay=0.01,
+            head_weight_decay=0.01, bert_preset="base", log_every=1,
+            profile=trace_dir)
+        trainer, _, r = run_recipe("pair (train_pair.yaml)",
+                                   CT.cmd_train_pair, args, pair_table, dev,
+                                   128)
+        traces = [f for f in os.listdir(trace_dir)
+                  if f.endswith(".pt.trace.json")]
+        if not traces:
+            raise AssertionError("--profile wrote no trace")
+        r["profile_trace_files"] = len(traces)
+        r["profile"] = profile_steps(trainer, PairTextSource(
+            pair_table, TextTokenizer.from_vocab_file(
+                os.path.join(args.output, "vocab.txt")), 64, seed=SEED),
+            128, n=4)
+        out["pair"] = r
+        release(trainer)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this script runs on "
@@ -2140,6 +2524,8 @@ def main() -> None:
     print(json.dumps({"phase7": p7}), flush=True)
     p8 = phase8(dev)
     print(json.dumps({"phase8": p8}), flush=True)
+    p9 = phase9(dev)
+    print(json.dumps({"phase9": p9}), flush=True)
     m = p1["main"]
     case = {c["case"]: c for c in p1["cases"]}
     sv = case["serving_ip_k13"]
@@ -2189,7 +2575,15 @@ def main() -> None:
                             "the whole function",
                "backward_plain_ms": a["backward_plain_ms"],
                "shape": {"b": AF_B, "c": AF_C, "d": AF_D, "m": 0.4,
-                         "s": 64.0}}
+                         "s": 64.0},
+               "launches_cv": p9["cv_daodian"]["arcface_launches"],
+               "launches_cv_timm": p9["cv_timm"]["arcface_launches"],
+               "launches_multilabel": p9["multilabel"]["arcface_launches"],
+               "launches_multimodal": p9["multimodal"]["arcface_launches"],
+               "recipe_shapes": [{k: h[k] for k in (
+                   "head", "b", "c", "d", "m", "max_abs_err", "ms",
+                   "plain_ms", "yardstick_ms", "bound_ms", "bound_by")}
+                   for h in p3["recipe_heads"]]}
     sel = p1["select"]
     sm = sel["main"]
     extra = {}

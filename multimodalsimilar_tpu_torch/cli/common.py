@@ -10,6 +10,8 @@ being ignored: HF tokenizers and ``hive://`` sinks.
 
 from __future__ import annotations
 
+import os
+
 from multimodalsimilar_tpu_torch.data.datasets import column
 
 
@@ -28,10 +30,13 @@ def _require_tokenizer_with_checkpoint(args):
             "{train_output}/vocab.txt (saved by train).")
 
 
-def _tokenizer(args, df=None):
+def _tokenizer(args, df=None, save_dir=None, text_col=None):
     """--tokenizer: a vocab.txt from a previous train run. Without it, a
-    char vocab is derived from ``args.text_col`` of the data (``df``, a
-    DataFrame or a ``{column: list}`` mapping, else ``args.data``)."""
+    char vocab is derived from ``text_col`` (default ``args.text_col``) of
+    the data (``df``, a DataFrame or a ``{column: list}`` mapping, else
+    ``args.data``) and, with ``save_dir``, written to
+    ``{save_dir}/vocab.txt``, so the serve and embed jobs reuse the
+    training token ids."""
     from multimodalsimilar_tpu_torch.data.tokenizer import TextTokenizer
     if args.tokenizer:
         if args.tokenizer.endswith("vocab.txt"):
@@ -42,8 +47,13 @@ def _tokenizer(args, df=None):
     if df is None:
         from multimodalsimilar_tpu_torch.data.datasets import read_table
         df = read_table(args.data)
+    save_path = None
+    if save_dir:
+        os.makedirs(save_dir, exist_ok=True)
+        save_path = os.path.join(save_dir, "vocab.txt")
     return TextTokenizer.from_corpus(
-        [str(t) for t in column(df, args.text_col)])
+        [str(t) for t in column(df, text_col or args.text_col)],
+        save_vocab_path=save_path)
 
 
 def _load_fasttext(args, device="cuda"):
@@ -78,7 +88,8 @@ def _restore_required(checkpoint_dir):
 def _bert_config(preset: str):
     """BertConfig of a preset: ``tiny``, ``base`` (roberta_wwm_ext) or
     ``large`` (roberta_wwm_ext_large). Remat and the sequence- and
-    pipeline-parallel layouts are not ported (ROADMAP A17)."""
+    pipeline-parallel layouts are not ported (ROADMAP A17): the train
+    commands refuse their flags."""
     from multimodalsimilar_tpu_torch.models.bert import BertConfig
     make = {"tiny": BertConfig.tiny, "base": BertConfig.roberta_wwm_ext,
             "large": BertConfig.roberta_wwm_ext_large}[preset]

@@ -1,62 +1,104 @@
-"""Trainer assembly of ``train nlp`` (counterpart of the helpers of
-multimodalsimilar_tpu/cli/train.py: ``_opt_step_units``, ``_trainer``,
-``_sampler_fn``), taking a device where the JAX package takes a mesh.
+"""``train {nlp,multilabel,cv,pair,multimodal}`` (counterpart of
+multimodalsimilar_tpu/cli/train.py), taking a device where the JAX
+package takes a mesh.
 
-The command line itself (``cmd_train_nlp`` and its parser) comes with the
-port's CLI; until then a caller builds an ``argparse.Namespace`` with the
-flag values (see ``configs/train_nlp_v2.yaml``). Flags whose code is not
-ported raise here instead of being ignored.
+The commands are functions of an ``argparse.Namespace`` with the JAX
+parser's ``train`` flags (the port's parser comes with ROADMAP A15):
+``cmd_train_*(args, table=None, eval_table=None, device="cuda")`` reads
+``args.data`` (and ``args.eval_data``) with pandas, or takes the tables as
+``{column: list}`` mappings, trains, writes ``{output}/ckpt``,
+``{output}/metrics.jsonl`` and, for the text recipes without
+``--tokenizer``, ``{output}/vocab.txt``, and returns the Trainer. Flags
+that select the multi-GPU layouts raise (ROADMAP A17) instead of being
+ignored, and each command refuses the flags the JAX command refuses.
 """
 
 from __future__ import annotations
 
 import os
 
-from multimodalsimilar_tpu_torch.data.datasets import column
+import torch
 
-# flag -> the value that leaves it off; anything else is not ported yet
-_NOT_PORTED = {"optimizer": "adamw", "scheduler": "linear", "grad_accum": 1,
-               "profile": None, "model_parallel": 1, "tensor_parallel": False,
+from multimodalsimilar_tpu_torch.data.datasets import InputError, column
+
+# multi-GPU flags (ROADMAP A17) -> the value that leaves them off
+_NOT_PORTED = {"model_parallel": 1, "tensor_parallel": False,
                "sequence_parallel": False, "pipeline_parallel": 0,
-               "bf16_grads": False, "fused_loss": False}
+               "bf16_grads": False}
+
+
+def _set_flags(args, flags) -> dict:
+    """The ``flags`` (name -> the value that leaves it off) that ``args``
+    sets."""
+    return {k: getattr(args, k) for k, off in flags.items()
+            if getattr(args, k, off) != off}
 
 
 def _check_ported(args) -> None:
-    bad = {k: getattr(args, k) for k, off in _NOT_PORTED.items()
-           if getattr(args, k, off) != off}
+    bad = _set_flags(args, _NOT_PORTED)
     if bad:
         raise NotImplementedError(
-            f"flags {bad} are not ported to the PyTorch trainer yet")
+            f"flags {bad}: the multi-GPU layouts are not ported to the "
+            f"PyTorch trainer (ROADMAP A17)")
 
 
 def _opt_step_units(args, steps_per_epoch):
     """(accum, optimizer steps per epoch, total optimizer steps).
-    Schedules advance once per optimizer step."""
+    Schedules advance once per OPTIMIZER step, so under --grad_accum K
+    they are built in optimizer-step units."""
     accum = int(getattr(args, "grad_accum", 1) or 1)
     per_epoch = max(steps_per_epoch // accum, 1)
     return accum, per_epoch, args.epochs * per_epoch
 
 
-def _trainer(task, args, steps_per_epoch, device="cuda"):
-    """The dual-group AdamW (tower and head groups, each with its own
-    linear schedule and weight decay) and the Trainer of ``args``;
-    checkpoints and ``metrics.jsonl`` go under ``args.output``."""
+def _schedules(args, steps_per_epoch):
+    """(tower, head) schedules of ``--scheduler``, in optimizer steps."""
     from multimodalsimilar_tpu_torch.train.optim import (
-        dual_group_adamw, linear_schedule_with_warmup)
+        cosine_warm_restarts, linear_schedule_with_warmup,
+        timm_cosine_schedule)
+    _, per_epoch, total = _opt_step_units(args, steps_per_epoch)
+    scheduler = getattr(args, "scheduler", "linear")
+    if scheduler == "timm_cosine":
+        t_initial = max(args.epochs - args.cooldown_epochs, 1)
+        return tuple(timm_cosine_schedule(
+            lr, t_initial, per_epoch, args.warmup_epochs,
+            args.warmup_lr_init, args.lr_min)
+            for lr in (args.tower_lr, args.head_lr))
+    if scheduler == "cosine_warm_restarts":
+        return tuple(cosine_warm_restarts(lr, args.t0_epochs, per_epoch)
+                     for lr in (args.tower_lr, args.head_lr))
+    if scheduler != "linear":
+        raise ValueError(f"unknown --scheduler {scheduler!r}")
+    return (linear_schedule_with_warmup(
+                args.tower_lr,
+                getattr(args, "tower_warmup_frac", 0.0) * total, total),
+            linear_schedule_with_warmup(
+                args.head_lr, args.head_warmup_frac * total, total))
+
+
+def _trainer(task, args, steps_per_epoch, device="cuda"):
+    """``--optimizer`` (AdamW or AdamP, each as one optimizer with a tower
+    group and a head group with their own weight decay) under
+    ``--scheduler``, ``--grad_accum`` and ``--profile``, and the Trainer
+    of ``args``; checkpoints and ``metrics.jsonl`` go under
+    ``args.output``."""
+    from multimodalsimilar_tpu_torch.train.optim import (AdamP, adamp_views,
+                                                         dual_group)
     from multimodalsimilar_tpu_torch.train.trainer import (Trainer,
                                                            TrainerConfig)
     _check_ported(args)
-    _, _, total = _opt_step_units(args, steps_per_epoch)
-    tower_sched = linear_schedule_with_warmup(
-        args.tower_lr, getattr(args, "tower_warmup_frac", 0.0) * total,
-        total)
-    head_sched = linear_schedule_with_warmup(
-        args.head_lr, args.head_warmup_frac * total, total)
+    accum = _opt_step_units(args, steps_per_epoch)[0]
+    tower_sched, head_sched = _schedules(args, steps_per_epoch)
+    optimizer = getattr(args, "optimizer", "adamw")
+    if optimizer not in ("adamw", "adamp"):
+        raise ValueError(f"unknown --optimizer {optimizer!r}")
 
     def make_optimizer(model):
-        return dual_group_adamw(model, tower_sched, head_sched,
-                                weight_decay=args.weight_decay,
-                                head_weight_decay=args.head_weight_decay)
+        kw = ({"views": adamp_views(model)} if optimizer == "adamp"
+              else {})
+        return dual_group(model, AdamP if optimizer == "adamp"
+                          else torch.optim.AdamW, tower_sched, head_sched,
+                          args.weight_decay, args.head_weight_decay, **kw)
 
     cfg = TrainerConfig(
         eval_every=args.eval_every, save_every=args.save_every,
@@ -65,6 +107,8 @@ def _trainer(task, args, steps_per_epoch, device="cuda"):
         margin_delta_per_epoch=args.margin_delta_per_epoch,
         checkpoint_dir=os.path.join(args.output, "ckpt"),
         metrics_path=os.path.join(args.output, "metrics.jsonl"),
+        profile_dir=getattr(args, "profile", None),
+        grad_accum=accum,
         overwrite=getattr(args, "overwrite", False),
         async_save=getattr(args, "async_save", False),
         seed=args.seed)
@@ -81,3 +125,258 @@ def _sampler_fn(args, table, label_col):
         WeightedSampler, class_balance_weights)
     w = class_balance_weights(column(table, label_col))
     return lambda epoch: WeightedSampler(w, seed=args.seed + epoch)
+
+
+# -- the commands ------------------------------------------------------------
+
+def _tables(args, table, eval_table, require=()):
+    """(train table, eval table or None): the given tables, else
+    ``args.data`` and ``args.eval_data`` read with pandas."""
+    from multimodalsimilar_tpu_torch.data.datasets import read_table
+    if table is None:
+        table = read_table(args.data, require=require)
+    missing = [c for c in require if c not in table]
+    if missing:
+        raise InputError(f"the table has no column(s) {missing}")
+    if eval_table is None and getattr(args, "eval_data", None):
+        eval_table = read_table(args.eval_data)
+    return table, eval_table
+
+
+def _text_config(args):
+    from multimodalsimilar_tpu_torch.cli.common import _bert_config
+    if getattr(args, "remat", False) or getattr(args, "remat_skip", 0) \
+            or getattr(args, "remat_policy", "full") != "full":
+        raise NotImplementedError(
+            "--remat/--remat_policy/--remat_skip: activation checkpointing "
+            "is not ported (ROADMAP A17)")
+    return _bert_config(args.bert_preset)
+
+
+def _num_labels(table, col) -> int:
+    return int(max(column(table, col))) + 1
+
+
+def _generator(args):
+    return torch.Generator().manual_seed(args.seed)
+
+
+def _fit(trainer, args, src, eval_src, sampler_fn):
+    trainer.fit(src, args.epochs, args.batch_size, eval_src,
+                sampler_fn=sampler_fn,
+                resume=getattr(args, "resume", False))
+    return trainer
+
+
+def _refuse(args, command, flags, reason):
+    """The JAX command's refusals: ``flags`` (name -> the value that
+    leaves it off) do not apply to ``command``."""
+    bad = [f"--{f}" for f in _set_flags(args, flags)]
+    if bad:
+        raise SystemExit(f"train {command}: {'/'.join(bad)} {reason} — "
+                         f"refusing to silently ignore them")
+
+
+def cmd_train_nlp(args, table=None, eval_table=None, device="cuda"):
+    """``train nlp``: the text tower + one ArcFace head
+    (configs/train_nlp_*.yaml)."""
+    from multimodalsimilar_tpu_torch.cli.common import _tokenizer
+    from multimodalsimilar_tpu_torch.data.datasets import (
+        TextClassificationSource)
+    from multimodalsimilar_tpu_torch.models.classifiers import (
+        NlpTextClassifier)
+    from multimodalsimilar_tpu_torch.ops.arcface import ArcFaceParams
+    from multimodalsimilar_tpu_torch.train.tasks import text_arcface_task
+    _check_ported(args)
+    config = _text_config(args)
+    table, eval_table = _tables(args, table, eval_table,
+                                [args.text_col, args.label_col])
+    tok = _tokenizer(args, df=table, save_dir=args.output)
+
+    def source(t):
+        return TextClassificationSource(
+            t, tok, args.text_col, args.label_col, args.max_length,
+            clean=not args.no_clean,
+            seq_buckets=getattr(args, "seq_buckets", None))
+
+    src = source(table)
+    model = NlpTextClassifier(
+        config, pool=getattr(args, "pool", "cls"),
+        generator=_generator(args),
+        num_labels=_num_labels(table, args.label_col),
+        arcface=ArcFaceParams(m=args.margin))
+    trainer = _trainer(text_arcface_task(model, fused_loss=args.fused_loss),
+                       args, max(len(src) // args.batch_size, 1), device)
+    return _fit(trainer, args, src,
+                source(eval_table) if eval_table is not None else None,
+                _sampler_fn(args, table, args.label_col))
+
+
+class _Renamed:
+    """Multi-label batches with the label columns under the task's names
+    (``lv1_label``, ``lv2_label``, ``tag_label``)."""
+
+    def __init__(self, source, cols):
+        self.source = source
+        self.names = dict(zip(cols, ("lv1_label", "lv2_label",
+                                     "tag_label")))
+
+    def __len__(self):
+        return len(self.source)
+
+    def batches(self, *a, **kw):
+        for b in self.source.batches(*a, **kw):
+            yield {self.names.get(k, k): v for k, v in b.items()}
+
+
+def cmd_train_multilabel(args, table=None, eval_table=None, device="cuda"):
+    """``train multilabel``: the shared tower + the (lv1, lv2, tag) heads
+    with the weighted loss (configs/train_multilabel_v3.yaml)."""
+    from multimodalsimilar_tpu_torch.cli.common import _tokenizer
+    from multimodalsimilar_tpu_torch.data.datasets import (
+        TextClassificationSource)
+    from multimodalsimilar_tpu_torch.models.classifiers import (
+        NlpMultilabelClassifier)
+    from multimodalsimilar_tpu_torch.train.tasks import (
+        multilabel_arcface_task)
+    _check_ported(args)
+    config = _text_config(args)
+    cols = [args.lv1_col, args.lv2_col, args.tag_col]
+    table, eval_table = _tables(args, table, eval_table,
+                                [args.text_col] + cols)
+    tok = _tokenizer(args, df=table, save_dir=args.output)
+
+    def source(t):
+        return _Renamed(TextClassificationSource(
+            t, tok, args.text_col, cols, args.max_length,
+            clean=not args.no_clean,
+            seq_buckets=getattr(args, "seq_buckets", None)), cols)
+
+    src = source(table)
+    model = NlpMultilabelClassifier(
+        config, *(_num_labels(table, c) for c in cols),
+        generator=_generator(args))
+    task = multilabel_arcface_task(
+        model, weights=(args.lv1_weight, args.lv2_weight, args.tag_weight),
+        fused_loss=args.fused_loss)
+    trainer = _trainer(task, args, max(len(src) // args.batch_size, 1),
+                       device)
+    return _fit(trainer, args, src,
+                source(eval_table) if eval_table is not None else None,
+                _sampler_fn(args, table, args.lv2_col))
+
+
+# flags of the BERT-tower text recipes, which train cv refuses
+_TEXT_ONLY = {"fused_loss": False, "remat": False, "remat_skip": 0,
+              "remat_policy": "full", "tensor_parallel": False,
+              "sequence_parallel": False, "pipeline_parallel": 0}
+
+
+def cmd_train_cv(args, table=None, eval_table=None, device="cuda"):
+    """``train cv``: EfficientNet + fc/BN neck + ArcFace on uint8 images
+    from ``{img_root}/{key}.jpg`` (configs/train_cv_*.yaml). Eval and
+    checkpoints default to once per epoch, as the daodian reference."""
+    from multimodalsimilar_tpu_torch.data.datasets import (
+        ImageClassificationSource)
+    from multimodalsimilar_tpu_torch.models.vision import (
+        CvImageClassifier, backbone_config)
+    from multimodalsimilar_tpu_torch.ops.arcface import ArcFaceParams
+    from multimodalsimilar_tpu_torch.train.tasks import cv_arcface_task
+    _refuse(args, "cv", _TEXT_ONLY, "apply to the BERT-tower text recipes")
+    _check_ported(args)
+    table, eval_table = _tables(args, table, eval_table,
+                                [args.key_col, args.label_col])
+    steps_per_epoch = max(len(column(table, args.label_col))
+                          // args.batch_size, 1)
+    if args.eval_every is None:
+        args.eval_every = steps_per_epoch
+    if args.save_every is None:
+        args.save_every = steps_per_epoch
+
+    def source(t, train_aug):
+        return ImageClassificationSource(
+            t, args.img_root, args.key_col, args.label_col, args.image_size,
+            train_aug=train_aug, decode_cache=args.decode_cache)
+
+    model = CvImageClassifier(
+        backbone_config(args.backbone),
+        num_labels=_num_labels(table, args.label_col), fc_dim=args.fc_dim,
+        arcface=ArcFaceParams(m=args.margin), generator=_generator(args))
+    model = model.to(memory_format=torch.channels_last)
+    trainer = _trainer(cv_arcface_task(model), args, steps_per_epoch,
+                       device)
+    return _fit(trainer, args, source(table, True),
+                source(eval_table, False) if eval_table is not None
+                else None, _sampler_fn(args, table, args.label_col))
+
+
+def cmd_train_pair(args, table=None, eval_table=None, device="cuda"):
+    """``train pair``: the Siamese pair model on sampled (query, title)
+    pairs, anchors class-balanced by tag (configs/train_pair.yaml)."""
+    from multimodalsimilar_tpu_torch.cli.common import _tokenizer
+    from multimodalsimilar_tpu_torch.data.datasets import PairTextSource
+    from multimodalsimilar_tpu_torch.models.classifiers import (
+        SiamesePairModel)
+    from multimodalsimilar_tpu_torch.train.tasks import pair_task
+    _refuse(args, "pair", {"fused_loss": False}, "needs an ArcFace head; "
+            "the pair loss is 2-class CE")
+    _check_ported(args)
+    config = _text_config(args)
+    table, eval_table = _tables(args, table, eval_table)
+    tok = _tokenizer(args, df=table, save_dir=args.output, text_col="title")
+
+    def source(t):
+        return PairTextSource(t, tok, args.max_length, seed=args.seed,
+                              seq_buckets=getattr(args, "seq_buckets",
+                                                  None))
+
+    src = source(table)
+    model = SiamesePairModel(config, generator=_generator(args))
+    trainer = _trainer(pair_task(model), args,
+                       max(len(src) // args.batch_size, 1), device)
+    # the reference class-balances anchors by inverse tag frequency
+    # (nlp_st_train_daodian.py:102-116,131-132)
+    return _fit(trainer, args, src,
+                source(eval_table) if eval_table is not None else None,
+                _sampler_fn(args, src.table, "tag_id"))
+
+
+def cmd_train_multimodal(args, table=None, eval_table=None,
+                         device="cuda"):
+    """``train multimodal``: the image and text towers fused under one
+    ArcFace head (configs/train_multimodal.yaml)."""
+    from multimodalsimilar_tpu_torch.cli.common import _tokenizer
+    from multimodalsimilar_tpu_torch.data.datasets import MultimodalSource
+    from multimodalsimilar_tpu_torch.models.multimodal import (
+        MultimodalClassifier)
+    from multimodalsimilar_tpu_torch.models.vision import backbone_config
+    from multimodalsimilar_tpu_torch.train.tasks import (
+        multimodal_arcface_task)
+    _refuse(args, "multimodal", {"fused_loss": False},
+            "is not wired for the fused-tower task")
+    _check_ported(args)
+    config = _text_config(args)
+    table, eval_table = _tables(args, table, eval_table,
+                                [args.text_col, args.key_col,
+                                 args.label_col])
+    tok = _tokenizer(args, df=table, save_dir=args.output)
+
+    def source(t, train_aug):
+        return MultimodalSource(
+            t, tok, args.img_root, args.text_col, args.key_col,
+            args.label_col, args.max_length, args.image_size,
+            train_aug=train_aug, decode_cache=args.decode_cache,
+            seq_buckets=getattr(args, "seq_buckets", None),
+            clean=not args.no_clean)
+
+    src = source(table, True)
+    model = MultimodalClassifier(
+        config, backbone_config(args.backbone),
+        num_labels=_num_labels(table, args.label_col), fc_dim=args.fc_dim,
+        generator=_generator(args))
+    model = model.to(memory_format=torch.channels_last)
+    trainer = _trainer(multimodal_arcface_task(model), args,
+                       max(len(src) // args.batch_size, 1), device)
+    return _fit(trainer, args, src,
+                source(eval_table, False) if eval_table is not None
+                else None, _sampler_fn(args, table, args.label_col))

@@ -1,25 +1,36 @@
 """Job input tables and batch sources (counterpart of
 multimodalsimilar_tpu/data/datasets.py).
 
-* ``read_table`` reads CSV and parquet files; pandas is imported inside
-  it, so the port's device path does not need pandas.
-* ``TextClassificationSource`` turns (title, label) rows into tokenized
-  numpy batches, from a pandas DataFrame or a plain ``{column: sequence}``
-  mapping.
-* ``_bounded_map`` is the decode pool's backpressure (``ImageEmbedder``'s
-  ``embed_keys``).
+``read_table`` reads CSV and parquet files; pandas is imported inside it,
+so the port's device path does not need pandas. Every source reads a
+pandas DataFrame or a plain ``{column: sequence}`` mapping (the card
+machine has no pandas):
 
-The image, multimodal and pair training sources come with later slices.
+* ``TextClassificationSource`` <- the load_dataset + tokenize pipelines
+  (nlp_classifier_train.py:70-87, .._v2.py:85-105);
+* ``ImageClassificationSource`` <- CvDataset + None-filtering collate
+  (cv_dataset.py:13-43, cv_classifier_train_daodian.py:178-180): failed
+  decodes are skipped and the batch topped up from the sampler, so
+  batches stay full; uint8 images, normalized on the device
+  (``models.vision.device_normalize``);
+* ``MultimodalSource`` <- MultimodalDataset (multimodal_dataset.py:34-65);
+* ``PairTextSource`` <- NlpSTDataset pair batches (nlp_st_datasets.py).
+
+``_bounded_map`` is the decode pools' backpressure (also
+``ImageEmbedder.embed_keys``).
 """
 
 from __future__ import annotations
 
 import os
-from typing import Dict, Iterator, Optional, Sequence, Union
+import sys
+from typing import Callable, Dict, Iterator, List, Optional, Sequence, Union
 
 import numpy as np
 
-from multimodalsimilar_tpu_torch.data.sampling import WeightedSampler
+from multimodalsimilar_tpu_torch.data import images as I
+from multimodalsimilar_tpu_torch.data.sampling import (PairSampler,
+                                                       WeightedSampler)
 from multimodalsimilar_tpu_torch.data.text import preprocess_for_infer
 from multimodalsimilar_tpu_torch.data.tokenizer import TextTokenizer
 from multimodalsimilar_tpu_torch.utils.buckets import bucket_ladder
@@ -85,6 +96,21 @@ def _bounded_map(pool, fn, iterable, window: int):
             f.cancel()
 
 
+def _diagnose_skips(skipped: int, total: int, first_path: str) -> None:
+    """Per-item decode failures are skipped (cv_dataset.py:33-41), but
+    when NOTHING decoded the --img_root or --key_col is wrong: fail loud
+    rather than finish every epoch with no batch. Warn with a count
+    otherwise."""
+    if skipped and skipped == total:
+        raise RuntimeError(
+            f"all {skipped} sampled images failed to decode (first "
+            f"expected path: {first_path!r}) — check --img_root / --key_col")
+    if skipped:
+        print(f"warning: skipped {skipped}/{total} rows with "
+              f"missing/corrupt images this epoch", file=sys.stderr,
+              flush=True)
+
+
 def _epoch_order(n: int, shuffle: bool, seed: int, epoch: int,
                  sampler: Optional[WeightedSampler]) -> np.ndarray:
     if sampler is not None:
@@ -147,3 +173,202 @@ class TextClassificationSource:
             else len(order)
         for s in range(0, max(stop, 0), batch_size):
             yield self.materialize(order[s: s + batch_size])
+
+
+def _item_rng(seed: int, epoch: int, pos: int) -> np.random.Generator:
+    """An independent generator per sampled position: augmentations are
+    reproducible whatever order the decode threads finish in."""
+    return np.random.default_rng((seed * 1000 + epoch) * 100003 + pos)
+
+
+class ImageClassificationSource:
+    """{img_root}/{key}.jpg images + integer labels -> NHWC uint8 batches
+    ``{"images", "labels"}``.
+
+    Decode failures are *skipped and replaced* by the next sampler index
+    so every batch has the same shape. ``from_image_folder`` ingests the
+    timm ImageFolder layout of cv_classifier_train.py:41-49
+    ({root}/{class_name}/{img}). ``path_fn(row)`` takes a row as a
+    ``{column: value}`` dict. ``decode_cache``: a ``DecodedCache``
+    directory (decode each image once across epochs)."""
+
+    @classmethod
+    def from_image_folder(cls, root: str, image_size: int = 224,
+                          train_aug: bool = False
+                          ) -> "ImageClassificationSource":
+        classes = sorted(d for d in os.listdir(root)
+                         if os.path.isdir(os.path.join(root, d)))
+        table: Dict[str, list] = {"path": [], "label": [], "class_name": []}
+        for li, cname in enumerate(classes):
+            cdir = os.path.join(root, cname)
+            for fname in sorted(os.listdir(cdir)):
+                table["path"].append(os.path.join(cdir, fname))
+                table["label"].append(li)
+                table["class_name"].append(cname)
+        return cls(table, root, key_col="path", label_col="label",
+                   image_size=image_size, train_aug=train_aug,
+                   path_fn=lambda row: row["path"])
+
+    def __init__(self, table, img_root: str,
+                 key_col: str = "goods_sku", label_col: str = "tag_new_id",
+                 image_size: int = 512, train_aug: bool = False,
+                 path_fn: Optional[Callable[[dict], str]] = None,
+                 num_workers: int = 8, decode_cache: Optional[str] = None):
+        self.columns = {c: column(table, c) for c in table}
+        self.img_root = img_root
+        self.key_col, self.label_col = key_col, label_col
+        self.labels = np.asarray(self.columns[label_col])
+        self.image_size = image_size
+        self.train_aug = train_aug
+        self.num_workers = num_workers
+        self.cache = (I.DecodedCache.open(decode_cache, image_size)
+                      if decode_cache else None)
+        self.path_fn = path_fn or (
+            lambda row: os.path.join(img_root, f"{row[key_col]}.jpg"))
+
+    def __len__(self):
+        return len(self.labels)
+
+    def path(self, i: int) -> str:
+        return self.path_fn({c: v[i] for c, v in self.columns.items()})
+
+    def _load(self, i: int, rng: np.random.Generator
+              ) -> Optional[np.ndarray]:
+        if self.train_aug:
+            return I.load_train(self.path(i), self.image_size, rng,
+                                cache=self.cache, normalize_host=False)
+        return I.load_eval(self.path(i), self.image_size, cache=self.cache,
+                           normalize_host=False)
+
+    def decoded(self, order: Sequence[int], seed: int, epoch: int
+                ) -> Iterator[tuple]:
+        """(row, uint8 image) for each row of ``order`` that decodes, in
+        order, from a thread pool (cv2 releases the GIL); the skip count
+        is reported at the end."""
+        from concurrent.futures import ThreadPoolExecutor
+        skipped = 0
+
+        def load(args):
+            pos, i = args
+            return int(i), self._load(int(i), _item_rng(seed, epoch, pos))
+
+        with ThreadPoolExecutor(max_workers=self.num_workers) as pool:
+            window = max(self.num_workers * 4, 64)
+            for i, img in _bounded_map(pool, load, enumerate(order), window):
+                if img is None:
+                    skipped += 1
+                else:
+                    yield i, img
+        _diagnose_skips(skipped, len(order),
+                        self.path(0) if len(self) else "?")
+
+    def batches(self, batch_size: int, shuffle: bool = True, seed: int = 0,
+                epoch: int = 0, sampler: Optional[WeightedSampler] = None,
+                drop_remainder: bool = True) -> Iterator[Batch]:
+        order = _epoch_order(len(self), shuffle, seed, epoch, sampler)
+        rows: List[int] = []
+        imgs: List[np.ndarray] = []
+        for i, img in self.decoded(order, seed, epoch):
+            rows.append(i)
+            imgs.append(img)
+            if len(rows) == batch_size:
+                yield self._batch(rows, imgs)
+                rows, imgs = [], []
+        if rows and not drop_remainder:
+            yield self._batch(rows, imgs)
+
+    def _batch(self, rows, imgs) -> Batch:
+        return {"images": np.stack(imgs),
+                "labels": self.labels[rows].astype(np.int32)}
+
+
+class MultimodalSource:
+    """Tokenized titles + uint8 images + labels (multimodal_dataset.py
+    semantics: title tokenized at max_length, image at
+    {img_root}/{key}.jpg)."""
+
+    def __init__(self, table, tokenizer: TextTokenizer, img_root: str,
+                 text_col: str = "spu_name", key_col: str = "spu_sn",
+                 label_col: str = "cateid", max_length: int = 128,
+                 image_size: int = 380, train_aug: bool = False,
+                 decode_cache: Optional[str] = None,
+                 seq_buckets: Optional[Sequence[int]] = None,
+                 clean: bool = True):
+        self.text = TextClassificationSource(table, tokenizer, text_col,
+                                             label_col, max_length,
+                                             clean=clean,
+                                             seq_buckets=seq_buckets)
+        self.image = ImageClassificationSource(
+            table, img_root, key_col, label_col, image_size, train_aug,
+            decode_cache=decode_cache)
+
+    def __len__(self):
+        return len(self.text)
+
+    def batches(self, batch_size: int, shuffle: bool = True, seed: int = 0,
+                epoch: int = 0, sampler: Optional[WeightedSampler] = None,
+                drop_remainder: bool = True) -> Iterator[Batch]:
+        order = _epoch_order(len(self), shuffle, seed, epoch, sampler)
+        rows: List[int] = []
+        imgs: List[np.ndarray] = []
+
+        def batch():
+            out = self.text.materialize(np.asarray(rows))
+            out["images"] = np.stack(imgs)
+            return out
+
+        for i, img in self.image.decoded(order, seed, epoch):
+            rows.append(i)
+            imgs.append(img)
+            if len(rows) == batch_size:
+                yield batch()
+                rows, imgs = [], []
+        if rows and not drop_remainder:
+            yield batch()
+
+
+class PairTextSource:
+    """Siamese pair batches via ``PairSampler`` (NlpSTDataset capability).
+
+    ``seq_buckets`` trims BOTH sides to one shared bucket covering the
+    batch's longest row on either side (see TextClassificationSource).
+    ``self.table`` is the sampler's table (its key columns as pandas would
+    hold them)."""
+
+    def __init__(self, table, tokenizer: TextTokenizer,
+                 max_length: int = 128, seed: int = 0,
+                 seq_buckets: Optional[Sequence[int]] = None):
+        self.sampler = PairSampler(table, seed=seed)
+        self.tokenizer = tokenizer
+        self.max_length = max_length
+        self.seq_buckets = bucket_ladder(seq_buckets, max_length)
+        self.table = self.sampler.table
+
+    def __len__(self):
+        return len(self.sampler)
+
+    def batches(self, batch_size: int, shuffle: bool = True, seed: int = 0,
+                epoch: int = 0, sampler: Optional[WeightedSampler] = None,
+                drop_remainder: bool = True) -> Iterator[Batch]:
+        order = _epoch_order(len(self), shuffle, seed, epoch, sampler)
+        # per-(seed, epoch) pair stream: an eval pass (default seed and
+        # epoch) draws the SAME pair set every time, while train epochs
+        # (distinct epochs) resample like the reference's DataLoader
+        rng = _item_rng(seed, epoch, 29)
+        stop = (len(order) - batch_size + 1) if drop_remainder \
+            else len(order)
+        for s in range(0, max(stop, 0), batch_size):
+            pairs = [self.sampler.sample_pair(int(i), rng=rng)
+                     for i in order[s: s + batch_size]]
+            q = self.tokenizer([str(p[0]) for p in pairs], self.max_length)
+            t = self.tokenizer([str(p[1]) for p in pairs], self.max_length)
+            if self.seq_buckets:
+                need = int(max(q["attention_mask"].sum(axis=1).max(),
+                               t["attention_mask"].sum(axis=1).max()))
+                b = next(x for x in self.seq_buckets if x >= need)
+                q = {k: v[:, :b] for k, v in q.items()}
+                t = {k: v[:, :b] for k, v in t.items()}
+            out = {f"query_{k}": v for k, v in q.items()}
+            out.update({f"title_{k}": v for k, v in t.items()})
+            out["labels"] = np.asarray([p[2] for p in pairs], np.int32)
+            yield out

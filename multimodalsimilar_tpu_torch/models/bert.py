@@ -92,13 +92,17 @@ class Dropout(nn.Module):
         self.p = p
         self.generator: Optional[torch.Generator] = None
 
+    def mask_shape(self, x: torch.Tensor) -> tuple:
+        return x.shape
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training or self.p == 0.0:
             return x
         if self.generator is None:
             raise RuntimeError("dropout in train() mode needs a generator: "
                                "call set_dropout_generator first")
-        keep = torch.empty(x.shape, dtype=torch.float32, device=x.device)
+        keep = torch.empty(self.mask_shape(x), dtype=torch.float32,
+                           device=x.device)
         keep.bernoulli_(1.0 - self.p, generator=self.generator)
         return torch.where(keep > 0, x / (1.0 - self.p), 0.0).to(x.dtype)
 

@@ -8,6 +8,9 @@ the tree.
   (``params["tower"]["encoder"]``, the layout that
   ``multimodalsimilar_tpu/models/hf_import.py:bert_params_from_torch``
   writes, read in reverse).
+* ``multilabel_classifier_from_jax`` and ``siamese_pair_from_jax``:
+  ``NlpMultilabelClassifier`` (the tower and the three heads) and
+  ``SiamesePairModel`` (the tower and the 2-way ``classifier``).
 * ``efficientnet_from_jax``: ``EfficientNet``, the reverse of
   ``hf_import.py:efficientnet_params_from_timm`` (HWIO kernels become
   OIHW; the depthwise [k, k, 1, C] becomes [C, 1, k, k] by the same
@@ -85,6 +88,27 @@ def text_classifier_from_jax(params: Mapping, config: BertConfig
     lin("pooler.dense", enc["pooler"], enc["pooler"]["kernel"])
     if "head" in params:
         sd["head.weight"] = _t(params["head"]["weight"])
+    return sd
+
+
+def multilabel_classifier_from_jax(params: Mapping, config: BertConfig
+                                   ) -> Dict[str, torch.Tensor]:
+    """JAX ``NlpMultilabelClassifier`` params -> the port's state_dict: the
+    tower as ``text_classifier_from_jax`` reads it, and the [C, D] weights
+    of ``lv1_head``, ``lv2_head`` and ``tag_head`` as they are."""
+    sd = text_classifier_from_jax(params, config)
+    for head in ("lv1_head", "lv2_head", "tag_head"):
+        sd[f"{head}.weight"] = _t(params[head]["weight"])
+    return sd
+
+
+def siamese_pair_from_jax(params: Mapping, config: BertConfig
+                          ) -> Dict[str, torch.Tensor]:
+    """JAX ``SiamesePairModel`` params -> the port's state_dict: the tower,
+    and the ``classifier`` Dense [3H, 2] as a Linear [2, 3H]."""
+    sd = text_classifier_from_jax(params, config)
+    sd["classifier.weight"] = _t(np.asarray(params["classifier"]["kernel"]).T)
+    sd["classifier.bias"] = _t(params["classifier"]["bias"])
     return sd
 
 

@@ -12,16 +12,19 @@ Counterpart of ``multimodalsimilar_tpu/models/efficientnet.py``
 * torch-style *symmetric* padding (k//2 on each side, stride 2 included),
   so embeddings match timm's native (non-``tf_``) EfficientNet weights.
 * Casts follow the JAX module's dtype policy point for point: every conv
-  runs in ``compute_dtype``; BatchNorm in eval mode computes
-  ``(x - mean) * rsqrt(var + eps) * scale + bias`` against its f32
-  statistics and returns ``reduce_dtype``; the squeeze-excite mean is
+  runs in ``compute_dtype``; BatchNorm computes ``(x - mean) *
+  rsqrt(var + eps) * scale + bias`` against f32 statistics and returns
+  ``reduce_dtype``; the squeeze-excite mean is
   taken in ``reduce_dtype`` and cast to ``compute_dtype``; the reduced SE
   width comes from the block's *input* channels (timm semantics).
 * ``folded=True`` (``models/fold_bn.py``): every conv carries a bias and
   every BatchNorm is an identity.
-* Inference only: BatchNorm uses its running statistics and stochastic
-  depth is off. The modules are built in ``eval()`` mode and ``forward``
-  raises in ``train()`` mode (training the image tower is ROADMAP A13).
+* ``eval()`` mode (the modules are built in it): BatchNorm uses its
+  running statistics and stochastic depth is off. ``train()`` mode: Flax
+  ``BatchNorm(use_running_average=False)`` semantics (``batch_norm``),
+  and ``DropPath`` on each residual branch with the linearly scaled rates
+  of ``block_plan``, its masks from the generator that
+  ``models.bert.set_dropout_generator`` hands out.
 
 Parameter names are timm's (``conv_stem``/``bn1``,
 ``blocks.S.I.{conv_pw,bn1,conv_dw,bn2,se.conv_reduce,se.conv_expand,
@@ -41,6 +44,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from multimodalsimilar_tpu_torch.models.bert import Dropout
 from multimodalsimilar_tpu_torch.utils.dtypes import DTypePolicy
 
 # (expand_ratio, channels, repeats, stride, kernel) — the EfficientNet-B0
@@ -166,15 +170,43 @@ def conv(x: torch.Tensor, mod: nn.Conv2d, dtype: torch.dtype
 
 def batch_norm(x: torch.Tensor, bn: Optional[nn.modules.batchnorm._BatchNorm],
                dtype: torch.dtype) -> torch.Tensor:
-    """Eval-mode BatchNorm as Flax computes it: ``(x - mean) *
-    (rsqrt(var + eps) * scale) + bias`` in the statistics' f32, then cast
-    to ``dtype``; channels on dim 1. ``None`` (folded) is the identity."""
+    """BatchNorm as Flax computes it: ``(x - mean) * (rsqrt(var + eps) *
+    scale) + bias`` in f32, then cast to ``dtype``; channels on dim 1.
+    ``None`` (folded) is the identity. In ``eval()`` mode the statistics
+    are the running ones. In ``train()`` mode they are the batch's, in
+    f32 over every dim but 1, with the *biased* variance E[x^2] - E[x]^2
+    clipped at 0 (Flax ``_compute_stats``), and the running statistics
+    move to ``momentum * running + (1 - momentum) * batch`` with that same
+    biased variance (``F.batch_norm`` would store the unbiased one,
+    n/(n-1) larger) at Flax's momentum (0.9, torch's 0.1)."""
     if bn is None:
         return x
     shape = (1, -1) + (1,) * (x.dim() - 2)
-    mul = torch.rsqrt(bn.running_var + bn.eps) * bn.weight
-    y = (x - bn.running_mean.view(shape)) * mul.view(shape)
+    if bn.training:
+        xf = x.float()
+        dims = [d for d in range(x.dim()) if d != 1]
+        mean = xf.mean(dims)
+        var = torch.clamp_min((xf * xf).mean(dims) - mean * mean, 0.0)
+        with torch.no_grad():
+            keep = 1.0 - bn.momentum
+            bn.running_mean.copy_(keep * bn.running_mean
+                                  + bn.momentum * mean)
+            bn.running_var.copy_(keep * bn.running_var + bn.momentum * var)
+    else:
+        mean, var = bn.running_mean, bn.running_var
+    mul = torch.rsqrt(var + bn.eps) * bn.weight
+    y = (x - mean.view(shape)) * mul.view(shape)
     return (y + bn.bias.view(shape)).to(dtype)
+
+
+class DropPath(Dropout):
+    """Per-sample stochastic depth (timm ``drop_path``, JAX ``_DropPath``):
+    in ``train()`` mode each sample's residual branch is dropped with
+    probability ``p`` and the survivors are scaled by 1 / (1 - p), one
+    mask draw per sample from ``self.generator``."""
+
+    def mask_shape(self, x: torch.Tensor) -> tuple:
+        return (x.shape[0],) + (1,) * (x.dim() - 1)
 
 
 class SqueezeExcite(nn.Module):
@@ -199,7 +231,8 @@ class DepthwiseSeparable(nn.Module):
     """Stage-0 block (expand ratio 1): dw conv + SE + pw project."""
 
     def __init__(self, cfg: EfficientNetConfig, in_c: int, out_c: int,
-                 stride: int, kernel: int, policy: DTypePolicy):
+                 stride: int, kernel: int, drop_path: float,
+                 policy: DTypePolicy):
         super().__init__()
         self.policy = policy
         self.conv_dw = _conv_module(cfg, in_c, in_c, kernel, stride,
@@ -210,13 +243,14 @@ class DepthwiseSeparable(nn.Module):
         self.conv_pw = _conv_module(cfg, in_c, out_c, 1)
         self.bn2 = _bn_module(cfg, out_c)
         self.has_skip = stride == 1 and in_c == out_c
+        self.drop_path = DropPath(drop_path)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         cd, rd = self.policy.compute_dtype, self.policy.reduce_dtype
         h = F.silu(batch_norm(conv(x, self.conv_dw, cd), self.bn1, rd))
         h = self.se(h)
         h = batch_norm(conv(h, self.conv_pw, cd), self.bn2, rd)
-        return h + x if self.has_skip else h
+        return self.drop_path(h) + x if self.has_skip else h
 
 
 class InvertedResidual(nn.Module):
@@ -224,7 +258,8 @@ class InvertedResidual(nn.Module):
     stride 1 and channels match."""
 
     def __init__(self, cfg: EfficientNetConfig, expand: int, in_c: int,
-                 out_c: int, stride: int, kernel: int, policy: DTypePolicy):
+                 out_c: int, stride: int, kernel: int, drop_path: float,
+                 policy: DTypePolicy):
         super().__init__()
         self.policy = policy
         mid = in_c * expand
@@ -238,6 +273,7 @@ class InvertedResidual(nn.Module):
         self.conv_pwl = _conv_module(cfg, mid, out_c, 1)
         self.bn3 = _bn_module(cfg, out_c)
         self.has_skip = stride == 1 and in_c == out_c
+        self.drop_path = DropPath(drop_path)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         cd, rd = self.policy.compute_dtype, self.policy.reduce_dtype
@@ -245,7 +281,7 @@ class InvertedResidual(nn.Module):
         h = F.silu(batch_norm(conv(h, self.conv_dw, cd), self.bn2, rd))
         h = self.se(h)
         h = batch_norm(conv(h, self.conv_pwl, cd), self.bn3, rd)
-        return h + x if self.has_skip else h
+        return self.drop_path(h) + x if self.has_skip else h
 
 
 class EfficientNet(nn.Module):
@@ -273,11 +309,12 @@ class EfficientNet(nn.Module):
         for (_, _, repeats, _, _) in cfg.stages:
             stage = nn.ModuleList()
             for _ in range(round_repeats(repeats, cfg.depth_mult)):
-                exp, in_c, out_c, stride, k, _ = plan[b]
+                exp, in_c, out_c, stride, k, dp = plan[b]
                 stage.append(
-                    DepthwiseSeparable(cfg, in_c, out_c, stride, k, policy)
+                    DepthwiseSeparable(cfg, in_c, out_c, stride, k, dp,
+                                       policy)
                     if exp == 1 else
-                    InvertedResidual(cfg, exp, in_c, out_c, stride, k,
+                    InvertedResidual(cfg, exp, in_c, out_c, stride, k, dp,
                                      policy))
                 b += 1
             self.blocks.append(stage)
@@ -289,11 +326,6 @@ class EfficientNet(nn.Module):
         self.eval()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.training:
-            raise NotImplementedError(
-                "EfficientNet runs in eval() mode only: training the image "
-                "tower (BN batch statistics, stochastic depth) is ROADMAP "
-                "A13")
         cd, rd = self.policy.compute_dtype, self.policy.reduce_dtype
         h = F.silu(batch_norm(conv(x.to(cd), self.conv_stem, cd), self.bn1,
                               rd))

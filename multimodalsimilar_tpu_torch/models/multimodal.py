@@ -5,7 +5,9 @@ Counterpart of ``multimodalsimilar_tpu/models/multimodal.py``
 batch; each tower's embedding is L2-normalized in ``reduce_dtype`` and
 the two are concatenated (``fc_dim + hidden_size`` wide: 512 + 768 =
 1,280 with the B4 neck and the base text tower), and an ArcFace head with
-m=0.5 (:22) classifies the fused vector.
+m=0.5 (:22) classifies the fused vector. In ``train()`` mode both towers
+train: the image tower with BatchNorm batch statistics and the neck's
+dropout, the text tower with its dropout.
 """
 
 from __future__ import annotations

@@ -9,13 +9,17 @@ Counterpart of ``multimodalsimilar_tpu/models/vision.py``:
 * ``ImageTower`` <- image_emb.py:14-32 — backbone features (classifier
   stripped), optional BatchNorm1d, always L2-normalized output.
 * ``CvImageClassifier`` <- cv_classifier.py:17-55 — backbone -> global
-  average pool -> Linear(fc_dim) + BatchNorm1d neck -> ArcFace head (m
-  defaults to 0.2, cv_classifier.py:19). ``predict_emb`` returns the neck
-  output (the 512-d embedding cached to emb.txt by daodian_infer.py:283).
+  average pool -> Dropout(0.5) + Linear(fc_dim) + BatchNorm1d neck ->
+  ArcFace head (m defaults to 0.2, cv_classifier.py:19). ``predict_emb``
+  returns the neck output (the 512-d embedding cached to emb.txt by
+  daodian_infer.py:283).
 
-Backbones are EfficientNets only: ``vit*`` and ``convnext*`` raise
-(ROADMAP A16). The modules are inference-only, like the backbone: the
-neck's dropout (off in eval) comes with the training recipes (A13).
+The modules are built in ``eval()`` mode. In ``train()`` mode BatchNorm
+uses batch statistics (``models.efficientnet.batch_norm``) and the
+neck's dropout is on, its masks from the generator that
+``models.bert.set_dropout_generator`` hands out; the reference applies it
+inside ``predict_emb``, so train-mode embeddings are noisy. Backbones are
+EfficientNets only: ``vit*`` and ``convnext*`` raise (ROADMAP A16).
 """
 
 from __future__ import annotations
@@ -28,6 +32,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from multimodalsimilar_tpu_torch.data.images import IMAGENET_MEAN, IMAGENET_STD
+from multimodalsimilar_tpu_torch.models.bert import Dropout
 from multimodalsimilar_tpu_torch.models.efficientnet import (
     EfficientNet, EfficientNetConfig, batch_norm)
 from multimodalsimilar_tpu_torch.models.heads import ArcFaceHead
@@ -116,6 +121,7 @@ class CvImageClassifier(nn.Module):
         self.backbone = build_backbone(cfg, policy, generator)
         dim = cfg.num_features
         if use_fc:
+            self.dropout = Dropout(0.5)
             self.fc = nn.Linear(dim, fc_dim)
             self.bn = _bn1d(fc_dim)
             with torch.no_grad():
@@ -128,11 +134,12 @@ class CvImageClassifier(nn.Module):
         self.eval()
 
     def predict_emb(self, images: torch.Tensor) -> torch.Tensor:
-        """Backbone -> GAP -> (fc -> bn), in ``reduce_dtype``
+        """Backbone -> GAP -> (dropout -> fc -> bn), in ``reduce_dtype``
         (cv_classifier.py:47-55)."""
         rd = self.policy.reduce_dtype
         feats = self.backbone.features(images)
         if self.use_fc:
+            feats = self.dropout(feats)
             feats = F.linear(feats.to(rd), self.fc.weight.to(rd),
                              self.fc.bias.to(rd))
             feats = batch_norm(feats, self.bn, rd)

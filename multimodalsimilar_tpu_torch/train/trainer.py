@@ -7,17 +7,29 @@ multimodalsimilar_tpu/train/trainer.py), on one device.
   periodic checkpoints (``train/checkpoint.py``);
 * the ArcFace margin is a host float handed to the head on every step, so
   a curriculum step changes one kernel argument;
-* dropout masks come from a ``torch.Generator`` on the training device
-  that the Trainer owns, re-seeded from ``(seed, step)`` before every
-  step, so a resumed run draws the masks an unbroken run would have.
+* dropout and drop-path masks come from a ``torch.Generator`` on the
+  training device that the Trainer owns, re-seeded from ``(seed, step)``
+  before every micro-step, so a resumed run draws the masks an unbroken
+  run would have;
+* BatchNorm running statistics are module buffers: they move on every
+  micro-step in ``train()`` mode and travel in ``state()`` and the
+  checkpoints with the weights;
+* ``grad_accum`` = K follows ``optax.MultiSteps``: the mean gradient of K
+  micro-steps feeds one optimizer step. ``step`` counts micro-steps (the
+  checkpoint key, as in the JAX package); schedules, ``eval_every``,
+  ``save_every`` and ``log_every`` count optimizer steps and fire on
+  accumulation boundaries;
+* ``profile_dir``: a ``torch.profiler`` trace (``utils/profiling.py``) of
+  ``profile_num_steps`` steps after micro-step ``profile_start_step``.
 
 The JAX package's mesh placements (class-sharded heads, TP, SP, PP,
-bf16 gradient all-reduce), gradient accumulation and profiling are not
-ported: their ``TrainerConfig`` fields raise when set.
+bf16 gradient all-reduce) are multi-GPU work (ROADMAP A17): their
+``TrainerConfig`` fields raise when set.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from collections import deque
 from typing import Callable, Dict, Iterator, Optional
@@ -32,13 +44,12 @@ from multimodalsimilar_tpu_torch.train.metrics import (MeanAccumulator,
                                                        MetricLogger)
 from multimodalsimilar_tpu_torch.train.tasks import Task
 from multimodalsimilar_tpu_torch.utils.devices import resolve_device
-from multimodalsimilar_tpu_torch.utils.profiling import StepTimer
+from multimodalsimilar_tpu_torch.utils.profiling import StepTimer, trace
 
-# TrainerConfig fields of the JAX package that the port does not run yet,
-# with the value that leaves them off
-_NOT_PORTED = {"profile_dir": None, "model_parallel_heads": False,
-               "tensor_parallel": False, "sequence_parallel": False,
-               "pipeline_parallel": False, "grad_accum": 1,
+# TrainerConfig fields of the JAX package's multi-device layouts (ROADMAP
+# A17), with the value that leaves them off
+_NOT_PORTED = {"model_parallel_heads": False, "tensor_parallel": False,
+               "sequence_parallel": False, "pipeline_parallel": False,
                "bf16_grad_allreduce": False}
 
 
@@ -66,13 +77,16 @@ class TrainerConfig:
     # write overlaps the next steps. The end-of-fit save is always durable.
     async_save: bool = False
     seed: int = 0
-    # not ported (see _NOT_PORTED): raise when set
-    profile_dir: Optional[str] = None
+    # micro-steps per optimizer step (optax.MultiSteps' every_k_schedule)
+    grad_accum: int = 1
+    profile_dir: Optional[str] = None     # torch.profiler trace output
+    profile_start_step: int = 3           # past the warm-up steps
+    profile_num_steps: int = 5
+    # multi-device layouts (see _NOT_PORTED): raise when set
     model_parallel_heads: bool = False
     tensor_parallel: bool = False
     sequence_parallel: bool = False
     pipeline_parallel: bool = False
-    grad_accum: int = 1
     bf16_grad_allreduce: bool = False
 
     def __post_init__(self):
@@ -80,8 +94,11 @@ class TrainerConfig:
                if getattr(self, k) != off]
         if bad:
             raise NotImplementedError(
-                f"TrainerConfig {bad} not ported to the PyTorch trainer "
-                f"yet (one device, no accumulation, no profiler)")
+                f"TrainerConfig {bad}: the multi-device layouts are not "
+                f"ported to the PyTorch trainer (ROADMAP A17)")
+        if self.grad_accum < 1:
+            raise ValueError(f"grad_accum must be >= 1, got "
+                             f"{self.grad_accum}")
 
 
 class Trainer:
@@ -111,11 +128,16 @@ class Trainer:
     # -- state ----------------------------------------------------------
 
     def state(self) -> dict:
-        """The training state a checkpoint holds (live references)."""
+        """The training state a checkpoint holds (live references): the
+        model's parameters and buffers (BatchNorm statistics), optimizer,
+        schedules, margin and, between accumulation boundaries, the
+        gradients accumulated so far."""
+        grads = {name: p.grad for name, p in self.model.named_parameters()
+                 if p.grad is not None}
         return {"step": self.step, "model": self.model.state_dict(),
                 "optimizer": self.optimizer.state_dict(),
                 "schedulers": self.schedules.state_dict(),
-                "margin": self.margin}
+                "margin": self.margin, "accum_grads": grads}
 
     def load_state(self, state: dict) -> None:
         self.model.load_state_dict(state["model"])
@@ -123,21 +145,29 @@ class Trainer:
         self.schedules.load_state_dict(state["schedulers"])
         self.step = int(state["step"])
         self.margin = _f32(state["margin"])
+        grads = state.get("accum_grads", {})
+        for name, p in self.model.named_parameters():
+            p.grad = (grads[name].to(p.device, p.dtype) if name in grads
+                      else None)
 
     # -- steps ------------------------------------------------------------
 
     def train_step(self, batch: Dict[str, torch.Tensor]
                    ) -> Dict[str, torch.Tensor]:
-        """One optimizer step on a device batch; returns the step's
-        metrics as device scalars (no host sync)."""
+        """One micro-step on a device batch (an optimizer step at every
+        ``grad_accum``-th); returns its metrics as device scalars (no host
+        sync)."""
+        accum = self.config.grad_accum
         self.model.train()
         self.generator.manual_seed((self.config.seed << 32) + self.step)
         loss, metrics = self.task.train_loss(batch, self.margin)
-        self.optimizer.zero_grad(set_to_none=True)
-        loss.backward()
-        self.optimizer.step()
-        self.schedules.step()
+        # the accumulated gradient is the mean of the micro-steps'
+        (loss / accum if accum > 1 else loss).backward()
         self.step += 1
+        if self.step % accum == 0:
+            self.optimizer.step()
+            self.optimizer.zero_grad(set_to_none=True)
+            self.schedules.step()
         return metrics
 
     def eval_step(self, batch: Dict[str, torch.Tensor]
@@ -169,7 +199,7 @@ class Trainer:
                 accs.setdefault(k, MeanAccumulator()).update(float(v), n)
 
         for batch in prefetch_to_device(batches, self.device):
-            n = int(batch["input_ids"].shape[0])
+            n = int(next(iter(batch.values())).shape[0])
             pending.append((self.eval_step(batch), n))
             if len(pending) > 2:
                 consume(*pending.popleft())
@@ -212,43 +242,62 @@ class Trainer:
             else:
                 self.ckpt.clear()
         timer = self.timer = StepTimer(skip_first=2)
+        accum = cfg.grad_accum
         prev_loss = None
         trained = False
-        for epoch in range(num_epochs):
-            sampler = sampler_fn(epoch) if sampler_fn else None
-            it = train_source.batches(batch_size, shuffle=shuffle,
-                                      seed=cfg.seed, epoch=epoch,
-                                      sampler=sampler)
-            for batch in prefetch_to_device(it, self.device):
-                metrics = self.train_step(batch)
-                trained = True
-                step = self.step
-                # depth-1 lagged sync: read the PREVIOUS step's loss, so
-                # the host stays at most one step ahead of the device and
-                # each timer tick is a real step time
-                if prev_loss is not None:
-                    float(prev_loss)
-                prev_loss = metrics["loss"]
-                timer.tick()
-                if step % cfg.log_every == 0:
-                    # the CURRENT step's metrics (a sync on log steps only)
-                    m = {k: float(v) for k, v in metrics.items()}
-                    summary = timer.summary(batch_size)
-                    if summary:
-                        m["examples_per_sec"] = summary["examples_per_sec"]
-                        m["step_ms_p50"] = summary["p50_ms"]
-                    m["margin"] = self.margin
-                    self.logger.log(step, m, prefix="train/")
-                if eval_source is not None and step % cfg.eval_every == 0:
-                    # the whole split, the final partial batch included
-                    ev = self.evaluate(eval_source.batches(
-                        eval_batch_size or batch_size, shuffle=False,
-                        drop_remainder=False))
-                    self.logger.log(step, ev, prefix="eval/")
-                if self.ckpt and step % cfg.save_every == 0:
-                    self.ckpt.save(step, self.state())
-            if cfg.margin_delta_per_epoch:
-                self.update_margin(cfg.margin_delta_per_epoch)
+        with contextlib.ExitStack() as profiling:
+            profiled = False
+            for epoch in range(num_epochs):
+                sampler = sampler_fn(epoch) if sampler_fn else None
+                it = train_source.batches(batch_size, shuffle=shuffle,
+                                          seed=cfg.seed, epoch=epoch,
+                                          sampler=sampler)
+                for batch in prefetch_to_device(it, self.device):
+                    metrics = self.train_step(batch)
+                    trained = True
+                    step = self.step          # micro-steps
+                    # depth-1 lagged sync: read the PREVIOUS step's loss,
+                    # so the host stays at most one step ahead of the
+                    # device and each timer tick is a real step time
+                    if prev_loss is not None:
+                        float(prev_loss)
+                    prev_loss = metrics["loss"]
+                    timer.tick()
+                    if cfg.profile_dir and not profiled:
+                        if step == cfg.profile_start_step:
+                            profiling.enter_context(trace(cfg.profile_dir))
+                        elif step >= (cfg.profile_start_step
+                                      + cfg.profile_num_steps):
+                            profiling.close()
+                            profiled = True
+                    # cadence on accumulation boundaries, in optimizer
+                    # steps (the micro-steps themselves at accum = 1)
+                    if step % accum:
+                        continue
+                    opt_step = step // accum
+                    if opt_step % cfg.log_every == 0:
+                        # the CURRENT step's metrics (a sync on log steps)
+                        m = {k: float(v) for k, v in metrics.items()}
+                        summary = timer.summary(batch_size)
+                        if summary:
+                            m["examples_per_sec"] = summary[
+                                "examples_per_sec"]
+                            m["step_ms_p50"] = summary["p50_ms"]
+                        m["margin"] = self.margin
+                        if accum > 1:
+                            m["opt_step"] = float(opt_step)
+                        self.logger.log(step, m, prefix="train/")
+                    if eval_source is not None \
+                            and opt_step % cfg.eval_every == 0:
+                        # the whole split, the final partial batch included
+                        ev = self.evaluate(eval_source.batches(
+                            eval_batch_size or batch_size, shuffle=False,
+                            drop_remainder=False))
+                        self.logger.log(step, ev, prefix="eval/")
+                    if self.ckpt and opt_step % cfg.save_every == 0:
+                        self.ckpt.save(step, self.state())
+                if cfg.margin_delta_per_epoch:
+                    self.update_margin(cfg.margin_delta_per_epoch)
         if self.ckpt and trained:
             self.ckpt.save(self.step, self.state(), force=True)
             self.ckpt.wait()   # the end-of-run save must be durable

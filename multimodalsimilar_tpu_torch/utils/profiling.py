@@ -1,17 +1,35 @@
-"""Step timing (counterpart of multimodalsimilar_tpu/utils/profiling.py).
+"""Profiling helpers (counterpart of
+multimodalsimilar_tpu/utils/profiling.py).
 
-``StepTimer`` is copied from there: a cheap steady-state throughput meter
-that skips warm-up steps and reports examples/sec from the median step.
-A device trace through ``torch.profiler`` (the JAX package's ``trace``)
-comes in a later slice.
+* ``trace(logdir)`` — a ``torch.profiler`` context (host and, with a
+  card, device activity) whose trace is written to ``logdir`` as
+  TensorBoard's profiler plugin reads it (``*.pt.trace.json``, also
+  loadable in Perfetto), where the JAX package writes a ``jax.profiler``
+  trace.
+* ``StepTimer`` — copied: a cheap steady-state throughput meter that
+  skips warm-up steps and reports examples/sec from the median step.
 """
 
 from __future__ import annotations
 
+import contextlib
 import time
 from typing import List, Optional
 
 import numpy as np
+import torch
+
+
+@contextlib.contextmanager
+def trace(logdir: str):
+    from torch.profiler import (ProfilerActivity, profile,
+                                tensorboard_trace_handler)
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities,
+                 on_trace_ready=tensorboard_trace_handler(logdir)) as prof:
+        yield prof
 
 
 class StepTimer:

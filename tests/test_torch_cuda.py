@@ -642,3 +642,129 @@ def test_multimodal_service_on_card_one_launch_per_batch(dev):
                    and o[0]["score"] <= 1e-3 for i, o in enumerate(out))
     finally:
         svc.close()
+
+
+# ------------------------------------------------- the training recipes
+
+# B x C x D of the recipes' ArcFace heads: cv (train_cv_daodian.yaml),
+# multimodal (train_multimodal.yaml) and the multilabel tag, lv2 and lv1
+# heads (train_multilabel_v3.yaml)
+RECIPE_HEADS = [(24, 4_181, 512), (48, 796, 1_280), (256, 10_205, 768),
+                (256, 590, 768), (256, 38, 768)]
+
+
+@pytest.mark.parametrize("b,c,d", RECIPE_HEADS)
+def test_arcface_kernel_at_the_recipe_heads(dev, b, c, d):
+    """Forward within the tolerances of test_arcface_kernel_matches_plain;
+    the gradients of one CE loss through ``ArcFaceLogits`` (kernel
+    forward, plain backward) against plain autograd within rtol 1e-3 and
+    1e-3 of the largest gradient (the logits agree to 2e-4)."""
+    rng = np.random.default_rng(c)
+    x, w, label = _arcface_problem(rng, b, c, d, dev)
+    label = label.clamp_min(0)
+    m = 0.2
+    got = A.arcface_logits_cuda(x, w, label, m, 64.0)
+    want = A.arcface_logits(x, w, label, m, 64.0)
+    cos = A.cosine_logits(x, w)
+    torch.cuda.synchronize()
+    target = torch.arange(c, device=dev)[None] == label.long()[:, None]
+    steep = target & (1.0 - cos * cos < 1e-4)
+    allow = torch.where(
+        steep, torch.full_like(want, 64.0 * (4e-6 + math.sin(m)
+                                             * math.sqrt(8e-6))),
+        2e-4 + 1e-5 * want.abs())
+    assert ((got - want).abs() <= allow).all()
+
+    def grads(fn):
+        xr = x.clone().requires_grad_(True)
+        wr = w.clone().requires_grad_(True)
+        torch.nn.functional.cross_entropy(
+            fn(xr, wr, label, m, 64.0, False), label.long()).backward()
+        return xr.grad, wr.grad
+
+    for a, b_ in zip(grads(A.arcface_logits_fused),
+                     grads(A.arcface_logits)):
+        assert torch.allclose(a, b_, rtol=1e-3,
+                              atol=1e-3 * float(b_.abs().max()))
+
+
+@pytest.mark.parametrize("tf32", [False, True])
+def test_fused_loss_on_card_matches_cpu(dev, tf32):
+    """``arcface_ce_loss`` at the tag head's width on the card against its
+    CPU result: loss within 1e-5 relative, dx and dW within 1e-4 of their
+    largest entries (f32 sums in another order); with TF32 on too, since
+    its products are f32-accurate whatever the flag says."""
+    from multimodalsimilar_tpu_torch.ops.arcface_loss import (
+        arcface_ce_loss, cosine_argmax)
+    rng = np.random.default_rng(7)
+    x, w, label = _arcface_problem(rng, 64, 10_205, 768, dev)
+
+    def run(device):
+        xr = x.to(device).clone().requires_grad_(True)
+        wr = w.to(device).clone().requires_grad_(True)
+        loss = arcface_ce_loss(xr, wr, label.to(device), 0.1)
+        loss.sum().backward()
+        return (loss.detach().cpu(), xr.grad.cpu(), wr.grad.cpu(),
+                cosine_argmax(xr, wr).cpu())
+
+    want = run("cpu")
+    torch.backends.cuda.matmul.allow_tf32 = tf32
+    try:
+        got = run(dev)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    assert torch.allclose(got[0], want[0], rtol=1e-5, atol=0)
+    for a, b in zip(got[1:3], want[1:3]):
+        assert torch.allclose(a, b, rtol=0, atol=1e-4 * float(b.abs().max()))
+    assert (got[3] == want[3]).float().mean() > 0.99
+
+
+def test_cv_train_step_on_card_matches_cpu(dev):
+    """One ``cv_arcface_task`` step of the tiny image classifier in full
+    precision (cuDNN TF32 off, drop-path and neck dropout at 0) on the
+    card against the same step on the CPU: the loss within 1e-5 relative,
+    the BN running statistics within 1e-5, every gradient within 1e-3 of
+    its largest entry (cuDNN sums in another order; at least 1e-4 of the
+    model's largest gradient), and one ArcFace launch. Biases of
+    BatchNorms that feed a convolution into another train-mode BatchNorm
+    have zero gradients in exact arithmetic: below 1e-5 of the model's
+    largest gradient on both devices."""
+    import dataclasses
+
+    from multimodalsimilar_tpu_torch.models.efficientnet import (
+        EfficientNetConfig)
+    from multimodalsimilar_tpu_torch.models.vision import CvImageClassifier
+    from multimodalsimilar_tpu_torch.train.tasks import cv_arcface_task
+    from multimodalsimilar_tpu_torch.utils.dtypes import DTypePolicy
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = dataclasses.replace(EfficientNetConfig.tiny(), drop_path_rate=0.0)
+    rng = np.random.default_rng(3)
+    batch = {"images": torch.from_numpy(rng.integers(
+                 0, 256, (8, 32, 32, 3)).astype(np.uint8)),
+             "labels": torch.from_numpy(rng.integers(0, 50, 8).astype(
+                 np.int32))}
+    out = []
+    for device in ("cpu", dev):
+        model = CvImageClassifier(cfg, 50, fc_dim=16,
+                                  policy=DTypePolicy.full_precision())
+        model.dropout.p = 0.0
+        model = model.to(device, memory_format=torch.channels_last).train()
+        before = A.LAUNCHES["arcface"]
+        loss, _ = cv_arcface_task(model).train_loss(
+            {k: v.to(device) for k, v in batch.items()}, 0.2)
+        loss.backward()
+        out.append((float(loss.detach()), A.LAUNCHES["arcface"] - before,
+                    {n: p.grad.cpu() for n, p in model.named_parameters()},
+                    {n: b.cpu() for n, b in model.named_buffers()}))
+    (lc, _, gc, bc), (lg, launches, gg, bg) = out
+    assert launches == 1 and lg == pytest.approx(lc, rel=1e-5)
+    for n, b in bc.items():
+        if n.endswith(("running_mean", "running_var")):
+            assert torch.allclose(bg[n], b, rtol=0, atol=1e-5), n
+    top = max(float(g.abs().max()) for g in gc.values())
+    for n, g in gc.items():
+        if float(g.abs().max()) <= 1e-5 * top:
+            assert float(gg[n].abs().max()) <= 1e-5 * top, n
+            continue
+        scale = max(float(g.abs().max()), 1e-4 * top)
+        assert torch.allclose(gg[n], g, rtol=0, atol=1e-3 * scale), n

@@ -42,13 +42,16 @@ print(json.dumps([names, leaked]))
 """
 
 # the serving and export modules, which pull in the most of the package,
-# the image slice's and the daodian slice's
+# the image slice's, the daodian slice's and the training recipes'
 SERVING = ["cli.common", "cli.embed", "cli.embedders", "cli.serve",
            "pipelines.embed", "pipelines.microbatch", "pipelines.serving",
            "data.images", "pipelines.embcache", "models.efficientnet",
            "models.fold_bn", "models.vision", "models.multimodal",
            "models.fasttext", "models.convert", "pipelines.similar",
-           "pipelines.daodian_serving", "cli.similar", "native"]
+           "pipelines.daodian_serving", "cli.similar", "native",
+           "ops.arcface_loss", "train.optim", "train.tasks",
+           "train.trainer", "cli.train", "data.sampling", "data.datasets",
+           "models.classifiers", "utils.profiling"]
 
 
 def _py_files():
@@ -236,6 +239,34 @@ def test_trainer_needs_cuda_or_explicit_cpu(monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         Trainer(task, make)
     assert Trainer(task, make, device="cpu").device.type == "cpu"
+
+
+def test_train_commands_need_cuda_or_explicit_cpu(monkeypatch, tmp_path):
+    from multimodalsimilar_tpu_torch.cli.train import (cmd_train_multilabel,
+                                                       cmd_train_pair)
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    import argparse
+    common = dict(tokenizer=None, max_length=8, no_clean=True,
+                  bert_preset="tiny", batch_size=2, epochs=1, tower_lr=1e-3,
+                  head_lr=1e-3, head_warmup_frac=0.0, weight_decay=0.0,
+                  head_weight_decay=0.0, eval_every=10, save_every=10,
+                  log_every=10, margin=0.4, margin_delta_per_epoch=0.0,
+                  weighted_sampling=False, fused_loss=False, seed=0)
+    ml = argparse.Namespace(
+        **common, text_col="t", lv1_col="a", lv2_col="b", tag_col="c",
+        lv1_weight=1.0, lv2_weight=1.0, tag_weight=1.0,
+        output=str(tmp_path / "ml"))
+    table = {"t": ["苹果", "牛奶"], "a": [0, 1], "b": [0, 1], "c": [1, 0]}
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        cmd_train_multilabel(ml, table=table)
+    assert cmd_train_multilabel(ml, table=table, device="cpu").step == 1
+    pair = argparse.Namespace(**common, output=str(tmp_path / "pair"))
+    pairs = {"title": ["苹果", "牛奶"], "tag_id": [0, 1],
+             "lv2_category_id": [0, 1], "lv1_category_id": [0, 0]}
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        cmd_train_pair(pair, table=pairs)
+    assert cmd_train_pair(pair, table=pairs, device="cpu").step == 1
 
 
 def test_chip_smoke_refuses_without_cuda():

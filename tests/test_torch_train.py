@@ -540,21 +540,28 @@ def test_async_failure_reraises_and_a_retry_writes(tmp_path, monkeypatch):
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError, match="grad_accum"):
-        TrainerConfig(grad_accum=2)
-    with pytest.raises(NotImplementedError, match="profile_dir"):
-        TrainerConfig(profile_dir="/nowhere")
+    """Only the multi-GPU layouts (ROADMAP A17) stay unported: the
+    TrainerConfig fields and the command flags raise; accumulation,
+    profiling, AdamP, the cosine schedules and the fused loss run."""
+    for field in ("model_parallel_heads", "tensor_parallel",
+                  "sequence_parallel", "pipeline_parallel",
+                  "bf16_grad_allreduce"):
+        with pytest.raises(NotImplementedError, match="A17"):
+            TrainerConfig(**{field: True})
+    assert TrainerConfig(grad_accum=2, profile_dir="/nowhere").grad_accum == 2
+    with pytest.raises(ValueError, match="grad_accum"):
+        TrainerConfig(grad_accum=0)
     model = NlpTextClassifier(BertConfig.tiny(), num_labels=3)
-    with pytest.raises(NotImplementedError, match="arcface_loss"):
-        text_arcface_task(model, fused_loss=True)
+    text_arcface_task(model, fused_loss=True)
     base = dict(tower_lr=1e-3, head_lr=1e-3, head_warmup_frac=0.0,
                 weight_decay=0.0, head_weight_decay=0.0, eval_every=1,
                 save_every=1, log_every=1, margin=0.4,
                 margin_delta_per_epoch=0.0, output="unused", seed=0,
                 epochs=1)
-    for flag, value in (("optimizer", "adamp"),
-                        ("scheduler", "timm_cosine"), ("grad_accum", 4),
-                        ("model_parallel", 2), ("bf16_grads", True)):
+    for flag, value in (("model_parallel", 2), ("bf16_grads", True),
+                        ("tensor_parallel", True),
+                        ("sequence_parallel", True),
+                        ("pipeline_parallel", 2)):
         args = argparse.Namespace(**base, **{flag: value})
         with pytest.raises(NotImplementedError, match=flag):
             _trainer(text_arcface_task(model), args, 4, device="cpu")
