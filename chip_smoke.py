@@ -201,6 +201,32 @@
    with ``--profile`` (the trace's files are counted). Each reports
    examples/s at the median step, step p50 and p95, peak memory and,
    from a short ``torch.profiler`` window, the device's busy share.
+11. Phase 10 drives the command line in process, through
+   ``multimodalsimilar_tpu_torch.cli.main(argv)`` on its default device
+   (the card), with the repo's ``configs/*.yaml`` (read by
+   ``cli/config.py``: the card machine has no PyYAML) and CSV tables the
+   phase writes with the stdlib and ``read_table`` reads without pandas;
+   random weights from the seed, full widths, only the data cut. Every
+   launch count is set to 0 before each command and read after it.
+   ``train nlp --config configs/train_nlp_v2.yaml`` (base tower, batch
+   128, 4,096 titles over 10,205 Zipf classes, one epoch: ArcFace
+   launches must equal the 32 steps); ``eval`` of that checkpoint with
+   its ``vocab.txt`` (finite metrics, the printed line equal to the
+   result); ``similar nlp --config configs/similar_nlp.yaml`` over
+   50,000 titles with that checkpoint and vocab (top-k launched; its KV
+   writes must equal ``nlp_similar_job`` called directly on the vectors
+   the command embedded), and the same command once as a subprocess of
+   ``python -m multimodalsimilar_tpu_torch.cli`` (the same
+   ``{"written": N}``); ``similar multimodal`` over 4,096 1,280-d
+   ``[x,y,...]`` strings (its writes equal ``multimodal_similar_job`` on
+   the same array); ``train fasttext --config
+   configs/train_fasttext.yaml`` on 20,000 titles, then ``similar
+   daodian --config configs/similar_daodian_v2_recent_days.yaml
+   --text_only --dt 2026-08-16`` over 2 areas of 8,300 rows with that
+   model (``csrc/topk_select.cu`` launched; the writes equal
+   ``daodian_similar_job`` called directly). The wall seconds and
+   launches of each command go on one line; each kernel's entry of the
+   kernels line gets ``launches_cli``.
 
 Prints the card's name and power limit, one JSON line per phase, the
 ``{"kernels": [...]}`` line, and last ``{"ok": true, "device": ...}``.
@@ -218,6 +244,7 @@ import math
 import os
 import shutil
 import subprocess
+import sys
 import tempfile
 import threading
 import time
@@ -1781,12 +1808,13 @@ def daodian_titles(rng, labels, words) -> list:
     return out
 
 
-def daodian_table(rng, words) -> dict:
-    """12 areas of 8,300 rows: title, lv1 (30 labels) and lv2 (4 under
-    each), a sku per row and dts over the 7 days of the window."""
-    n = N_AREAS * AREA_ROWS
+def daodian_table(rng, words, n_areas: int = N_AREAS) -> dict:
+    """``n_areas`` areas (12 by default) of 8,300 rows: title, lv1 (30
+    labels) and lv2 (4 under each), a sku per row and dts over the 7 days
+    of the window."""
+    n = n_areas * AREA_ROWS
     lv1 = rng.integers(0, FT_LABELS, n)
-    return {"area_id": [int(a) for a in np.repeat(np.arange(N_AREAS),
+    return {"area_id": [int(a) for a in np.repeat(np.arange(n_areas),
                                                   AREA_ROWS)],
             "spu_sn": [f"dd{i:06d}" for i in range(n)],
             "sku": [f"{700000 + i}" for i in range(n)],
@@ -2492,6 +2520,213 @@ def phase9(dev) -> dict:
     return out
 
 
+N_CLI_TITLES, N_CLI_FT = 50_000, 20_000
+ROOT = os.path.dirname(os.path.abspath(__file__))
+
+
+def config_path(name: str) -> str:
+    return os.path.join(ROOT, "configs", name)
+
+
+def write_csv(path: str, table: dict) -> None:
+    """A ``{column: list}`` table as a CSV file (the stdlib writer)."""
+    import csv
+    with open(path, "w", newline="", encoding="utf-8") as f:
+        w = csv.writer(f)
+        w.writerow(list(table))
+        w.writerows(zip(*table.values()))
+
+
+def run_cli(argv) -> tuple:
+    """``cli.main(argv)`` on the card, with every launch count set to 0
+    just before and read just after: (what the command returns, its last
+    stdout line as JSON or None, wall seconds, launches by kernel)."""
+    import contextlib
+    import io
+    from multimodalsimilar_tpu_torch.cli import main as cli_main
+    for name in T.LAUNCHES:
+        T.LAUNCHES[name] = 0
+    A.LAUNCHES["arcface"] = 0
+    torch.cuda.synchronize()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        result = cli_main(list(argv))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"topk": T.LAUNCHES["topk"],
+                "topk_select": T.LAUNCHES["topk_select"],
+                "arcface": A.LAUNCHES["arcface"]}
+    lines = buf.getvalue().strip().splitlines()
+    last = json.loads(lines[-1]) if lines and lines[-1].startswith("{") \
+        else None
+    return result, last, wall, launches
+
+
+def kv_items(sink) -> dict:
+    return {k: v for k, (v, _) in sink.data.items()}
+
+
+def phase10(dev) -> dict:
+    """The command line (see the docstring)."""
+    from multimodalsimilar_tpu_torch.cli import similar as cli_similar
+    from multimodalsimilar_tpu_torch.models.fasttext import (
+        FastTextClassifier)
+
+    work = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+    rng = np.random.default_rng(SEED + 50)
+    walls, launches, out = {}, {}, {}
+    saved = (cli_similar._kv_sink, cli_similar._embed_fn_from_embedder)
+    try:
+        # 1. train nlp at configs/train_nlp_v2.yaml, one epoch
+        train_csv = os.path.join(work, "train.csv")
+        write_csv(train_csv, {
+            "spu_name": make_titles(N_TRAIN, rng),
+            "tag_new_id": [int(v) for v in zipf_with_last(N_TRAIN, AF_C,
+                                                          rng)]})
+        nlp_out = os.path.join(work, "nlp")
+        trainer, _, walls["train_nlp"], launches["train_nlp"] = run_cli(
+            ["train", "nlp", "--config", config_path("train_nlp_v2.yaml"),
+             "--data", train_csv, "--output", nlp_out, "--epochs", "1",
+             "--eval_every", "1000000", "--save_every", "1000000",
+             "--log_every", "8"])
+        steps = trainer.step
+        if trainer.model.head.weight.shape[0] != AF_C \
+                or steps != N_TRAIN // 128 \
+                or launches["train_nlp"]["arcface"] != steps:
+            raise AssertionError(f"train nlp: {steps} steps, "
+                                 f"{launches['train_nlp']} launches")
+        summary = trainer.timer.summary(128)
+        out.update(train_steps=steps, train_step_ms_p50=summary["p50_ms"],
+                   train_examples_per_s=summary["examples_per_sec"])
+        release(trainer)
+        vocab = os.path.join(nlp_out, "vocab.txt")
+        ckpt = os.path.join(nlp_out, "ckpt")
+
+        # 2. eval of that checkpoint
+        metrics, line, walls["eval"], launches["eval"] = run_cli(
+            ["eval", "--data", train_csv, "--tokenizer", vocab,
+             "--checkpoint", ckpt, "--bert_preset", "base", "--label_col",
+             "tag_new_id", "--num_labels", str(AF_C)])
+        if line != metrics or set(line) != {"acc", "loss"} or not all(
+                math.isfinite(v) for v in line.values()):
+            raise AssertionError(f"eval: {line}")
+        out["eval"] = line
+
+        # 3. similar nlp at configs/similar_nlp.yaml over 50,000 titles
+        titles = make_titles(N_CLI_TITLES, rng)
+        keys = [f"spu{i:06d}" for i in range(N_CLI_TITLES)]
+        sim_csv = os.path.join(work, "titles.csv")
+        write_csv(sim_csv, {"spu_sn": keys, "spu_name": titles})
+        sink, recorded = InMemoryKVSink(), {}
+
+        def recording(embedder):
+            embed = saved[1](embedder)
+
+            def call(texts):
+                recorded["emb"] = embed(texts)
+                return recorded["emb"]
+            return call
+
+        cli_similar._kv_sink = lambda args: sink
+        cli_similar._embed_fn_from_embedder = recording
+        argv = ["similar", "nlp", "--config",
+                config_path("similar_nlp.yaml"), "--data", sim_csv,
+                "--tokenizer", vocab, "--checkpoint", ckpt]
+        _, line, walls["similar_nlp"], launches["similar_nlp"] = run_cli(
+            argv)
+        cli_similar._kv_sink, cli_similar._embed_fn_from_embedder = saved
+        direct = InMemoryKVSink()
+        n = nlp_similar_job({"spu_name": titles, "spu_sn": keys},
+                            lambda texts: recorded["emb"], direct, k=13,
+                            score_th=0.9, ttl_seconds=604800, device=dev)
+        if line != {"written": n} or not n \
+                or kv_items(sink) != kv_items(direct) \
+                or launches["similar_nlp"]["topk"] < 1:
+            raise AssertionError(f"similar nlp: {line}, direct {n}, "
+                                 f"{launches['similar_nlp']}")
+        out["similar_nlp_written"] = n
+
+        # 4. the same command as a subprocess, on the card by default
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "multimodalsimilar_tpu_torch.cli",
+             *argv], cwd=ROOT, capture_output=True, text=True, timeout=600)
+        walls["similar_nlp_subprocess"] = time.perf_counter() - t0
+        last = proc.stdout.strip().splitlines()[-1:] or [""]
+        if proc.returncode != 0 or json.loads(last[0] or "{}") != line:
+            raise AssertionError(f"python -m ...cli similar nlp: rc "
+                                 f"{proc.returncode}, {last}, "
+                                 f"{proc.stderr[-2000:]}")
+
+        # 5. similar multimodal --embedding_col over 4,096 fused rows
+        ints = rng.integers(-64, 65, size=(N_MM, MM_DIM))
+        lut = {k: repr(k / 8) for k in range(-64, 65)}
+        mm_csv = os.path.join(work, "fused.csv")
+        mm_keys = [f"mm{i:05d}" for i in range(N_MM)]
+        write_csv(mm_csv, {"spu_sn": mm_keys, "multimodal_emb": [
+            "[" + ",".join(lut[k] for k in row) + "]"
+            for row in ints.tolist()]})
+        sink = InMemoryKVSink()
+        cli_similar._kv_sink = lambda args: sink
+        _, line, walls["similar_multimodal"], \
+            launches["similar_multimodal"] = run_cli(
+                ["similar", "multimodal", "--data", mm_csv])
+        cli_similar._kv_sink = saved[0]
+        direct = InMemoryKVSink()
+        n = multimodal_similar_job({"spu_sn": mm_keys},
+                                   (ints / 8).astype(np.float32), direct,
+                                   k=13, device=dev)
+        if line != {"written": n} or kv_items(sink) != kv_items(direct) \
+                or launches["similar_multimodal"]["topk"] < 1:
+            raise AssertionError(f"similar multimodal: {line}, direct {n}, "
+                                 f"{launches['similar_multimodal']}")
+
+        # 6. train fasttext, then similar daodian (v2 recent days)
+        words = title_words()
+        ft_labels = rng.integers(0, FT_LABELS, N_CLI_FT)
+        ft_csv = os.path.join(work, "ft.csv")
+        write_csv(ft_csv, {"text": daodian_titles(rng, ft_labels, words),
+                           "label": [int(v) for v in ft_labels]})
+        ft_out = os.path.join(work, "ft")
+        model, _, walls["train_fasttext"], launches["train_fasttext"] = \
+            run_cli(["train", "fasttext", "--config",
+                     config_path("train_fasttext.yaml"), "--data", ft_csv,
+                     "--output", ft_out])
+        if not np.isfinite(model.train_losses).all():
+            raise AssertionError("train fasttext: non-finite losses")
+        table = daodian_table(rng, words, n_areas=2)
+        dd_csv = os.path.join(work, "areas.csv")
+        write_csv(dd_csv, table)
+        sink = InMemoryKVSink()
+        cli_similar._kv_sink = lambda args: sink
+        ft_path = os.path.join(ft_out, "fasttext.pkl")
+        _, line, walls["similar_daodian"], launches["similar_daodian"] = \
+            run_cli(["similar", "daodian", "--config",
+                     config_path("similar_daodian_v2_recent_days.yaml"),
+                     "--data", dd_csv, "--fasttext_model", ft_path,
+                     "--text_only", "--dt", DD_DAYS[-1]])
+        cli_similar._kv_sink = saved[0]
+        ft = FastTextClassifier.load(ft_path, device=dev)
+        direct = InMemoryKVSink()
+        merged = daodian_similar_job(
+            table, ft.get_sentence_vector, lambda area: {}, direct,
+            ttl_seconds=129_600, date_key=DD_DAYS[-1].replace("-", ""),
+            dt_col="dt", target_dt=DD_DAYS[-1], recent_days=RECENT_DAYS,
+            device=dev)
+        if line != {"skus": len(merged)} or not kv_items(sink) \
+                or kv_items(sink) != kv_items(direct) \
+                or launches["similar_daodian"]["topk_select"] < 1:
+            raise AssertionError(f"similar daodian: {line}, direct "
+                                 f"{len(merged)}, "
+                                 f"{launches['similar_daodian']}")
+        out["daodian_keys_written"] = len(sink.data)
+    finally:
+        cli_similar._kv_sink, cli_similar._embed_fn_from_embedder = saved
+        shutil.rmtree(work, ignore_errors=True)
+    return {"wall_s": walls, "launches": launches, **out}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this script runs on "
@@ -2526,6 +2761,9 @@ def main() -> None:
     print(json.dumps({"phase8": p8}), flush=True)
     p9 = phase9(dev)
     print(json.dumps({"phase9": p9}), flush=True)
+    p10 = phase10(dev)
+    print(json.dumps({"phase10": p10}), flush=True)
+    cli_launches = p10["launches"]
     m = p1["main"]
     case = {c["case"]: c for c in p1["cases"]}
     sv = case["serving_ip_k13"]
@@ -2607,6 +2845,12 @@ def main() -> None:
         "library_ms": sm["library_ms"], "library_call": SELECT_LIBRARY,
         "shape": {key: sm[key] for key in ("q", "n", "d", "k", "metric")},
         "other_shapes": extra}
+    topk["launches_cli"] = (cli_launches["similar_nlp"]["topk"]
+                            + cli_launches["similar_multimodal"]["topk"])
+    arcface["launches_cli"] = (cli_launches["train_nlp"]["arcface"]
+                               + cli_launches["eval"]["arcface"])
+    topk_select["launches_cli"] = \
+        cli_launches["similar_daodian"]["topk_select"]
     topk["launches_daodian_v1_cv"] = p8["v1_job"]["topk_launches"]
     topk["launches_fasttext_serve"] = p8["fasttext_serve"]["topk_launches"]
     print(json.dumps({"kernels": [topk, arcface, topk_select]}), flush=True)

@@ -1,18 +1,45 @@
-"""Shared command helpers (counterpart of the subset of
-multimodalsimilar_tpu/cli/common.py that the serving and embedding export
-commands use): the tokenizer, the BERT presets, checkpoint restore, the
-fastText model (``--fasttext_model``, in the port's own format), the
-packed embedding cache (``--emb_cache``) and the embedding-table sink.
+"""Shared command helpers (counterpart of
+multimodalsimilar_tpu/cli/common.py): ``--config`` preloading, the
+tokenizer, the BERT presets, checkpoint restore, the fastText model
+(``--fasttext_model``, in the port's own format), the packed embedding
+cache (``--emb_cache``), the KV and table sinks and the search-flag
+check.
 
-Options whose code is not ported raise ``NotImplementedError`` instead of
-being ignored: HF tokenizers and ``hive://`` sinks.
+``_enable_compile_cache`` has no counterpart: it turns on XLA's
+persistent compilation cache, and the port compiles nothing per job
+(its kernels are built once into ``multimodalsimilar_tpu_torch/build``,
+``ops/_build.py``). ``_mesh`` and ``_ckpt_has_pp`` belong to the
+multi-device layouts (ROADMAP A17).
 """
 
 from __future__ import annotations
 
 import os
+import sys
 
 from multimodalsimilar_tpu_torch.data.datasets import column
+
+
+def _apply_yaml_config(args, argv):
+    """--config file.yaml preloads flag values; explicit flags still win.
+
+    Applied to the parsed namespace after ``_inject_yaml_argv`` put every
+    value it can express into argv, so what is left to apply is a
+    ``key: false`` for a store_true flag. Unknown keys are an error, not
+    a silent no-op; ``key: null`` never applies (it would bypass
+    argparse's type conversion and clobber the default with None)."""
+    if getattr(args, "config", None):
+        from multimodalsimilar_tpu_torch.cli.config import load_config
+        cfg = load_config(args.config)
+        unknown = [k for k in cfg if not hasattr(args, k)]
+        if unknown:
+            raise SystemExit(f"--config {args.config}: unknown flags "
+                             f"{unknown}")
+        for k, v in cfg.items():
+            explicit = any(t == f"--{k}" or t.startswith(f"--{k}=")
+                           for t in argv)
+            if not explicit and v is not None:
+                setattr(args, k, v)
 
 
 def _require_tokenizer_with_checkpoint(args):
@@ -31,19 +58,18 @@ def _require_tokenizer_with_checkpoint(args):
 
 
 def _tokenizer(args, df=None, save_dir=None, text_col=None):
-    """--tokenizer: a vocab.txt from a previous train run. Without it, a
-    char vocab is derived from ``text_col`` (default ``args.text_col``) of
-    the data (``df``, a DataFrame or a ``{column: list}`` mapping, else
-    ``args.data``) and, with ``save_dir``, written to
-    ``{save_dir}/vocab.txt``, so the serve and embed jobs reuse the
-    training token ids."""
+    """--tokenizer: a vocab.txt from a previous train run, or an HF
+    tokenizer directory or name (``TextTokenizer.from_hf``, which needs
+    transformers). Without it, a char vocab is derived from ``text_col``
+    (default ``args.text_col``) of the data (``df``, a DataFrame or a
+    ``{column: list}`` mapping, else ``args.data``) and, with
+    ``save_dir``, written to ``{save_dir}/vocab.txt``, so the serve and
+    embed jobs reuse the training token ids."""
     from multimodalsimilar_tpu_torch.data.tokenizer import TextTokenizer
     if args.tokenizer:
         if args.tokenizer.endswith("vocab.txt"):
             return TextTokenizer.from_vocab_file(args.tokenizer)
-        raise NotImplementedError(
-            f"--tokenizer {args.tokenizer}: HF tokenizers are not ported "
-            "(the port does not depend on transformers); pass a vocab.txt")
+        return TextTokenizer.from_hf(args.tokenizer)
     if df is None:
         from multimodalsimilar_tpu_torch.data.datasets import read_table
         df = read_table(args.data)
@@ -107,12 +133,45 @@ def _emb_cache(args):
     return EmbeddingCache.open(d, args.fc_dim)
 
 
-def _make_table_sink(table: str):
-    """Embedding-table sink by address: a local parquet file standing in
-    for the warehouse table. ``hive://`` addresses raise."""
+def _seq_buckets(args):
+    from multimodalsimilar_tpu_torch.utils.buckets import parse_buckets
+    return parse_buckets(getattr(args, "seq_buckets", None))
+
+
+def _make_table_sink(table: str, key_col=None):
+    """Embedding-table sink by address: ``hive://db.table`` writes through
+    the Spark adapter with the reference's tmp-table + INSERT OVERWRITE
+    discipline (goodssku_emb_bert_di.py:148-154); anything else is a local
+    parquet stand-in with the same contract."""
     if table.startswith("hive://"):
-        raise NotImplementedError(
-            f"{table}: the Spark table sink is not ported (ROADMAP A16); "
-            "write to a local parquet path")
+        from multimodalsimilar_tpu_torch.pipelines.spark import (
+            SparkTableSink, spark_session)
+        return SparkTableSink(spark_session("multimodalsimilar_tpu_torch"),
+                              table[len("hive://"):], key_col=key_col)
     from multimodalsimilar_tpu_torch.pipelines.sinks import ParquetTableSink
     return ParquetTableSink(table)
+
+
+def _knn_backend_mesh(args) -> None:
+    """The similar jobs' search flags. The JAX package picks a search
+    backend and a device mesh here; the port has one search, exact on
+    the device (``csrc/topk.cu``, ``csrc/topk_select.cu`` above k = 128),
+    so ``--pallas_topk`` and ``--approx_recall`` raise instead of being
+    ignored."""
+    for flag in ("pallas_topk", "approx_recall"):
+        if getattr(args, flag, None) not in (None, False):
+            raise NotImplementedError(
+                f"--{flag}: the port has no search-backend option; the "
+                "device runs the exact search (csrc/topk.cu on a card)")
+
+
+def _kv_sink(args):
+    """Redis when ``--redis_host`` is given, else an in-memory sink (a dry
+    run, announced on stderr)."""
+    from multimodalsimilar_tpu_torch.pipelines.sinks import (
+        InMemoryKVSink, RedisKVSink)
+    if args.redis_host:
+        return RedisKVSink(args.redis_host, args.redis_port, args.redis_db,
+                           args.redis_password)
+    print("no --redis_host: using in-memory sink (dry run)", file=sys.stderr)
+    return InMemoryKVSink()

@@ -1,6 +1,8 @@
 """``embed {incremental,bulk}`` — the goodssku_emb* export jobs
 (counterpart of multimodalsimilar_tpu/cli/embed.py): ``--kind
-text|cv|fasttext`` and ``--kinds bert,fasttext,cv``.
+text|cv|fasttext`` and ``--kinds bert,fasttext,cv``. The export jobs
+(``pipelines/embed.py``) work on a pandas DataFrame and write parquet or
+Hive tables, so these commands need pandas.
 """
 
 from __future__ import annotations
@@ -28,16 +30,22 @@ def _fasttext_embed_fn(args, device="cuda"):
     return embed_fn
 
 
+def _data_frame(args):
+    """``--data`` as the pandas DataFrame the export jobs take."""
+    import pandas as pd
+    from multimodalsimilar_tpu_torch.data.datasets import read_table
+    return pd.DataFrame(read_table(args.data))
+
+
 def cmd_embed_incremental(args, device="cuda"):
     """goodssku_emb_*_di capability: skip-existing daily export of the
     text tower's embeddings into ``args.table``; ``--kind cv`` is the
     image job's full rebuild (multi-image mean, emb.txt caching)."""
-    from multimodalsimilar_tpu_torch.data.datasets import read_table
     from multimodalsimilar_tpu_torch.pipelines.embed import (
         incremental_export, rebuild_export)
     kind = getattr(args, "kind", "text")
-    df = read_table(args.data)
-    sink = _make_table_sink(args.table)
+    df = _data_frame(args)
+    sink = _make_table_sink(args.table, key_col=args.key_col)
     if kind == "cv":
         # goodssku_emb_cv_di.py is a FULL REBUILD despite the _di name: it
         # re-reads every cached emb.txt for today's catalog and overwrites
@@ -59,11 +67,10 @@ def cmd_embed_incremental(args, device="cuda"):
 def cmd_embed_bulk(args, device="cuda"):
     """goodssku_emb.py capability: one table with a column per tower
     (fastText + BERT + CV), outer-merged over the key."""
-    from multimodalsimilar_tpu_torch.data.datasets import read_table
     from multimodalsimilar_tpu_torch.pipelines.embed import bulk_export
     kinds = [k.strip() for k in args.kinds.split(",")]
-    df = read_table(args.data)
-    sink = _make_table_sink(args.table)
+    df = _data_frame(args)
+    sink = _make_table_sink(args.table, key_col=args.key_col)
     embedders = {}
     if "bert" in kinds:
         embedders["bert"] = _build_embed_fn(args, df=df, device=device)

@@ -41,10 +41,13 @@ import time
 
 import numpy as np
 
-from multimodalsimilar_tpu_torch.cli.common import _emb_cache, _load_fasttext
+from multimodalsimilar_tpu_torch.cli.common import (_emb_cache,
+                                                    _knn_backend_mesh,
+                                                    _load_fasttext)
 from multimodalsimilar_tpu_torch.cli.embedders import (
     _build_text_embedder, _cv_embedder, _embed_fn_from_embedder,
     _fused_embeddings, _image_paths, _load_cv_tower, _multimodal_embedder)
+from multimodalsimilar_tpu_torch.cli.similar import _gen_titles, _sku_to_spusn
 from multimodalsimilar_tpu_torch.data.datasets import column
 from multimodalsimilar_tpu_torch.utils.devices import resolve_device
 
@@ -74,11 +77,7 @@ def _serve_warm_payload(args):
 
 
 def _check_ported(args) -> None:
-    for flag in ("pallas_topk", "approx_recall"):
-        if getattr(args, flag, None) not in (None, False):
-            raise NotImplementedError(
-                f"--{flag}: the port has no search-backend option; the "
-                "device picks the exact search (csrc/topk.cu on a card)")
+    _knn_backend_mesh(args)
     if int(getattr(args, "model_parallel", 1) or 1) != 1:
         raise NotImplementedError("--model_parallel: the port serves on "
                                   "one card (ROADMAP A17)")
@@ -312,17 +311,6 @@ def _serve_fasttext_corpus(args, table, device="cuda"):
                                                        embed_queries)
 
 
-def _gen_titles(table) -> list:
-    """``gen_title`` of every row of a DataFrame or ``{column: list}``
-    table (``DataFrame.apply(gen_title, axis=1)``)."""
-    from multimodalsimilar_tpu_torch.data.text import gen_title
-    from multimodalsimilar_tpu_torch.pipelines.similar import (n_rows,
-                                                               table_columns)
-    cols = table_columns(table)
-    return [gen_title({c: v[i] for c, v in cols.items()})
-            for i in range(n_rows(cols))]
-
-
 def _build_daodian_service(args, table=None, device="cuda"):
     """DaodianService for ``serve --tower daodian`` on ``device``: BOTH
     production arms hot (fastText sentence vectors + the CV tower's cached
@@ -330,7 +318,6 @@ def _build_daodian_service(args, table=None, device="cuda"):
     answer online (daodian_infer.py:361-392). ``table`` replaces reading
     ``args.data``. Without ``--cv_checkpoint`` it refuses unless
     ``--text_only`` says to serve the fastText arm alone."""
-    from multimodalsimilar_tpu_torch.cli.similar import _sku_to_spusn
     from multimodalsimilar_tpu_torch.pipelines.daodian_serving import (
         DaodianService)
     from multimodalsimilar_tpu_torch.pipelines.embedders import ImageEmbedder
@@ -541,7 +528,7 @@ def _load_emb_table(args):
             keys = None   # string-serialized — the pandas path parses it
     if keys is None:
         from multimodalsimilar_tpu_torch.data.datasets import read_table
-        t = read_table(path)
+        t = pd.DataFrame(read_table(path))
         if args.emb_col not in t.columns:
             raise SystemExit(f"--emb_col {args.emb_col!r} not in "
                              f"{path} (has: {list(t.columns)})")

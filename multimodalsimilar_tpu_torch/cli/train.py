@@ -1,16 +1,18 @@
-"""``train {nlp,multilabel,cv,pair,multimodal}`` (counterpart of
-multimodalsimilar_tpu/cli/train.py), taking a device where the JAX
+"""``train {nlp,multilabel,cv,pair,multimodal,fasttext}`` (counterpart
+of multimodalsimilar_tpu/cli/train.py), taking a device where the JAX
 package takes a mesh.
 
-The commands are functions of an ``argparse.Namespace`` with the JAX
-parser's ``train`` flags (the port's parser comes with ROADMAP A15):
+The commands are functions of the ``argparse.Namespace`` that the port's
+parser (``cli/parser.py``) builds, with the JAX parser's flags:
 ``cmd_train_*(args, table=None, eval_table=None, device="cuda")`` reads
-``args.data`` (and ``args.eval_data``) with pandas, or takes the tables as
-``{column: list}`` mappings, trains, writes ``{output}/ckpt``,
+``args.data`` (and ``args.eval_data``) with ``read_table``, or takes the
+tables as ``{column: list}`` mappings, trains, writes ``{output}/ckpt``,
 ``{output}/metrics.jsonl`` and, for the text recipes without
-``--tokenizer``, ``{output}/vocab.txt``, and returns the Trainer. Flags
-that select the multi-GPU layouts raise (ROADMAP A17) instead of being
-ignored, and each command refuses the flags the JAX command refuses.
+``--tokenizer``, ``{output}/vocab.txt``, and returns the Trainer
+(``train fasttext`` writes ``{output}/fasttext.pkl`` and returns the
+model). Flags that select the multi-GPU layouts raise (ROADMAP A17)
+instead of being ignored, and each command refuses the flags the JAX
+command refuses.
 """
 
 from __future__ import annotations
@@ -131,7 +133,7 @@ def _sampler_fn(args, table, label_col):
 
 def _tables(args, table, eval_table, require=()):
     """(train table, eval table or None): the given tables, else
-    ``args.data`` and ``args.eval_data`` read with pandas."""
+    ``args.data`` and ``args.eval_data`` through ``read_table``."""
     from multimodalsimilar_tpu_torch.data.datasets import read_table
     if table is None:
         table = read_table(args.data, require=require)
@@ -380,3 +382,35 @@ def cmd_train_multimodal(args, table=None, eval_table=None,
     return _fit(trainer, args, src,
                 source(eval_table, False) if eval_table is not None
                 else None, _sampler_fn(args, table, args.label_col))
+
+
+def cmd_train_fasttext(args, table=None, eval_table=None, device="cuda"):
+    """``train fasttext``: supervised fastText (fasttext_train.py,
+    configs/train_fasttext.yaml) through ``models/fasttext.py:
+    train_supervised`` on ``device``; the model goes to
+    ``{output}/fasttext.pkl`` (``FastTextClassifier.save``, the file
+    ``--fasttext_model`` loads). With ``--eval_data`` it prints
+    ``{"n", "precision", "recall"}``.
+
+    ``--chain_steps`` keeps the JAX flag; its JAX default picks by XLA
+    backend (8 SGD steps per compiled program on a TPU, 1 on the CPU).
+    The port takes one step per iteration whatever it says (a CUDA step
+    has no per-program dispatch floor to amortize), so its default is
+    1."""
+    import json
+    from multimodalsimilar_tpu_torch.models.fasttext import train_supervised
+    table, eval_table = _tables(args, table, eval_table,
+                                [args.text_col, args.label_col])
+    model = train_supervised(
+        [str(t) for t in column(table, args.text_col)],
+        column(table, args.label_col), dim=args.dim, lr=args.lr,
+        epochs=args.epochs, word_ngrams=2,
+        chain_steps=args.chain_steps or 1, device=device)
+    os.makedirs(args.output, exist_ok=True)
+    model.save(os.path.join(args.output, "fasttext.pkl"))
+    if eval_table is not None:
+        n, p, r = model.test([str(t) for t in column(eval_table,
+                                                     args.text_col)],
+                             column(eval_table, args.label_col))
+        print(json.dumps({"n": n, "precision": p, "recall": r}))
+    return model

@@ -1,10 +1,11 @@
 """Job input tables and batch sources (counterpart of
 multimodalsimilar_tpu/data/datasets.py).
 
-``read_table`` reads CSV and parquet files; pandas is imported inside it,
-so the port's device path does not need pandas. Every source reads a
-pandas DataFrame or a plain ``{column: sequence}`` mapping (the card
-machine has no pandas):
+``read_table`` returns a table as a ``{column: list}`` mapping. It reads
+CSV with the stdlib ``csv`` module (the card machine has no pandas),
+with ``pd.read_csv``'s values; parquet files, other URLs and ``hive://``
+pulls go through pandas (and pyspark), imported at call time. Every
+source reads a pandas DataFrame or a ``{column: sequence}`` mapping:
 
 * ``TextClassificationSource`` <- the load_dataset + tokenize pipelines
   (nlp_classifier_train.py:70-87, .._v2.py:85-105);
@@ -22,7 +23,10 @@ machine has no pandas):
 
 from __future__ import annotations
 
+import csv
+import math
 import os
+import re
 import sys
 from typing import Callable, Dict, Iterator, List, Optional, Sequence, Union
 
@@ -42,26 +46,159 @@ class InputError(ValueError):
     """Bad job input (missing table / missing columns)."""
 
 
-def read_table(path: str, require: Sequence[str] = ()):
-    """CSV or parquet by extension (the reference's two input formats).
-    Other URL-style paths (s3://, https://) pass straight to pandas.
-    ``require`` lists columns the caller needs; missing ones produce one
-    clear error naming the file and its actual columns."""
-    import pandas as pd
+# pd.read_csv's default na_values
+_NA_STRINGS = frozenset({
+    "", "#N/A", "#N/A N/A", "#NA", "-1.#IND", "-1.#QNAN", "-NaN", "-nan",
+    "1.#IND", "1.#QNAN", "<NA>", "N/A", "NA", "NULL", "NaN", "None", "n/a",
+    "nan", "null"})
+_INT_FIELD = re.compile(r"^\s*[+-]?[0-9]+\s*$")
+_FLOAT_FIELD = re.compile(
+    r"^\s*[+-]?(?:(?:[0-9]+\.?[0-9]*|\.[0-9]+)(?:[eE][+-]?[0-9]+)?"
+    r"|inf|infinity)\s*$", re.IGNORECASE)
+_BOOLS = {"True": True, "TRUE": True, "true": True,
+          "False": False, "FALSE": False, "false": False}
+_POW10 = [float(f"1e{i}") for i in range(309)]
+
+
+def _pandas_float(text: str) -> float:
+    """A decimal field as pandas' default float parser reads it (its C
+    ``precise_xstrtod``): at most 17 significant digits accumulated in a
+    double (later integer digits only scale, later decimals are dropped),
+    then one multiply or divide by a power of ten. It differs from the
+    correctly rounded ``float()`` in the last bit for some 17-digit
+    values."""
+    text = text.strip()
+    if text.lstrip("+-").lower() in ("inf", "infinity"):
+        return float(text)
+    m = re.match(r"([+-]?)([0-9]*)(?:\.([0-9]*))?(?:[eE]([+-]?[0-9]+))?$",
+                 text)
+    sign, whole, frac, exp = m.groups()
+    number, digits, exponent = 0.0, 0, 0
+    for ch in whole:
+        if digits < 17:
+            number = number * 10.0 + (ord(ch) - 48)
+            digits += 1
+        else:
+            exponent += 1
+    for ch in (frac or "")[:max(17 - digits, 0)]:
+        number = number * 10.0 + (ord(ch) - 48)
+        digits += 1
+        exponent -= 1
+    if sign == "-":
+        number = -number
+    exponent += int(exp[:17]) if exp else 0
+    if exponent > 308:
+        return math.copysign(math.inf, number)
+    if exponent >= 0:
+        return number * _POW10[exponent]
+    if exponent < -616:
+        return number * 0.0
+    if exponent < -308:
+        return number / _POW10[-308 - exponent] / _POW10[308]
+    return number / _POW10[-exponent]
+
+
+def _csv_column(fields: List[Optional[str]]) -> list:
+    """One CSV column's values as ``pd.read_csv`` types them (``None`` is
+    a missing field): all integers -> int (floats when a field is
+    missing), all numbers -> float, all True/False forms -> bool, else
+    the strings as they are; missing fields become nan."""
+    nan = math.nan
+    present = [f for f in fields if f is not None]
+    if not present:
+        return [nan] * len(fields)
+    complete = len(present) == len(fields)
+    if all(_INT_FIELD.match(f) for f in present):
+        ints = [int(f) for f in present]
+        # pandas reads int64 and uint64 columns, and wider integers as
+        # Python ints, but a column mixing negatives with the uint64-only
+        # range as strings
+        if not (any(i < 0 for i in ints)
+                and any(2**63 <= i < 2**64 for i in ints)):
+            if complete:
+                return ints
+            return [nan if f is None else float(int(f)) for f in fields]
+    elif all(_FLOAT_FIELD.match(f) for f in present):
+        return [nan if f is None else _pandas_float(f) for f in fields]
+    elif all(f in _BOOLS for f in present):
+        return [nan if f is None else _BOOLS[f] for f in fields]
+    return [nan if f is None else f for f in fields]
+
+
+def _header(names: List[str]) -> List[str]:
+    """pandas' column names: an empty one is ``Unnamed: {i}``, a repeated
+    one gets ``.1``, ``.2``, ... ."""
+    out: List[str] = []
+    for i, name in enumerate(names):
+        name = name or f"Unnamed: {i}"
+        base, n = name, 0
+        while name in out:
+            n += 1
+            name = f"{base}.{n}"
+        out.append(name)
+    return out
+
+
+def _read_csv(path: str) -> Dict[str, list]:
+    """A CSV file as ``{column: list}``, with the values ``pd.read_csv``
+    gives at its defaults: blank lines skipped, short rows padded with
+    missing fields, pandas' NA strings missing, each column typed by
+    ``_csv_column``."""
+    with open(path, newline="", encoding="utf-8-sig") as f:
+        rows = [r for r in csv.reader(f)
+                if len(r) > 1 or (r and r[0].strip())]
+    if not rows:
+        raise InputError(f"{path}: no columns to parse (empty file)")
+    names = _header(rows[0])
+    width = len(names)
+    fields: List[List[Optional[str]]] = [[] for _ in names]
+    for line, row in enumerate(rows[1:], 2):
+        if len(row) > width:
+            raise InputError(f"{path}: row {line} has {len(row)} fields, "
+                             f"the header {width}")
+        for j in range(width):
+            v = row[j] if j < len(row) else None
+            fields[j].append(None if v is None or v in _NA_STRINGS else v)
+    return {name: _csv_column(col) for name, col in zip(names, fields)}
+
+
+def _frame_columns(df) -> Dict[str, list]:
+    return {c: df[c].tolist() for c in df.columns}
+
+
+def read_table(path: str, require: Sequence[str] = ()) -> Dict[str, list]:
+    """A job's input table as ``{column: list}``, by address: a CSV file
+    (the stdlib reader, ``_read_csv``), a parquet file or another URL
+    (pandas), or a warehouse pull, ``hive://db.table`` for a whole table
+    and ``hivesql://<SQL>`` for a query, through the Spark adapter
+    (``pipelines/spark.py``). ``require`` lists columns the caller needs;
+    missing ones produce one clear error naming the file and its actual
+    columns."""
     if path.startswith(("hive://", "hivesql://")):
-        raise InputError(f"{path}: warehouse pulls are not ported yet; "
-                         f"extract the table to CSV or parquet")
-    if "://" not in path and not os.path.exists(path):
-        raise InputError(f"input table not found: {path}")
-    df = (pd.read_parquet(path) if path.endswith(".parquet")
-          else pd.read_csv(path))
-    missing = [c for c in require if c not in df.columns]
+        from multimodalsimilar_tpu_torch.pipelines.spark import (
+            SparkTableSource, spark_session)
+        query = (path[len("hivesql://"):] if path.startswith("hivesql://")
+                 else f"select * from {path[len('hive://'):]}")
+        table = _frame_columns(SparkTableSource(spark_session(
+            "multimodalsimilar_tpu_torch")).sql(query))
+    elif "://" in path or path.endswith(".parquet"):
+        if "://" not in path and not os.path.exists(path):
+            raise InputError(f"input table not found: {path}")
+        import pandas as pd
+        table = _frame_columns(pd.read_parquet(path)
+                               if path.endswith(".parquet")
+                               else pd.read_csv(path))
+    else:
+        if not os.path.exists(path):
+            raise InputError(f"input table not found: {path}")
+        table = _read_csv(path)
+    missing = [c for c in require if c not in table]
     if missing:
         raise InputError(
             f"{path}: missing column(s) {missing}; found "
-            f"{list(df.columns)} — point the matching --*_col flags at "
+            f"{list(table)} — point the matching --*_col flags at "
             f"your table's column names")
-    return df
+    return table
 
 
 def column(table, name: str) -> list:

@@ -1,10 +1,13 @@
 """Tokenization to fixed-shape [B, S] int arrays.
 
-Copied from ``multimodalsimilar_tpu/data/tokenizer.py`` without
-``from_hf`` (transformers is not a dependency of the port). The char
+Copied from ``multimodalsimilar_tpu/data/tokenizer.py``. The char
 tokenizer reproduces what BERT's Chinese WordPiece does to CJK titles:
-every character is a token. ``backend`` says which encoder runs:
-``"native"`` (the C++ batch packer, native/fastpack.cpp) or ``"python"``.
+every character is a token. ``from_hf`` wraps a Hugging Face tokenizer
+from local files (unlike the JAX package's, it does not download a hub
+name); transformers is imported inside it, so the port does not depend
+on it. ``backend`` says
+which encoder runs: ``"native"`` (the C++ batch packer,
+native/fastpack.cpp), ``"python"`` or ``"hf"``.
 """
 
 from __future__ import annotations
@@ -42,6 +45,23 @@ class TextTokenizer:
         self.vocab_size = vocab_size
         self.pad_id = pad_id
         self.backend = backend
+
+    @classmethod
+    def from_hf(cls, name_or_path: str) -> "TextTokenizer":
+        """HF ``AutoTokenizer`` at ``name_or_path`` (a directory, or a
+        name already in the local HF cache: it never downloads), padded
+        and truncated to the static [B, max_length] shape."""
+        from transformers import AutoTokenizer
+        tok = AutoTokenizer.from_pretrained(name_or_path,
+                                            local_files_only=True)
+
+        def encode(texts: Sequence[str], max_length: int):
+            out = tok(list(texts), padding="max_length",
+                      max_length=max_length, truncation=True,
+                      return_tensors="np", return_token_type_ids=True)
+            return {k: np.asarray(v, np.int32) for k, v in out.items()}
+
+        return cls(encode, tok.vocab_size, tok.pad_token_id or 0, "hf")
 
     @classmethod
     def from_vocab(cls, tokens: Sequence[str],

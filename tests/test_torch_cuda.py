@@ -768,3 +768,45 @@ def test_cv_train_step_on_card_matches_cpu(dev):
             continue
         scale = max(float(g.abs().max()), 1e-4 * top)
         assert torch.allclose(gg[n], g, rtol=0, atol=1e-3 * scale), n
+
+
+def test_cli_similar_nlp_on_card_without_pandas_or_yaml(dev, tmp_path,
+                                                        monkeypatch):
+    """``main([... "similar", "nlp" ...])`` on its default device, the
+    card: the config read without PyYAML, the CSV without pandas (both
+    blocked, as on a machine that has neither), the top-k kernel
+    launched, and a key written for every row, as on the CPU."""
+    import csv
+    import sys
+
+    from multimodalsimilar_tpu_torch.cli import main
+    from multimodalsimilar_tpu_torch.cli import similar as cli_similar
+    from multimodalsimilar_tpu_torch.pipelines.sinks import InMemoryKVSink
+    for name in ("pandas", "yaml"):
+        monkeypatch.setitem(sys.modules, name, None)
+    words = ["苹果", "香蕉", "牛奶", "酸奶", "可乐", "雪碧"]
+    rows = [(f"s{i}", f"{words[i % 6]} {words[(i * 7) % 6]} {i % 13}")
+            for i in range(300)]
+    data = tmp_path / "titles.csv"
+    with open(data, "w", newline="", encoding="utf-8") as f:
+        csv.writer(f).writerows([("spu_sn", "spu_name"), *rows])
+    config = tmp_path / "job.yaml"
+    config.write_text("# a similar_nlp.yaml at test size\n"
+                      "text_col: spu_name\nkey_col: spu_sn\n"
+                      "bert_preset: tiny\nmax_length: 16\n"
+                      "batch_size: 64\nk: 13\nscore_th: -1.0\n",
+                      encoding="utf-8")
+    sinks = []
+    monkeypatch.setattr(cli_similar, "_kv_sink",
+                        lambda args: sinks.append(InMemoryKVSink())
+                        or sinks[-1])
+    argv = ["similar", "nlp", "--config", str(config), "--data", str(data)]
+    T.LAUNCHES["topk"] = 0
+    main(argv)
+    torch.cuda.synchronize()
+    assert T.LAUNCHES["topk"] >= 1
+    launched = T.LAUNCHES["topk"]
+    main(argv, device="cpu")
+    assert T.LAUNCHES["topk"] == launched           # the CPU: no kernel
+    got, want = (set(s.data) for s in sinks)
+    assert got == want and len(got) == 300

@@ -242,7 +242,9 @@ def test_embed_bulk_bert_column_and_unported_kinds(tmp_path, capsys):
               else cli_embed.cmd_embed_incremental)
         with pytest.raises(SystemExit, match="--fasttext_model"):
             fn(a, device="cpu")
+    # hive:// tables go through the Spark adapter, which needs pyspark
+    # (tests/test_torch_cli.py drives it against a stub)
     a = build_parser().parse_args(
         ["embed", "incremental", "--data", data, "--table", "hive://db.t"])
-    with pytest.raises(NotImplementedError, match="hive"):
+    with pytest.raises(ImportError, match="pyspark"):
         cli_embed.cmd_embed_incremental(a, device="cpu")

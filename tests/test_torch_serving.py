@@ -1015,7 +1015,8 @@ def test_serve_score_th_defaults_and_unported_flags(tmp_path):
 def test_build_text_embedder_refuses_unported_checkpoints(tmp_path):
     """A JAX pipeline-parallel checkpoint (its orbax metadata names the
     stacked ``pp_layers``) raises; so does a directory with no port
-    checkpoint, and an HF tokenizer name."""
+    checkpoint, and an HF tokenizer that is not on disk (``from_hf``
+    reads local files only, it never downloads)."""
     from multimodalsimilar_tpu_torch.cli.embedders import (
         _build_text_embedder)
     from multimodalsimilar_tpu_torch.data.datasets import InputError
@@ -1037,8 +1038,8 @@ def test_build_text_embedder_refuses_unported_checkpoints(tmp_path):
     with pytest.raises(SystemExit, match="tokenizer"):
         _build_text_embedder(_serve_args("x", "--checkpoint", "c"),
                              df=table, device="cpu")
-    args.tokenizer = "hfl/chinese-roberta-wwm-ext"
-    with pytest.raises(NotImplementedError, match="vocab.txt"):
+    args.tokenizer = str(tmp_path / "no_such_tokenizer")
+    with pytest.raises((OSError, ValueError)):   # not a directory or a name
         _build_text_embedder(args, df=table, device="cpu")
 
 

@@ -42,7 +42,8 @@ print(json.dumps([names, leaked]))
 """
 
 # the serving and export modules, which pull in the most of the package,
-# the image slice's, the daodian slice's and the training recipes'
+# the image slice's, the daodian slice's, the training recipes' and the
+# command line's
 SERVING = ["cli.common", "cli.embed", "cli.embedders", "cli.serve",
            "pipelines.embed", "pipelines.microbatch", "pipelines.serving",
            "data.images", "pipelines.embcache", "models.efficientnet",
@@ -51,7 +52,11 @@ SERVING = ["cli.common", "cli.embed", "cli.embedders", "cli.serve",
            "pipelines.daodian_serving", "cli.similar", "native",
            "ops.arcface_loss", "train.optim", "train.tasks",
            "train.trainer", "cli.train", "data.sampling", "data.datasets",
-           "models.classifiers", "utils.profiling"]
+           "models.classifiers", "utils.profiling",
+           # the command line's
+           "cli", "cli.__main__", "cli.parser", "cli.config", "cli.ckpt",
+           "cli.ops", "models.reference_import", "models.reference_export",
+           "pipelines.spark", "pipelines.download"]
 
 
 def _py_files():
@@ -94,7 +99,8 @@ def test_no_module_level_pandas_or_transformers():
                 names = ([a.name for a in node.names]
                          if isinstance(node, ast.Import) else [node.module])
                 assert not {n.split(".")[0] for n in names} & {
-                    "pandas", "transformers", "redis", "triton"}, path
+                    "pandas", "transformers", "redis", "triton", "yaml",
+                    "pyspark"}, path
 
 
 def test_entry_points_need_cuda_or_explicit_cpu(monkeypatch):
