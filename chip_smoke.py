@@ -105,8 +105,9 @@
    against the same keys; one all-zero query goes through the host path.
    With the top-k launch count set to 0 it then drives ``make_server``
    over HTTP with closed-loop ``urllib`` clients at concurrency 1, 16, 64
-   and 128 (every response must be 200) and the same levels in-process;
-   the count must equal the micro-batches run. It checks /update (64 new
+   and 128 (every response must be 200; at 128 clients a full batch
+   launches while the last one's read-back is pending) and the same
+   levels in-process; the count must equal the micro-batches run. It checks /update (64 new
    keys, each then found by its own title at score >= 0.999, and 64
    re-embedded ones), /healthz and /embed, and splits a request's time at
    buckets 1 and 64 with CUDA events.
@@ -124,12 +125,19 @@
    ``_build_serve_service(args, table=...)`` with ``--emb_cache`` (no key
    decodes an image) and warms it. Fused answers at buckets 1, 8 and 64
    must equal ``embed_device`` + the plain top-k; each of 64 corpus
-   images must find its own key first at score >= 0.999; in-process
+   images must find its own key first at score >= 0.999, and the same
+   64 embedded alone against their batch of 64 give the cosine behind
+   that score, in bf16 and under the full-precision policy (there >=
+   0.9999: what separates a query from its corpus row is bf16's
+   rounding); in-process
    closed-loop load at c = 1, 16, 64 must launch the top-k once per
    micro-batch; 64 images are added by ``update`` and found first by
    themselves; ``embed``; a CUDA-event split of a request at buckets 1
    and 64, and the tower's kernels per call under ``torch.profiler``
-   (launches, device ms, the heaviest kernels; phases 5 and 7 too).
+   (launches, device ms, the heaviest kernels; phases 5 and 7 too). Each
+   ``torch.profiler`` window of this script traces device activity only,
+   so a busy share is device time over the window's wall time without
+   the CPU tracer's overhead.
 8. Phase 7 serves ``serve --tower multimodal`` at
    ``configs/serve_multimodal.yaml`` (B4 at 380 px fused with the
    ``roberta_wwm_ext`` tower, max_length 128, 1,280-d, batch and
@@ -199,8 +207,9 @@
    ``configs/train_pair.yaml`` with the base tower (the width users train;
    the config leaves the CLI's tiny default), batch 128, max_length 64,
    with ``--profile`` (the trace's files are counted). Each reports
-   examples/s at the median step, step p50 and p95, peak memory and,
-   from a short ``torch.profiler`` window, the device's busy share.
+   examples/s at the median step, step p50 and p95 and peak memory; all
+   but ``--fused_loss`` and ``train pair`` also the device's busy share
+   from a short ``torch.profiler`` window.
 11. Phase 10 drives the command line in process, through
    ``multimodalsimilar_tpu_torch.cli.main(argv)`` on its default device
    (the card), with the repo's ``configs/*.yaml`` (read by
@@ -216,9 +225,10 @@
    50,000 titles with that checkpoint and vocab (top-k launched; its KV
    writes must equal ``nlp_similar_job`` called directly on the vectors
    the command embedded), and the same command once as a subprocess of
-   ``python -m multimodalsimilar_tpu_torch.cli`` (the same
-   ``{"written": N}``); ``similar multimodal`` over 4,096 1,280-d
-   ``[x,y,...]`` strings (its writes equal ``multimodal_similar_job`` on
+   ``python -m multimodalsimilar_tpu_torch.cli`` over the first 5,000
+   titles (``{"written": N}`` equal to the job's on the vectors the
+   in-process command embedded for them); ``similar multimodal`` over
+   4,096 1,280-d ``[x,y,...]`` strings (its writes equal ``multimodal_similar_job`` on
    the same array); ``train fasttext --config
    configs/train_fasttext.yaml`` on 20,000 titles, then ``similar
    daodian --config configs/similar_daodian_v2_recent_days.yaml
@@ -227,6 +237,37 @@
    ``daodian_similar_job`` called directly). The wall seconds and
    launches of each command go on one line; each kernel's entry of the
    kernels line gets ``launches_cli``.
+12. Phase 11 drives the ViT and ConvNeXt image towers and the int8 text
+   tower, random weights from the seed at the published widths. (a)
+   ``serve --tower cv --backbone vit_base --image_size 224`` at
+   ``configs/serve_cv.yaml`` otherwise (timm ``vit_base_patch16_224``:
+   hidden 768, 12 layers, 12 heads, MLP 3,072, 197 tokens; the neck's
+   BatchNorm statistics measured on 64 images; no BN to fold, which
+   ``_load_cv_tower`` must leave as it is) through phase 6's own code
+   with 4,096 corpus images: the same checks, with each of 64 corpus
+   images its own key first at >= 0.996 (its bf16 cosine to its corpus
+   row; under the full-precision policy that cosine must reach 0.9999).
+   (b) ``train cv`` through
+   ``cmd_train_cv`` with ``convnext_tiny`` (depths 3/3/9/3, dims 96-768)
+   at ``configs/train_cv_daodian.yaml`` (batch 24, 144 rows) and
+   ``vit_base`` at ``configs/train_cv_timm.yaml`` (batch 96, 288 rows,
+   AdamP, ``timm_cosine``), both at 224 px for two epochs: ArcFace
+   launches equal the steps, the kernel path's loss and gradients match
+   the plain head's on one batch (phase 4's tolerances), the checkpoint
+   restores and serves through ``_load_cv_tower`` unchanged, with step
+   p50/p95, examples/s, peak memory and a profiled step. (c) ``similar
+   nlp`` at ``configs/similar_nlp.yaml`` over 50,000 titles, bf16 and
+   ``--int8``, through ``cli.main``: both launch the top-k; the int8
+   embeddings' cosine to the f32 tower's (2,048 rows, TF32 off) must be
+   >= 1 - 1e-3, the JAX package's budget, and the cosine to bf16 and the
+   neighbour-list overlap are reported; ``torch._int_mm`` equals the exact
+   product (f64 on the card) at the tower's shapes, one row, and K = 3,072
+   with every product at 127^2, timed beside the bf16 product; ``serve
+   --tower bert --int8`` at ``configs/serve.yaml`` over phase 5's
+   100,000 titles (the corpus pass through the int8 tower), held as
+   phase 5's fused path, top-k launches equal to micro-batches,
+   the int8 and bf16 towers timed at buckets 1 and 64. The kernels line
+   gets the new paths' launch counts.
 
 Prints the card's name and power limit, one JSON line per phase, the
 ``{"kernels": [...]}`` line, and last ``{"ok": true, "device": ...}``.
@@ -239,6 +280,7 @@ from __future__ import annotations
 import argparse
 import base64
 import collections
+import copy
 import json
 import math
 import os
@@ -277,7 +319,8 @@ from multimodalsimilar_tpu_torch.ops import _build
 from multimodalsimilar_tpu_torch.ops import arcface as A
 from multimodalsimilar_tpu_torch.ops import topk as T
 from multimodalsimilar_tpu_torch.pipelines.embcache import EmbeddingCache
-from multimodalsimilar_tpu_torch.pipelines.embedders import TextEmbedder
+from multimodalsimilar_tpu_torch.pipelines.embedders import (ImageEmbedder,
+                                                          TextEmbedder)
 from multimodalsimilar_tpu_torch.pipelines.serving import (
     MultimodalQueryParser, _read_back_later, make_server)
 from multimodalsimilar_tpu_torch.pipelines.similar import (
@@ -905,18 +948,18 @@ def phase4(dev, arcface_ms: float) -> dict:
 
 def profile_steps(trainer, src, batch_size: int = 128, n: int = 6) -> dict:
     """Where a training step's device time goes: ``n`` (micro-)steps under
-    ``torch.profiler`` on batches copied beforehand (so the loader is out
-    of the window), kernel time by kind per step, and the device's busy
-    share of the window's wall time (the profiler's own overhead makes
-    the wall time longer than an unprofiled step)."""
+    ``torch.profiler`` (device activity only) on batches copied
+    beforehand (so the loader is out of the window), kernel time by kind
+    per step, and the device's busy share of the window's wall time (the
+    profiler's own overhead makes the wall time longer than an unprofiled
+    step)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     batches = [to_device(b, trainer.device) for b, _ in zip(
         src.batches(batch_size, seed=SEED + 9), range(n + 1))]
     trainer.train_step(batches[0])
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for b in batches[1:]:
             trainer.train_step(b)
@@ -951,7 +994,8 @@ def profile_steps(trainer, src, batch_size: int = 128, n: int = 6) -> dict:
             "top_kernels_ms_per_step": sorted(top, reverse=True)[:8]}
 
 
-def head_paths(model, src, dev, m: float) -> dict:
+def head_paths(model, src, dev, m: float, batch_size: int = 128,
+               embed=None) -> dict:
     """One batch with dropout off: the loss and every parameter gradient
     through the kernel path against the plain path. The loss is a CE over
     logits that agree within phase 3's tolerances, so it may differ by
@@ -963,17 +1007,21 @@ def head_paths(model, src, dev, m: float) -> dict:
     tensor whose gradient is nearly zero carries only rounding noise (the
     attention key biases, which softmax ignores, and the attention weights
     of saturated heads), so the scale of each comparison is at least 1e-4
-    of the model's largest gradient."""
+    of the model's largest gradient. ``embed(batch)`` gives the
+    embeddings (default: a text classifier's ``predict_emb`` of the
+    batch's tokens)."""
     model.eval()
-    batch = to_device(next(src.batches(128, shuffle=False)), dev)
-    inputs = {k: batch[k] for k in ("input_ids", "attention_mask",
-                                    "token_type_ids")}
+    batch = to_device(next(src.batches(batch_size, shuffle=False)), dev)
+    if embed is None:
+        def embed(b):
+            return model.predict_emb(**{k: b[k] for k in (
+                "input_ids", "attention_mask", "token_type_ids")})
     names, params = zip(*[(n, p) for n, p in model.named_parameters()
                           if p.requires_grad])
-    af = model.arcface
+    af = model.head.params_af
 
     def loss_and_grads(head):
-        emb = model.predict_emb(**inputs)
+        emb = embed(batch)
         logits = head(emb, model.head.weight, batch["labels"], m, af.s,
                       af.easy_margin)
         loss = torch.nn.functional.cross_entropy(logits,
@@ -1218,9 +1266,9 @@ def request_split(service, payloads, buckets=(1, 64), reps: int = 30,
 
 def profile_tower(service, payloads, buckets, n: int = 5) -> dict:
     """The tower's device work per call at each bucket: ``n`` calls under
-    ``torch.profiler`` on inputs uploaded beforehand, the kernels
-    launched per call, their device ms per call (the busy share of the
-    window beside it) and the heaviest kernels."""
+    ``torch.profiler`` (device activity only) on inputs uploaded
+    beforehand, the kernels launched per call, their device ms per call
+    (the busy share of the window beside it) and the heaviest kernels."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     embedder = service._embed_queries_device.__self__
@@ -1231,8 +1279,7 @@ def profile_tower(service, payloads, buckets, n: int = 5) -> dict:
         with torch.inference_mode():
             embedder.tower_fn(*inputs)
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             with torch.inference_mode():
                 for _ in range(n):
@@ -1349,6 +1396,24 @@ def seed_bn_statistics(model, seed: int, images, dev) -> None:
         model.cpu()
 
 
+def seed_neck_statistics(model, images, dev) -> None:
+    """The neck BatchNorm's running mean and (biased) variance measured on
+    ``images``, as training leaves them, for a ``CvImageClassifier``
+    with random weights (a fresh init's 0 and 1 keep the part every
+    image's features share)."""
+    model.to(dev)
+    bn, model.bn = model.bn, None
+    try:
+        with torch.no_grad():
+            fc = model.predict_emb(to_nchw(device_normalize(
+                torch.from_numpy(images).to(dev)))).float()
+            bn.running_mean.copy_(fc.mean(0))
+            bn.running_var.copy_(fc.var(0, unbiased=False))
+    finally:
+        model.bn = bn
+        model.cpu()
+
+
 def cv_args(work: str) -> argparse.Namespace:
     """configs/serve_cv.yaml written out, with port 0, the corpus as a
     table, and the checkpoint, the packed cache (``--emb_cache``) and an
@@ -1436,30 +1501,84 @@ def update_and_embed(service, payloads, keys, cats, ok, dim) -> dict:
             "embed_shape": list(emb.shape)}
 
 
-def phase6(dev) -> dict:
-    """``serve --tower cv`` at configs/serve_cv.yaml (see the docstring)."""
+WITNESS_COS = 0.9999      # alone vs in its batch, full precision
+
+
+def full_precision_copy(model):
+    """A copy of ``model`` whose every policy is the full-precision one."""
+    model = copy.deepcopy(model)
+    for m in model.modules():
+        if hasattr(m, "policy"):
+            m.policy = DTypePolicy.full_precision()
+    return model
+
+
+def precision_witness(embedder, images) -> dict:
+    """Each of ``images`` embedded alone (bucket 1) against its row of
+    their batch, as the serving policy computes them and as a
+    full-precision copy of the tower does (TF32 off): the least cosine of
+    each. In full precision the two must agree to ``WITNESS_COS``, so
+    what parts a query from its corpus row under the serving policy is
+    that policy's rounding, not the batch it ran in."""
+    f32 = ImageEmbedder(full_precision_copy(embedder.model),
+                        embedder.image_size, embedder.batch_size,
+                        device=embedder.device)
+    out = {"images": len(images)}
+    for name, emb in (("serving", embedder), ("full_precision", f32)):
+        batch = emb.embed_device(list(images), pad_to=len(images)).float()
+        alone = torch.cat([emb.embed_device([im], pad_to=1)
+                           for im in images]).float()
+        out[f"{name}_cos_min"] = float(torch.nn.functional.cosine_similarity(
+            alone, batch, dim=1).min())
+    if not out["full_precision_cos_min"] >= WITNESS_COS:
+        raise AssertionError(f"alone vs batch in full precision: {out}")
+    return out
+
+
+def phase6(dev, backbone=BACKBONE, size=CV_SIZE, n_images=N_CV_IMAGES,
+           seed=SEED, own_score=0.999) -> dict:
+    """``serve --tower cv`` at configs/serve_cv.yaml with ``backbone`` at
+    ``size`` px (see the docstring): an EfficientNet gets seeded backbone
+    BN statistics and is checked folded against unfolded; a ViT or
+    ConvNeXt, which has no backbone BN, gets its neck's statistics
+    measured. Each corpus image must find its own key first at
+    ``own_score``."""
     work = tempfile.mkdtemp(prefix="chip_smoke_cv_")
     try:
         args = cv_args(work)
-        model = CvImageClassifier(backbone_config(BACKBONE), CV_LABELS,
-                                  fc_dim=CV_DIM,
+        args.backbone, args.image_size = backbone, size
+        cfg = backbone_config(backbone, image_size=size)
+        model = CvImageClassifier(cfg, CV_LABELS, fc_dim=CV_DIM,
                                   generator=torch.Generator().manual_seed(
-                                      SEED))
-        rng = np.random.default_rng(SEED + 7)
-        probe = make_images(np.random.default_rng(SEED + 8), 64, CV_SIZE)
-        seed_bn_statistics(model, SEED + 7, probe[:8], dev)
+                                      seed))
+        rng = np.random.default_rng(seed + 7)
+        probe = make_images(np.random.default_rng(seed + 8), 64, size)
+        folds = isinstance(cfg, E.EfficientNetConfig)
+        if folds:
+            seed_bn_statistics(model, seed + 7, probe[:8], dev)
+        else:
+            seed_neck_statistics(model, probe, dev)
         CheckpointManager(args.checkpoint).save(0, {"model":
                                                     model.state_dict()})
-        fold = fold_check(model.state_dict(), probe, dev)
+        fold = fold_check(model.state_dict(), probe, dev) if folds else None
         del model
         torch.cuda.empty_cache()
 
         # 1. the corpus pass, through the tower the service will load
         embedder = _cv_embedder(args, device=dev)
+        tower = embedder.model
+        if type(tower.backbone).__name__ != type(cfg).__name__[:-6] \
+                or any(isinstance(m, torch.nn.BatchNorm2d)
+                       for m in tower.modules()) \
+                or (hasattr(cfg, "num_tokens")
+                    and tower.backbone.pos_embed.shape[1] != cfg.num_tokens):
+            raise AssertionError(f"_load_cv_tower: not the {backbone} "
+                                 f"tower at {size} px with no backbone BN")
+        del tower
         embedder.embed_batch(probe)                  # warm-up, not timed
         parts, embed_s, first = [], 0.0, None
-        for _ in range(N_CV_IMAGES // CV_CHUNK):
-            imgs = make_images(rng, CV_CHUNK, CV_SIZE)
+        for _ in range(n_images // CV_CHUNK):
+            imgs = make_images(rng, CV_CHUNK, size)
             if first is None:
                 first = imgs[:64].copy()
             torch.cuda.synchronize()
@@ -1467,17 +1586,18 @@ def phase6(dev) -> dict:
             parts.append(embedder.embed_batch(imgs))
             embed_s += time.perf_counter() - t0
         img_emb = np.concatenate(parts)
-        if img_emb.shape != (N_CV_IMAGES, CV_DIM) \
+        if img_emb.shape != (n_images, CV_DIM) \
                 or not np.isfinite(img_emb).all():
             raise AssertionError(f"corpus embeddings {img_emb.shape}")
+        witness = precision_witness(embedder, first)
         del embedder, parts
         torch.cuda.empty_cache()
 
         # 2. the corpus: those vectors and seeded unit vectors in the
         # packed cache, so no key decodes an image
-        keys = ([f"img{i:05d}" for i in range(N_CV_IMAGES)]
-                + [f"syn{i:06d}" for i in range(N_CV_CORPUS - N_CV_IMAGES)])
-        syn = rng.standard_normal((N_CV_CORPUS - N_CV_IMAGES, CV_DIM),
+        keys = ([f"img{i:05d}" for i in range(n_images)]
+                + [f"syn{i:06d}" for i in range(N_CV_CORPUS - n_images)])
+        syn = rng.standard_normal((N_CV_CORPUS - n_images, CV_DIM),
                                   dtype=np.float32)
         syn /= np.linalg.norm(syn, axis=1, keepdims=True)
         cache = EmbeddingCache.open(args.emb_cache, CV_DIM)
@@ -1495,39 +1615,42 @@ def phase6(dev) -> dict:
             _warm_serve_service(service, args)
             torch.cuda.synchronize()
             warm_s = time.perf_counter() - t0
-            print(json.dumps({"phase6_startup": {
-                "corpus": n, "corpus_images_per_s": N_CV_IMAGES / embed_s,
-                "build_s": build_s, "warm_s": warm_s, "fold": fold}}),
-                flush=True)
+            print(json.dumps({"serve_cv_startup": {
+                "backbone": backbone, "corpus": n,
+                "corpus_images_per_s": n_images / embed_s,
+                "build_s": build_s, "warm_s": warm_s, "fold": fold,
+                "precision_witness": witness}}), flush=True)
             # 4. checks
-            novel = make_images(np.random.default_rng(SEED + 9), 64,
-                                CV_SIZE)
+            novel = make_images(np.random.default_rng(seed + 9), 64, size)
             checked = serve_vs_plain(service, list(first[:32])
                                      + list(novel[:32]), dev)
             own = own_first(service, list(first), keys[:64],
-                            lambda s: s >= 0.999)
+                            lambda s: s >= own_score)
             load = load_and_launches(service, list(novel), CV_LEVELS)
-            new = make_images(np.random.default_rng(SEED + 10), 64, CV_SIZE)
+            new = make_images(np.random.default_rng(seed + 10), 64, size)
             updated = update_and_embed(
                 service, list(new), [f"new{i:03d}" for i in range(64)],
                 [int(c) for c in rng.integers(0, N_CATEGORIES, 64)],
-                lambda s: s >= 0.999, CV_DIM)
+                lambda s: s >= own_score, CV_DIM)
             split = request_split(service, list(novel), first="upload")
-            tower = profile_tower(service, list(novel), (1, 64))
+            prof = profile_tower(service, list(novel), (1, 64))
         finally:
             service.close()
         cache.close()
     finally:
         shutil.rmtree(work, ignore_errors=True)
-    return {"corpus": n, "corpus_images": N_CV_IMAGES,
-            "corpus_images_per_s": N_CV_IMAGES / embed_s,
+    return {"corpus": n, "corpus_images": n_images,
+            "corpus_images_per_s": n_images / embed_s,
             "corpus_embed_s": embed_s, "build_s": build_s, "warm_s": warm_s,
-            "fold": fold, "fused_vs_plain": checked, "own_first": own,
-            **load, "update": updated, "request_split": split,
-            "tower_profile": tower,
-            "config": "configs/serve_cv.yaml: efficientnet_b4 at 512 px, "
-                      "fc 512, 4181 labels, batch 64, k 13, score_th "
-                      "0.15, max_batch 64, max_wait 5 ms, BN folded",
+            "fold": fold, "precision_witness": witness,
+            "fused_vs_plain": checked, "own_first": own,
+            "own_score_limit": own_score, **load, "update": updated,
+            "request_split": split, "tower_profile": prof,
+            "config": f"configs/serve_cv.yaml with --backbone {backbone} "
+                      f"--image_size {size}: fc 512, 4181 labels, batch "
+                      f"64, k 13, score_th 0.15, max_batch 64, max_wait 5 "
+                      f"ms, " + ("BN folded" if folds else
+                                 "neck BN statistics measured"),
             "policy": "inference (bf16)"}
 
 
@@ -2341,7 +2464,7 @@ def phase9(dev) -> dict:
     """The training recipes (see the docstring)."""
     from multimodalsimilar_tpu_torch.cli import train as CT
     from multimodalsimilar_tpu_torch.data.datasets import (
-        ImageClassificationSource, MultimodalSource, PairTextSource)
+        ImageClassificationSource, MultimodalSource)
 
     work = tempfile.mkdtemp(prefix="chip_smoke_train_")
     rng = np.random.default_rng(SEED + 41)
@@ -2444,7 +2567,8 @@ def phase9(dev) -> dict:
                 args.text_col, [args.lv1_col, args.lv2_col, args.tag_col],
                 args.max_length, clean=False, seq_buckets=args.seq_buckets),
                 [args.lv1_col, args.lv2_col, args.tag_col])
-            r["profile"] = profile_steps(trainer, src, 256, n=4)
+            if not fused:    # the fused run: PERF.md §5 has its window
+                r["profile"] = profile_steps(trainer, src, 256, n=4)
             out[name] = r
             release(trainer)
         rel = abs(first[True] - first[False]) / abs(first[False])
@@ -2509,10 +2633,6 @@ def phase9(dev) -> dict:
         if not traces:
             raise AssertionError("--profile wrote no trace")
         r["profile_trace_files"] = len(traces)
-        r["profile"] = profile_steps(trainer, PairTextSource(
-            pair_table, TextTokenizer.from_vocab_file(
-                os.path.join(args.output, "vocab.txt")), 64, seed=SEED),
-            128, n=4)
         out["pair"] = r
         release(trainer)
     finally:
@@ -2520,7 +2640,7 @@ def phase9(dev) -> dict:
     return out
 
 
-N_CLI_TITLES, N_CLI_FT = 50_000, 20_000
+N_CLI_TITLES, N_CLI_FT, N_CLI_SUB = 50_000, 20_000, 5_000
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
 
@@ -2647,14 +2767,24 @@ def phase10(dev) -> dict:
                                  f"{launches['similar_nlp']}")
         out["similar_nlp_written"] = n
 
-        # 4. the same command as a subprocess, on the card by default
+        # 4. the same command as a subprocess, on the card by default, over
+        # the first N_CLI_SUB titles; its writes are the job's on the
+        # vectors the in-process command embedded for them
+        sub_csv = os.path.join(work, "titles_sub.csv")
+        write_csv(sub_csv, {"spu_sn": keys[:N_CLI_SUB],
+                            "spu_name": titles[:N_CLI_SUB]})
+        want_sub = {"written": nlp_similar_job(
+            {"spu_name": titles[:N_CLI_SUB], "spu_sn": keys[:N_CLI_SUB]},
+            lambda texts: recorded["emb"][:N_CLI_SUB], InMemoryKVSink(),
+            k=13, score_th=0.9, ttl_seconds=604800, device=dev)}
         t0 = time.perf_counter()
         proc = subprocess.run(
             [sys.executable, "-m", "multimodalsimilar_tpu_torch.cli",
-             *argv], cwd=ROOT, capture_output=True, text=True, timeout=600)
+             *argv[:5], sub_csv, *argv[6:]], cwd=ROOT, capture_output=True,
+            text=True, timeout=600)
         walls["similar_nlp_subprocess"] = time.perf_counter() - t0
         last = proc.stdout.strip().splitlines()[-1:] or [""]
-        if proc.returncode != 0 or json.loads(last[0] or "{}") != line:
+        if proc.returncode != 0 or json.loads(last[0] or "{}") != want_sub:
             raise AssertionError(f"python -m ...cli similar nlp: rc "
                                  f"{proc.returncode}, {last}, "
                                  f"{proc.stderr[-2000:]}")
@@ -2727,6 +2857,290 @@ def phase10(dev) -> dict:
     return {"wall_s": walls, "launches": launches, **out}
 
 
+# phase 11: the ViT and ConvNeXt towers and the int8 text tower
+VIT, CONVNEXT, NEW_SIZE = "vit_base", "convnext_tiny", 224
+N_VIT_IMAGES = 4_096
+# a corpus image queried alone (bucket 1) against its row from a batch
+# of 64: bf16 rounds the two apart (their cosine 0.9983 on an H100 80GB
+# HBM3; 0.9999998 under the full-precision policy, which phase 6's
+# precision_witness holds at WITNESS_COS)
+VIT_OWN_SCORE = 0.996
+N_NEW_CV_ROWS, N_NEW_TIMM_ROWS = 144, 288
+N_INT8_TITLES, N_INT8_F32 = 50_000, 2_048
+INT8_COS = 1e-3            # JAX's int8 budget against f32 (test_quant.py)
+# (rows, K, N) of int8 products: one row, 16 and 17 rows (the pad to
+# torch._int_mm's floor), a bucket-64 x 80-token request's QKV, and the
+# job's 256 x 128-token FFN output projection (timed)
+INT8_SHAPES = ((1, 768, 768), (16, 768, 3072), (17, 3072, 768),
+               (64 * 80, 768, 3072), (256 * 128, 3072, 768))
+
+
+def phase11_train(dev) -> dict:
+    """``train cv`` with ``convnext_tiny`` at train_cv_daodian.yaml and
+    ``vit_base`` at train_cv_timm.yaml, both at 224 px."""
+    from multimodalsimilar_tpu_torch.cli import train as CT
+    from multimodalsimilar_tpu_torch.cli.embedders import _load_cv_tower
+    from multimodalsimilar_tpu_torch.data.datasets import (
+        ImageClassificationSource)
+    work = tempfile.mkdtemp(prefix="chip_smoke_newtrain_")
+    rng = np.random.default_rng(SEED + 64)
+    out = {}
+    try:
+        img_root = os.path.join(work, "images")
+        keys = [f"sku{i:05d}" for i in range(N_NEW_TIMM_ROWS)]
+        write_jpegs(img_root, keys, NEW_SIZE, rng)
+        runs = (
+            ("convnext", "convnext_tiny (train_cv_daodian.yaml)", CONVNEXT,
+             N_NEW_CV_ROWS, 24,
+             dict(optimizer="adamw", scheduler="cosine_warm_restarts",
+                  t0_epochs=7, tower_lr=1e-4, head_lr=1e-4,
+                  weighted_sampling=True)),
+            ("vit", "vit_base (train_cv_timm.yaml)", VIT, N_NEW_TIMM_ROWS,
+             TIMM_BATCH,
+             dict(cooldown_epochs=0, optimizer="adamp",
+                  scheduler="timm_cosine", warmup_epochs=5,
+                  warmup_lr_init=1e-3, tower_lr=1e-4, head_lr=1e-4,
+                  weight_decay=1e-5, head_weight_decay=0.0,
+                  margin_delta_per_epoch=0.0, save_every=1000,
+                  eval_every=1000)))
+        for tag, name, backbone, n_rows, batch, values in runs:
+            table = {"goods_sku": keys[:n_rows],
+                     "tag_new_id": zipf_with_last(n_rows, CV_LABELS, rng)}
+            args = cv_flags(os.path.join(work, tag), img_root,
+                            backbone=backbone, image_size=NEW_SIZE,
+                            fc_dim=CV_DIM, batch_size=batch,
+                            epochs=RECIPE_EPOCHS, log_every=1, **values)
+            trainer, _, r = run_recipe(name, CT.cmd_train_cv, args, table,
+                                       dev, batch)
+            model = trainer.model
+            if r["arcface_launches"] != trainer.step or any(
+                    isinstance(m, torch.nn.BatchNorm2d)
+                    for m in model.modules()):
+                raise AssertionError(f"{name}: {r['arcface_launches']} "
+                                     f"launches in {trainer.step} steps")
+            if tag == "vit" and (
+                    type(trainer.optimizer).__name__ != "AdamP"
+                    or model.backbone.pos_embed.shape[1] != backbone_config(
+                        VIT, image_size=NEW_SIZE).num_tokens):
+                raise AssertionError(f"{name}: {type(trainer.optimizer)}")
+            state = trainer.ckpt.restore()
+            if state["step"] != trainer.step or not all(
+                    torch.equal(v.cpu(), state["model"][k])
+                    for k, v in model.state_dict().items()):
+                raise AssertionError(f"{name}: the checkpoint does not "
+                                     f"restore the trained parameters")
+            sargs = cv_args(work)
+            sargs.backbone, sargs.image_size = backbone, NEW_SIZE
+            served = _load_cv_tower(sargs, os.path.join(args.output, "ckpt"),
+                                    CV_LABELS)
+            if not all(torch.equal(v, state["model"][k])
+                       for k, v in served.state_dict().items()
+                       if k != "head.weight"):
+                raise AssertionError(f"{name}: _load_cv_tower changed the "
+                                     f"trained weights")
+            del served
+            src = ImageClassificationSource(table, img_root, "goods_sku",
+                                            "tag_new_id", NEW_SIZE)
+            r.update(head_paths(model, src, dev, args.margin,
+                                batch_size=batch,
+                                embed=lambda b: model.predict_emb(to_nchw(
+                                    device_normalize(b["images"])))))
+            r["profile"] = profile_steps(trainer, ImageClassificationSource(
+                table, img_root, "goods_sku", "tag_new_id", NEW_SIZE,
+                train_aug=True), batch, n=3)
+            out[tag] = r
+            release(trainer)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return out
+
+
+def int8_products(dev) -> dict:
+    """``torch._int_mm`` (the int8 tower's product on the card) against
+    the exact product (f64 on the card: |sum| <= 127^2 K < 2^53) at the
+    tower's shapes, a single row and K = 3,072 with every product at
+    127^2; and its time beside the bf16 product at the FFN's shape."""
+    from multimodalsimilar_tpu_torch.models import quant as Q
+    g = torch.Generator(device=dev).manual_seed(SEED + 71)
+    rows = []
+    for m, k, n in INT8_SHAPES:
+        x = torch.randint(-127, 128, (m, k), dtype=torch.int8, device=dev,
+                          generator=g)
+        w = torch.randint(-127, 128, (n, k), dtype=torch.int8, device=dev,
+                          generator=g)
+        rows.append((m, k, n, x, w))
+    ext_x = torch.full((32, 3072), 127, dtype=torch.int8, device=dev)
+    ext_w = torch.full((768, 3072), -127, dtype=torch.int8, device=dev)
+    rows.append((32, 3072, 768, ext_x, ext_w))
+    checked = []
+    for m, k, n, x, w in rows:
+        got = Q.int8_matmul(x, w)
+        want = x.double() @ w.double().t()
+        if got.dtype != torch.int32 or not torch.equal(got.double(), want):
+            raise AssertionError(f"_int_mm {m}x{k}x{n} differs from the "
+                                 f"exact product")
+        checked.append([m, k, n])
+    m, k, n, x, w = rows[-2]
+    xb, wb = x.bfloat16(), w.bfloat16()
+    return {"exact_shapes": checked,
+            "largest_abs": int(127 * 127 * 3072),
+            "int_mm_ms": cuda_ms(lambda: Q.int8_matmul(x, w), reps=20),
+            "bf16_mm_ms": cuda_ms(lambda: xb @ wb.t(), reps=20),
+            "timed_shape": [m, k, n]}
+
+
+def phase11_int8(dev) -> dict:
+    """``similar nlp --int8`` at configs/similar_nlp.yaml over 50,000
+    titles against the bf16 command, ``serve --tower bert --int8`` at
+    configs/serve.yaml, and the int8 product."""
+    from multimodalsimilar_tpu_torch.cli import similar as cli_similar
+    from multimodalsimilar_tpu_torch.cli.common import _bert_config
+    from multimodalsimilar_tpu_torch.models.quant import QuantTextEmbModel
+    work = tempfile.mkdtemp(prefix="chip_smoke_int8_")
+    rng = np.random.default_rng(SEED + 72)
+    saved = (cli_similar._kv_sink, cli_similar._embed_fn_from_embedder)
+    out, runs = {"products": int8_products(dev)}, {}
+    try:
+        # phase 5's corpus size; the job runs on its first N_INT8_TITLES
+        titles = make_titles(N_SERVE, rng)
+        keys = [f"spu{i:06d}" for i in range(N_SERVE)]
+        csv_path = os.path.join(work, "titles.csv")
+        write_csv(csv_path, {"spu_sn": keys[:N_INT8_TITLES],
+                             "spu_name": titles[:N_INT8_TITLES]})
+        for tag, extra in (("bf16", []), ("int8", ["--int8"])):
+            sink, rec = InMemoryKVSink(), {}
+
+            def recording(embedder, rec=rec):
+                rec["embedder"] = embedder
+                embed = saved[1](embedder)
+
+                def call(texts):
+                    t0 = time.perf_counter()
+                    rec["emb"] = embed(texts)
+                    rec["embed_s"] = time.perf_counter() - t0
+                    return rec["emb"]
+                return call
+
+            cli_similar._kv_sink = lambda args, sink=sink: sink
+            cli_similar._embed_fn_from_embedder = recording
+            _, line, wall, launches = run_cli(
+                ["similar", "nlp", "--config",
+                 config_path("similar_nlp.yaml"), "--data", csv_path]
+                + extra)
+            cli_similar._kv_sink, cli_similar._embed_fn_from_embedder = saved
+            emb = rec["emb"]
+            width = _bert_config("base").hidden_size
+            if not line or line["written"] <= 0 or launches["topk"] < 1 \
+                    or emb.shape != (N_INT8_TITLES, width) \
+                    or not np.isfinite(emb).all():
+                raise AssertionError(f"similar nlp {extra}: {line}, "
+                                     f"{launches}, {emb.shape}")
+            runs[tag] = {"written": line["written"], "wall_s": wall,
+                         "embed_s": rec["embed_s"],
+                         "embeddings_per_s": N_INT8_TITLES / rec["embed_s"],
+                         "topk_launches": launches["topk"],
+                         "items": kv_items(sink), "emb": emb,
+                         "embedder": rec["embedder"]}
+        if not isinstance(runs["int8"]["embedder"].model, QuantTextEmbModel):
+            raise AssertionError("--int8 did not build the int8 tower")
+        # the embeddings against bf16, and both against f32 on a sample
+        a, b = runs["int8"]["emb"], runs["bf16"]["emb"]
+        cos_ib = (a * b).sum(1) / (np.linalg.norm(a, axis=1)
+                                   * np.linalg.norm(b, axis=1))
+        bf16_model = runs["bf16"]["embedder"].model
+        f32_model = full_precision_copy(bf16_model)
+        f32 = TextEmbedder(f32_model, runs["bf16"]["embedder"].tokenizer,
+                           max_length=128, batch_size=256,
+                           device=dev)(titles[:N_INT8_F32])
+
+        def cos(x, y):
+            return (x * y).sum(1) / (np.linalg.norm(x, axis=1)
+                                     * np.linalg.norm(y, axis=1))
+
+        cos_if = cos(a[:N_INT8_F32], f32)
+        cos_bf = cos(b[:N_INT8_F32], f32)
+        if cos_if.min() < 1 - INT8_COS:
+            raise AssertionError(f"int8 vs f32 cosine {cos_if.min()} below "
+                                 f"1 - {INT8_COS}")
+        del f32_model
+        bi, ii = runs["bf16"]["items"], runs["int8"]["items"]
+        common = set(bi) & set(ii)
+        overlap = [len(set(bi[k].split(",")) & set(ii[k].split(",")))
+                   / len(bi[k].split(",")) for k in common]
+        out["similar_nlp"] = {
+            tag: {k: v for k, v in r.items()
+                  if k not in ("items", "emb", "embedder")}
+            for tag, r in runs.items()}
+        out["embeddings"] = {
+            "int8_vs_bf16_cos_min": float(cos_ib.min()),
+            "int8_vs_bf16_cos_mean": float(cos_ib.mean()),
+            "int8_vs_f32_cos_min": float(cos_if.min()),
+            "int8_vs_f32_cos_mean": float(cos_if.mean()),
+            "bf16_vs_f32_cos_min": float(cos_bf.min()),
+            "f32_sample_rows": N_INT8_F32,
+            "budget": f"int8 vs f32 cosine >= 1 - {INT8_COS}"}
+        out["neighbour_lists"] = {
+            "keys_bf16": len(bi), "keys_int8": len(ii),
+            "keys_both": len(common),
+            "mean_overlap": float(np.mean(overlap)) if overlap else None,
+            "identical_lists": sum(bi[k] == ii[k] for k in common)}
+        runs.clear()
+        torch.cuda.empty_cache()
+
+        # serve --tower bert --int8 at configs/serve.yaml
+        cats = [int(c) for c in rng.integers(0, N_CATEGORIES, N_SERVE)]
+        table = {"spu_sn": keys, "spu_name": titles,
+                 "first_level_category_id": cats}
+        novel = make_titles(256, np.random.default_rng(SEED + 73))
+        args = serve_args()
+        args.int8 = True
+        t0 = time.perf_counter()
+        service, n = _build_serve_service(args, table=table, device=dev)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        try:
+            _warm_serve_service(service, args)
+            int8_emb = service._embed_queries_device.__self__
+            if not isinstance(int8_emb.model, QuantTextEmbModel):
+                raise AssertionError("serve --int8 did not serve the int8 "
+                                     "tower")
+            checked = serve_vs_plain(service, titles[:32] + novel[:32], dev)
+            load = load_and_launches(service, novel, CV_LEVELS)
+            prof = profile_tower(service, novel, (1, 64))
+            # the command's bf16 tower (the same seed-0 weights) at the
+            # daemon's max_length and batch
+            bf16_emb = TextEmbedder(bf16_model, int8_emb.tokenizer,
+                                    max_length=args.max_length,
+                                    batch_size=args.batch_size, device=dev)
+            tower_ms = {}
+            for b in (1, 64):
+                for tag, emb in (("int8", int8_emb), ("bf16", bf16_emb)):
+                    inputs = emb._inputs(novel[:b], b)
+                    tower_ms[f"{tag}_bucket_{b}"] = cuda_ms(
+                        lambda: emb._run(*inputs), reps=20)
+            del bf16_emb, bf16_model
+        finally:
+            service.close()
+        out["serve"] = {"corpus": n, "corpus_embed_s": build_s,
+                        "fused_vs_plain": checked, **load,
+                        "tower_profile": prof, "tower_ms": tower_ms,
+                        "config": "configs/serve.yaml --int8: base, "
+                                  "max_length 80, batch 64, k 13, "
+                                  "max_batch 64"}
+    finally:
+        cli_similar._kv_sink, cli_similar._embed_fn_from_embedder = saved
+        shutil.rmtree(work, ignore_errors=True)
+    return out
+
+
+def phase11(dev) -> dict:
+    """The ViT and ConvNeXt towers and the int8 text tower (see the
+    docstring)."""
+    return {"vit_serving": phase6(dev, VIT, NEW_SIZE, N_VIT_IMAGES,
+                                  SEED + 60, VIT_OWN_SCORE),
+            "train": phase11_train(dev), "int8": phase11_int8(dev)}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this script runs on "
@@ -2735,34 +3149,48 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
     print(card_line(), flush=True)
-    t0 = time.perf_counter()
+    t0 = t0_all = time.perf_counter()
     names = _build.build_all()
     print(json.dumps({"built": names,
                       "build_s": time.perf_counter() - t0}), flush=True)
     for name, log in _build.build_logs.items():
         print(f"[nvcc {name}]\n{log.strip()}", flush=True)
 
-    p1 = phase1(dev)
+    phase_s = {}
+
+    def run(name, fn, *a):
+        t0 = time.perf_counter()
+        result = fn(*a)
+        phase_s[name] = time.perf_counter() - t0
+        print(json.dumps({"phase_wall_s": {name: phase_s[name]}}),
+              flush=True)
+        return result
+
+    p1 = run("phase1", phase1, dev)
     print(json.dumps({"phase1": p1["cases"]}), flush=True)
     print(json.dumps({"phase1_select": p1["select"]["cases"]}), flush=True)
-    p2 = phase2(dev)
+    p2 = run("phase2", phase2, dev)
     print(json.dumps({"phase2": p2}), flush=True)
-    p3 = phase3(dev)
+    p3 = run("phase3", phase3, dev)
     print(json.dumps({"phase3": p3}), flush=True)
-    p4 = phase4(dev, p3["main"]["ms"])
+    p4 = run("phase4", phase4, dev, p3["main"]["ms"])
     print(json.dumps({"phase4": p4}), flush=True)
-    p5 = phase5(dev)
+    p5 = run("phase5", phase5, dev)
     print(json.dumps({"phase5": p5}), flush=True)
-    p6 = phase6(dev)
+    p6 = run("phase6", phase6, dev)
     print(json.dumps({"phase6": p6}), flush=True)
-    p7 = phase7(dev)
+    p7 = run("phase7", phase7, dev)
     print(json.dumps({"phase7": p7}), flush=True)
-    p8 = phase8(dev)
+    p8 = run("phase8", phase8, dev)
     print(json.dumps({"phase8": p8}), flush=True)
-    p9 = phase9(dev)
+    p9 = run("phase9", phase9, dev)
     print(json.dumps({"phase9": p9}), flush=True)
-    p10 = phase10(dev)
+    p10 = run("phase10", phase10, dev)
     print(json.dumps({"phase10": p10}), flush=True)
+    p11 = run("phase11", phase11, dev)
+    print(json.dumps({"phase11": p11}), flush=True)
+    print(json.dumps({"phase_s": phase_s,
+                      "total_s": time.perf_counter() - t0_all}), flush=True)
     cli_launches = p10["launches"]
     m = p1["main"]
     case = {c["case"]: c for c in p1["cases"]}
@@ -2853,6 +3281,13 @@ def main() -> None:
         cli_launches["similar_daodian"]["topk_select"]
     topk["launches_daodian_v1_cv"] = p8["v1_job"]["topk_launches"]
     topk["launches_fasttext_serve"] = p8["fasttext_serve"]["topk_launches"]
+    topk["launches_vit_serving"] = p11["vit_serving"]["topk_launches"]
+    topk["launches_int8_similar_nlp"] = \
+        p11["int8"]["similar_nlp"]["int8"]["topk_launches"]
+    topk["launches_int8_serving"] = p11["int8"]["serve"]["topk_launches"]
+    arcface["launches_cv_convnext"] = \
+        p11["train"]["convnext"]["arcface_launches"]
+    arcface["launches_cv_vit"] = p11["train"]["vit"]["arcface_launches"]
     print(json.dumps({"kernels": [topk, arcface, topk_select]}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -103,18 +103,30 @@ def cmd_eval(args, device="cuda"):
     return metrics
 
 
+# the JAX commands' refusals of a ViT/ConvNeXt backbone, word for word
+_NOT_EFFICIENTNET = {
+    "import-checkpoint": (
+        "import-checkpoint: reference cv/multimodal checkpoints are timm "
+        "EfficientNets (cv_classifier_train_daodian.py:190) — pass an "
+        "efficientnet_* backbone. ViT/ConvNeXt towers train from scratch "
+        "or import timm weights via "
+        "hf_import.{vit,convnext}_params_from_timm."),
+    "export-checkpoint": (
+        "export-checkpoint: ViT/ConvNeXt backbones have no reference "
+        "equivalent (the reference CvClassifier requires a timm CNN with a "
+        ".classifier head, cv_classifier.py:24) — only EfficientNet "
+        "checkpoints export."),
+}
+
+
 def _image_config(args, command: str):
     """The EfficientNet config of ``--backbone``; ViT and ConvNeXt are
-    refused, as the JAX commands refuse them (the reference's image
-    models are timm EfficientNets)."""
+    refused with the JAX command's message (the reference's image models
+    are timm EfficientNets)."""
     from multimodalsimilar_tpu_torch.models.efficientnet import (
         EfficientNetConfig)
     if args.backbone.startswith(("vit", "convnext")):
-        raise SystemExit(
-            f"{command}: reference cv/multimodal checkpoints are timm "
-            "EfficientNets with a .classifier head (cv_classifier.py:24, "
-            "cv_classifier_train_daodian.py:190) — pass an efficientnet_* "
-            "backbone.")
+        raise SystemExit(_NOT_EFFICIENTNET[command])
     return EfficientNetConfig.variant(args.backbone)
 
 

@@ -3,22 +3,27 @@
 ``DTypePolicy.inference()``:
 
 * text: an ``NlpTextClassifier`` tower, weights from a port checkpoint
-  or from seed 0 without ``--checkpoint``;
-* cv: a ``CvImageClassifier`` (checkpoint or seed 0) with its backbone's
-  BatchNorm folded into the convs (``models/fold_bn.py``);
+  or from seed 0 without ``--checkpoint``; with ``--int8`` that tower
+  quantized (``models/quant.py:quantize_text_tower``);
+* cv: a ``CvImageClassifier`` (checkpoint or seed 0) of any backbone, an
+  EfficientNet's BatchNorm folded into its convs (``models/fold_bn.py``;
+  ViT and ConvNeXt have no backbone BatchNorm), a ViT's position table
+  sized by ``--image_size``;
 * multimodal: a ``MultimodalClassifier`` from a port checkpoint, which
   this path requires, as the JAX package's does.
 
 A checkpoint is the port's own (``train/checkpoint.py``: ``{step, model,
 ...}``); the heads' class counts need not match ``--num_labels``, as the
-embedders never run a head. ``--int8`` (``models/quant.py``, ROADMAP A16)
-and pipeline-parallel checkpoints raise ``NotImplementedError``.
+embedders never run a head. Pipeline-parallel checkpoints raise
+``NotImplementedError`` (ROADMAP A17), and with ``--int8`` exit with the
+JAX command's message.
 """
 
 from __future__ import annotations
 
 import glob
 import os
+import sys
 
 import numpy as np
 
@@ -52,10 +57,7 @@ def _build_text_embedder(args, df=None, device="cuda"):
     from multimodalsimilar_tpu_torch.utils.buckets import parse_buckets
     from multimodalsimilar_tpu_torch.utils.dtypes import DTypePolicy
 
-    if getattr(args, "int8", False):
-        raise NotImplementedError("--int8: the int8 PTQ tower "
-                                  "(models/quant.py) is not ported "
-                                  "(ROADMAP A16)")
+    int8 = getattr(args, "int8", False)
     _require_tokenizer_with_checkpoint(args)
     tok = _tokenizer(args, df=df)
     model = NlpTextClassifier(_bert_config(args.bert_preset),
@@ -64,6 +66,12 @@ def _build_text_embedder(args, df=None, device="cuda"):
                               num_labels=args.num_labels)
     if args.checkpoint:
         if _is_pp_checkpoint(args.checkpoint):
+            if int8:
+                raise SystemExit(
+                    "--int8: the int8 PTQ tower does not support the "
+                    "pipeline-parallel stacked layout; export the "
+                    "checkpoint to the sequential layout first "
+                    "(models.bert.unstack_layer_params) or drop --int8")
             raise NotImplementedError(
                 f"{args.checkpoint}: pipeline-parallel checkpoints are not "
                 "ported (ROADMAP A17)")
@@ -73,6 +81,14 @@ def _build_text_embedder(args, df=None, device="cuda"):
         model.tower.load_state_dict(
             {k[len("tower."):]: v for k, v in state["model"].items()
              if k.startswith("tower.")})
+    if int8:
+        from multimodalsimilar_tpu_torch.models.quant import (
+            quantize_text_tower)
+        print("--int8: int8 PTQ text tower (models/quant.py): int8 weights "
+              "per output channel, int8 activations per tensor; its "
+              "embeddings and speed against the bf16 default are in "
+              "PERF.md", file=sys.stderr)
+        model = quantize_text_tower(model)
     buckets = parse_buckets(getattr(args, "length_buckets", None))
     return TextEmbedder(model, tok, args.max_length, args.batch_size,
                         length_buckets=buckets, device=device)
@@ -127,20 +143,25 @@ def _load_without_heads(model, state_dict, checkpoint) -> None:
 
 def _load_cv_tower(args, checkpoint, num_labels):
     """The image classifier in the serving config, one construction site:
-    ``DTypePolicy.inference()`` with the backbone's BN folded into its
-    convs (exact math), weights from ``checkpoint`` or seed 0."""
+    ``DTypePolicy.inference()``, weights from ``checkpoint`` or seed 0, an
+    EfficientNet's BN folded into its convs (exact math; ViT and ConvNeXt
+    keep only the neck's BN, unfolded, as in the JAX package)."""
+    from multimodalsimilar_tpu_torch.models.efficientnet import (
+        EfficientNetConfig)
     from multimodalsimilar_tpu_torch.models.fold_bn import fold_cv_classifier
     from multimodalsimilar_tpu_torch.models.vision import (
         CvImageClassifier, backbone_config)
     from multimodalsimilar_tpu_torch.utils.dtypes import DTypePolicy
 
-    cfg = backbone_config(args.backbone)
+    cfg = backbone_config(args.backbone, image_size=args.image_size)
     policy = DTypePolicy.inference()
     model = CvImageClassifier(cfg, num_labels, fc_dim=args.fc_dim,
                               policy=policy)
     if checkpoint:
         state = _restore_required(checkpoint)
         _load_without_heads(model, state["model"], checkpoint)
+    if not isinstance(cfg, EfficientNetConfig):
+        return model
     folded_cfg, sd = fold_cv_classifier(model.state_dict(), cfg)
     folded = CvImageClassifier(folded_cfg, num_labels, fc_dim=args.fc_dim,
                                policy=policy)
@@ -195,7 +216,8 @@ def _multimodal_embedder(args, df, device="cuda"):
     _require_tokenizer_with_checkpoint(args)   # same garbage-vocab trap
     tok = _tokenizer(args, df=df)
     model = MultimodalClassifier(
-        _bert_config(args.bert_preset), backbone_config(args.backbone),
+        _bert_config(args.bert_preset),
+        backbone_config(args.backbone, image_size=args.image_size),
         num_labels=args.num_labels, fc_dim=args.fc_dim,
         policy=DTypePolicy.inference())
     state = _restore_required(args.checkpoint)

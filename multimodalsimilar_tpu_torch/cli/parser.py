@@ -7,9 +7,8 @@ preloading read by ``cli/config.py`` (no PyYAML).
 is asked for with ``main(argv, device="cpu")``, as the tests do (there is
 no ``--device`` flag, since the JAX parser has none). Flags whose layouts
 are not ported parse as in JAX and raise in the commands: the multi-GPU
-flags and ``--remat*`` (ROADMAP A17), ``--int8`` and the vit/convnext
-backbones (ROADMAP A16), ``--pallas_topk`` and ``--approx_recall`` (the
-device runs one exact search).
+flags and ``--remat*`` (ROADMAP A17), ``--pallas_topk`` and
+``--approx_recall`` (the device runs one exact search).
 """
 
 from __future__ import annotations
@@ -146,7 +145,10 @@ def _add_image_flags(p, image_size: int = 512):
 
 def _add_int8(p):
     p.add_argument("--int8", action="store_true",
-                   help="not ported (ROADMAP A16): refused")
+                   help="int8 weight + dynamic-activation PTQ for the text "
+                        "tower (models/quant.py): int8 products through "
+                        "torch._int_mm on the card; its speed against the "
+                        "bf16 default is in PERF.md")
 
 
 def _add_kv_flags(p, exp_seconds=7 * 24 * 3600, exp_help=None):

@@ -275,9 +275,10 @@ _TEXT_ONLY = {"fused_loss": False, "remat": False, "remat_skip": 0,
 
 
 def cmd_train_cv(args, table=None, eval_table=None, device="cuda"):
-    """``train cv``: EfficientNet + fc/BN neck + ArcFace on uint8 images
-    from ``{img_root}/{key}.jpg`` (configs/train_cv_*.yaml). Eval and
-    checkpoints default to once per epoch, as the daodian reference."""
+    """``train cv``: a ``--backbone`` (EfficientNet, ViT or ConvNeXt) +
+    fc/BN neck + ArcFace on uint8 images from ``{img_root}/{key}.jpg``
+    (configs/train_cv_*.yaml). Eval and checkpoints default to once per
+    epoch, as the daodian reference."""
     from multimodalsimilar_tpu_torch.data.datasets import (
         ImageClassificationSource)
     from multimodalsimilar_tpu_torch.models.vision import (
@@ -301,7 +302,7 @@ def cmd_train_cv(args, table=None, eval_table=None, device="cuda"):
             train_aug=train_aug, decode_cache=args.decode_cache)
 
     model = CvImageClassifier(
-        backbone_config(args.backbone),
+        backbone_config(args.backbone, image_size=args.image_size),
         num_labels=_num_labels(table, args.label_col), fc_dim=args.fc_dim,
         arcface=ArcFaceParams(m=args.margin), generator=_generator(args))
     model = model.to(memory_format=torch.channels_last)
@@ -373,7 +374,7 @@ def cmd_train_multimodal(args, table=None, eval_table=None,
 
     src = source(table, True)
     model = MultimodalClassifier(
-        config, backbone_config(args.backbone),
+        config, backbone_config(args.backbone, image_size=args.image_size),
         num_labels=_num_labels(table, args.label_col), fc_dim=args.fc_dim,
         generator=_generator(args))
     model = model.to(memory_format=torch.channels_last)

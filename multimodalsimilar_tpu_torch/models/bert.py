@@ -77,6 +77,15 @@ def _layer_norm(x: torch.Tensor, ln: nn.LayerNorm, dtype: torch.dtype):
                         ln.weight.to(dtype), ln.bias.to(dtype), ln.eps)
 
 
+def flax_layer_norm(x: torch.Tensor, ln: nn.LayerNorm, dtype: torch.dtype
+                    ) -> torch.Tensor:
+    """Flax ``LayerNorm(dtype=dtype)``: statistics, normalization and
+    scale in f32 whatever ``x``'s dtype, the result cast to ``dtype``
+    (the ViT, ConvNeXt and int8 towers)."""
+    return F.layer_norm(x.float(), ln.normalized_shape, ln.weight.float(),
+                        ln.bias.float(), ln.eps).to(dtype)
+
+
 class _Module(nn.Module):
     """Attribute holder, so parameter paths read like HF's."""
 

@@ -16,11 +16,16 @@ the tree.
   OIHW; the depthwise [k, k, 1, C] becomes [C, 1, k, k] by the same
   permutation). A folded tree (``fold_bn.py:fold_cv_classifier`` output)
   carries over into a ``folded`` config.
+* ``vit_from_jax`` and ``convnext_from_jax``: ``ViT`` and ``ConvNeXt``,
+  the reverse of ``hf_import.py:vit_params_from_timm`` (the qkv kernel
+  [D, 3, heads, head_dim] becomes timm's packed [3D, D], the proj kernel
+  [heads, head_dim, D] a [D, D] Linear) and of
+  ``convnext_params_from_timm`` (HWIO kernels become OIHW).
 * ``image_tower_from_jax``, ``cv_classifier_from_jax`` and
   ``multimodal_classifier_from_jax``: the image tower (backbone, optional
   BatchNorm), the image classifier (backbone, fc, neck BatchNorm, head)
   and the fused classifier (its ``cv`` and ``nlp`` sub-classifiers and
-  its head).
+  its head), over any of the three backbones (``backbone_from_jax``).
 * ``fasttext_from_jax``: a ``FastTextClassifier`` from a JAX model's
   numpy ``{"input", "output"}`` tables, its vocab's word -> id table and
   bucket, its labels and its ``dim`` / ``word_ngrams`` / ``max_tokens``.
@@ -34,12 +39,39 @@ import numpy as np
 import torch
 
 from multimodalsimilar_tpu_torch.models.bert import BertConfig
+from multimodalsimilar_tpu_torch.models.convnext import ConvNeXtConfig
 from multimodalsimilar_tpu_torch.models.efficientnet import (
     EfficientNetConfig, round_repeats)
+from multimodalsimilar_tpu_torch.models.vit import ViTConfig
 
 
 def _t(x) -> torch.Tensor:
     return torch.from_numpy(np.array(x, dtype=np.float32, copy=True))
+
+
+def _dense(sd: Dict[str, torch.Tensor], name: str, p: Mapping,
+           kernel=None) -> None:
+    """A Flax Dense as a torch Linear under ``name``: the [in, out]
+    ``kernel`` (default ``p["kernel"]``; multi-axis kernels come reshaped
+    to 2-D) becomes [out, in], the bias is flattened."""
+    k = np.asarray(p["kernel"] if kernel is None else kernel)
+    sd[f"{name}.weight"] = _t(k.T)
+    sd[f"{name}.bias"] = _t(np.asarray(p["bias"]).reshape(-1))
+
+
+def _ln(sd: Dict[str, torch.Tensor], name: str, p: Mapping) -> None:
+    """A Flax LayerNorm (``scale``, ``bias``) under ``name``."""
+    sd[f"{name}.weight"] = _t(p["scale"])
+    sd[f"{name}.bias"] = _t(p["bias"])
+
+
+def _conv(sd: Dict[str, torch.Tensor], name: str, p: Mapping) -> None:
+    """A Flax Conv (HWIO kernel; depthwise [k, k, 1, C]) as a torch Conv2d
+    (OIHW; [C, 1, k, k] by the same permutation), with its bias when it
+    has one."""
+    sd[f"{name}.weight"] = _t(np.asarray(p["kernel"]).transpose(3, 2, 0, 1))
+    if "bias" in p:
+        sd[f"{name}.bias"] = _t(p["bias"])
 
 
 def text_classifier_from_jax(params: Mapping, config: BertConfig
@@ -55,37 +87,28 @@ def text_classifier_from_jax(params: Mapping, config: BertConfig
     enc = params["tower"]["encoder"]
     H = config.hidden_size
     sd: Dict[str, torch.Tensor] = {}
-
-    def lin(name, p, kernel_2d):
-        sd[f"tower.encoder.{name}.weight"] = _t(np.asarray(kernel_2d).T)
-        sd[f"tower.encoder.{name}.bias"] = _t(np.asarray(p["bias"])
-                                              .reshape(-1))
-
-    def ln(name, p):
-        sd[f"tower.encoder.{name}.weight"] = _t(p["scale"])
-        sd[f"tower.encoder.{name}.bias"] = _t(p["bias"])
+    e = "tower.encoder"
 
     for n in ("word", "position", "token_type"):
-        sd[f"tower.encoder.embeddings.{n}_embeddings.weight"] = _t(
+        sd[f"{e}.embeddings.{n}_embeddings.weight"] = _t(
             enc[f"{n}_embeddings"]["embedding"])
-    ln("embeddings.LayerNorm", enc["embeddings_norm"])
+    _ln(sd, f"{e}.embeddings.LayerNorm", enc["embeddings_norm"])
     for i in range(config.num_layers):
         p = enc[f"layer_{i}"]
         att = p["attention"]
         if "qkv" in att:
             raise ValueError("fused_qkv checkpoints are not ported")
-        t = f"encoder.layer.{i}"
+        t = f"{e}.encoder.layer.{i}"
         for n in ("query", "key", "value"):
-            lin(f"{t}.attention.self.{n}", att[n],
-                np.asarray(att[n]["kernel"]).reshape(H, H))
-        lin(f"{t}.attention.output.dense", att["out"],
-            np.asarray(att["out"]["kernel"]).reshape(H, H))
-        ln(f"{t}.attention.output.LayerNorm", p["attention_norm"])
-        lin(f"{t}.intermediate.dense", p["intermediate"],
-            p["intermediate"]["kernel"])
-        lin(f"{t}.output.dense", p["output"], p["output"]["kernel"])
-        ln(f"{t}.output.LayerNorm", p["output_norm"])
-    lin("pooler.dense", enc["pooler"], enc["pooler"]["kernel"])
+            _dense(sd, f"{t}.attention.self.{n}", att[n],
+                   np.asarray(att[n]["kernel"]).reshape(H, H))
+        _dense(sd, f"{t}.attention.output.dense", att["out"],
+               np.asarray(att["out"]["kernel"]).reshape(H, H))
+        _ln(sd, f"{t}.attention.output.LayerNorm", p["attention_norm"])
+        _dense(sd, f"{t}.intermediate.dense", p["intermediate"])
+        _dense(sd, f"{t}.output.dense", p["output"])
+        _ln(sd, f"{t}.output.LayerNorm", p["output_norm"])
+    _dense(sd, f"{e}.pooler.dense", enc["pooler"])
     if "head" in params:
         sd["head.weight"] = _t(params["head"]["weight"])
     return sd
@@ -131,14 +154,8 @@ def efficientnet_from_jax(params: Mapping, batch_stats: Mapping,
     ``cfg.folded`` every conv carries its bias and there is no BN."""
     sd: Dict[str, torch.Tensor] = {}
 
-    def conv(name, p):
-        sd[f"{prefix}{name}.weight"] = _t(
-            np.asarray(p["kernel"]).transpose(3, 2, 0, 1))
-        if "bias" in p:
-            sd[f"{prefix}{name}.bias"] = _t(p["bias"])
-
     def pair(name, bn, p, s):
-        conv(name, p[name])
+        _conv(sd, f"{prefix}{name}", p[name])
         if not cfg.folded:
             _bn_entries(sd, f"{prefix}{bn}", p[bn], s[bn])
 
@@ -152,30 +169,87 @@ def efficientnet_from_jax(params: Mapping, batch_stats: Mapping,
                       ("conv_pwl", "bn3")) if expand != 1 else
                      (("conv_dw", "bn1"), ("conv_pw", "bn2")))
             for c, b in order:
-                conv(f"{t}.{c}", jp[c])
+                _conv(sd, f"{prefix}{t}.{c}", jp[c])
                 if not cfg.folded:
                     _bn_entries(sd, f"{prefix}{t}.{b}", jp[b], js[b])
             for name in ("conv_reduce", "conv_expand"):
-                conv(f"{t}.se.{name}", jp["se"][name])
+                _conv(sd, f"{prefix}{t}.se.{name}", jp["se"][name])
     pair("conv_head", "bn2", params, batch_stats)
     return sd
 
 
-def image_tower_from_jax(variables: Mapping, cfg: EfficientNetConfig
-                         ) -> Dict[str, torch.Tensor]:
+def vit_from_jax(params: Mapping, cfg: ViTConfig, prefix: str = ""
+                 ) -> Dict[str, torch.Tensor]:
+    """JAX ``ViT`` params -> the port's ``ViT`` state_dict, keys under
+    ``prefix`` (timm's names)."""
+    sd: Dict[str, torch.Tensor] = {}
+    D = cfg.hidden_size
+    sd[f"{prefix}cls_token"] = _t(params["cls_token"])
+    sd[f"{prefix}pos_embed"] = _t(params["pos_embed"])
+    _conv(sd, f"{prefix}patch_embed.proj", params["patch_embed"])
+    _ln(sd, f"{prefix}norm", params["norm"])
+    for i in range(cfg.num_layers):
+        p, t = params[f"block_{i}"], f"{prefix}blocks.{i}"
+        _ln(sd, f"{t}.norm1", p["norm1"])
+        _ln(sd, f"{t}.norm2", p["norm2"])
+        # [D, 3, heads, head_dim] -> rows q; k; v of [3D, D]
+        _dense(sd, f"{t}.attn.qkv", p["qkv"],
+               np.asarray(p["qkv"]["kernel"]).reshape(D, 3 * D))
+        _dense(sd, f"{t}.attn.proj", p["proj"],
+               np.asarray(p["proj"]["kernel"]).reshape(D, D))
+        _dense(sd, f"{t}.mlp.fc1", p["fc1"])
+        _dense(sd, f"{t}.mlp.fc2", p["fc2"])
+    return sd
+
+
+def convnext_from_jax(params: Mapping, cfg: ConvNeXtConfig,
+                      prefix: str = "") -> Dict[str, torch.Tensor]:
+    """JAX ``ConvNeXt`` params -> the port's ``ConvNeXt`` state_dict, keys
+    under ``prefix`` (timm's names)."""
+    sd: Dict[str, torch.Tensor] = {}
+    _conv(sd, f"{prefix}stem.0", params["stem_conv"])
+    _ln(sd, f"{prefix}stem.1", params["stem_norm"])
+    for s, depth in enumerate(cfg.depths):
+        st = f"{prefix}stages.{s}"
+        if s > 0:
+            _ln(sd, f"{st}.downsample.0", params[f"downsample_norm_{s}"])
+            _conv(sd, f"{st}.downsample.1", params[f"downsample_conv_{s}"])
+        for b in range(depth):
+            p, t = params[f"stage_{s}_block_{b}"], f"{st}.blocks.{b}"
+            _conv(sd, f"{t}.conv_dw", p["conv_dw"])
+            _ln(sd, f"{t}.norm", p["norm"])
+            _dense(sd, f"{t}.mlp.fc1", p["fc1"])
+            _dense(sd, f"{t}.mlp.fc2", p["fc2"])
+            if cfg.ls_init:
+                sd[f"{t}.gamma"] = _t(p["gamma"])
+    _ln(sd, f"{prefix}head.norm", params["head_norm"])
+    return sd
+
+
+def backbone_from_jax(params: Mapping, batch_stats: Mapping, cfg,
+                      prefix: str = "") -> Dict[str, torch.Tensor]:
+    """Any JAX backbone -> the port's state_dict, by the type of ``cfg``
+    (ViT and ConvNeXt have no batch statistics)."""
+    if isinstance(cfg, ViTConfig):
+        return vit_from_jax(params, cfg, prefix)
+    if isinstance(cfg, ConvNeXtConfig):
+        return convnext_from_jax(params, cfg, prefix)
+    return efficientnet_from_jax(params, batch_stats, cfg, prefix)
+
+
+def image_tower_from_jax(variables: Mapping, cfg) -> Dict[str, torch.Tensor]:
     """JAX ``ImageTower`` variables -> the port's ``ImageTower``
     state_dict (the backbone, and ``bn_layer`` when the tower has one)."""
     params = variables["params"]
     stats = variables.get("batch_stats", {})
-    sd = efficientnet_from_jax(params["backbone"],
-                               stats.get("backbone", {}), cfg,
-                               prefix="backbone.")
+    sd = backbone_from_jax(params["backbone"], stats.get("backbone", {}),
+                           cfg, prefix="backbone.")
     if "bn_layer" in params:
         _bn_entries(sd, "bn_layer", params["bn_layer"], stats["bn_layer"])
     return sd
 
 
-def cv_classifier_from_jax(variables: Mapping, cfg: EfficientNetConfig
+def cv_classifier_from_jax(variables: Mapping, cfg
                            ) -> Dict[str, torch.Tensor]:
     """JAX ``CvImageClassifier`` variables (``params`` and
     ``batch_stats``) -> the port's ``CvImageClassifier`` state_dict: the
@@ -184,12 +258,10 @@ def cv_classifier_from_jax(variables: Mapping, cfg: EfficientNetConfig
     one."""
     params = variables["params"]
     stats = variables.get("batch_stats", {})
-    sd = efficientnet_from_jax(params["backbone"],
-                               stats.get("backbone", {}), cfg,
-                               prefix="backbone.")
+    sd = backbone_from_jax(params["backbone"], stats.get("backbone", {}),
+                           cfg, prefix="backbone.")
     if "fc" in params:
-        sd["fc.weight"] = _t(np.asarray(params["fc"]["kernel"]).T)
-        sd["fc.bias"] = _t(params["fc"]["bias"])
+        _dense(sd, "fc", params["fc"])
         _bn_entries(sd, "bn", params["bn"], stats["bn"])
     if "head" in params:
         sd["head.weight"] = _t(params["head"]["weight"])
@@ -197,8 +269,7 @@ def cv_classifier_from_jax(variables: Mapping, cfg: EfficientNetConfig
 
 
 def multimodal_classifier_from_jax(variables: Mapping,
-                                   text_config: BertConfig,
-                                   image_config: EfficientNetConfig
+                                   text_config: BertConfig, image_config
                                    ) -> Dict[str, torch.Tensor]:
     """JAX ``MultimodalClassifier`` variables -> the port's
     ``MultimodalClassifier`` state_dict: ``cv.*`` through

@@ -19,7 +19,6 @@ from torch import nn
 
 from multimodalsimilar_tpu_torch.models.bert import BertConfig
 from multimodalsimilar_tpu_torch.models.classifiers import NlpTextClassifier
-from multimodalsimilar_tpu_torch.models.efficientnet import EfficientNetConfig
 from multimodalsimilar_tpu_torch.models.heads import ArcFaceHead
 from multimodalsimilar_tpu_torch.models.vision import CvImageClassifier
 from multimodalsimilar_tpu_torch.ops.arcface import ArcFaceParams, l2_normalize
@@ -33,12 +32,13 @@ class MultimodalClassifier(nn.Module):
     ``NlpTextClassifier`` without their heads: only their towers run in
     the fused forward, so their heads never materialize in the JAX
     package's parameter tree either, and the state_dict matches that
-    tree. Weights are drawn from ``generator`` (seed 0 when none is
-    given): the image classifier's, the text classifier's, then the fused
-    head's."""
+    tree. ``image_config`` is any backbone config
+    (``models.vision.backbone_config``). Weights are drawn from
+    ``generator`` (seed 0 when none is given): the image classifier's,
+    the text classifier's, then the fused head's."""
 
     def __init__(self, text_config: BertConfig,
-                 image_config: EfficientNetConfig, num_labels: int,
+                 image_config, num_labels: int,
                  fc_dim: int = 512,
                  arcface: ArcFaceParams = ArcFaceParams(m=0.5),
                  policy: DTypePolicy = DTypePolicy(),

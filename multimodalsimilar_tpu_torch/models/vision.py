@@ -14,12 +14,17 @@ Counterpart of ``multimodalsimilar_tpu/models/vision.py``:
   returns the neck output (the 512-d embedding cached to emb.txt by
   daodian_infer.py:283).
 
+Backbones by name (``backbone_config``, ``build_backbone``):
+EfficientNet B0-B7 and ``tiny``, ViT (``vit_tiny|small|base``,
+``vit_test``; ``models/vit.py``) and ConvNeXt
+(``convnext_tiny|small|base``, ``convnext_test``; ``models/convnext.py``).
+
 The modules are built in ``eval()`` mode. In ``train()`` mode BatchNorm
-uses batch statistics (``models.efficientnet.batch_norm``) and the
-neck's dropout is on, its masks from the generator that
-``models.bert.set_dropout_generator`` hands out; the reference applies it
-inside ``predict_emb``, so train-mode embeddings are noisy. Backbones are
-EfficientNets only: ``vit*`` and ``convnext*`` raise (ROADMAP A16).
+uses batch statistics (``models.efficientnet.batch_norm``), drop-path and
+the backbone's dropout are on, and so is the neck's dropout, their masks
+from the generator that ``models.bert.set_dropout_generator`` hands out;
+the reference applies the neck's dropout inside ``predict_emb``, so
+train-mode embeddings are noisy.
 """
 
 from __future__ import annotations
@@ -33,9 +38,12 @@ from torch import nn
 
 from multimodalsimilar_tpu_torch.data.images import IMAGENET_MEAN, IMAGENET_STD
 from multimodalsimilar_tpu_torch.models.bert import Dropout
+from multimodalsimilar_tpu_torch.models.convnext import (ConvNeXt,
+                                                         ConvNeXtConfig)
 from multimodalsimilar_tpu_torch.models.efficientnet import (
     EfficientNet, EfficientNetConfig, batch_norm)
 from multimodalsimilar_tpu_torch.models.heads import ArcFaceHead
+from multimodalsimilar_tpu_torch.models.vit import ViT, ViTConfig
 from multimodalsimilar_tpu_torch.ops.arcface import ArcFaceParams, l2_normalize
 from multimodalsimilar_tpu_torch.utils.dtypes import DTypePolicy
 
@@ -58,24 +66,35 @@ def to_nchw(images: torch.Tensor) -> torch.Tensor:
     return images.permute(0, 3, 1, 2)
 
 
-def backbone_config(name: str, **kw) -> EfficientNetConfig:
-    """Name-string backbone API (cv_classifier.py:23's
-    timm.create_model equivalent): efficientnet_b0..b7 and ``tiny``."""
-    if name.startswith(("vit", "convnext")):
-        raise NotImplementedError(
-            f"backbone {name!r}: the ViT and ConvNeXt backbones are not "
-            "ported (ROADMAP A16); use an efficientnet_b* backbone")
+def backbone_config(name: str, image_size: Optional[int] = None, **kw):
+    """Name-string backbone API (cv_classifier.py:23's timm.create_model
+    equivalent): ``efficientnet_b0..b7`` / ``tiny`` -> EfficientNetConfig,
+    ``vit_{tiny,small,base}`` / ``vit_test`` -> ViTConfig,
+    ``convnext_{tiny,small,base}`` / ``convnext_test`` -> ConvNeXtConfig;
+    ``kw`` overrides the preset.
+
+    ``image_size`` sizes a ViT's position table (``resolution``) to the
+    images it will see, as the JAX ViT sizes it from the image at init;
+    the other backbones take any image size and ignore it."""
+    if name.startswith("vit"):
+        if image_size is not None:
+            kw.setdefault("resolution", int(image_size))
+        return ViTConfig.variant(name, **kw)
+    if name.startswith("convnext"):
+        return ConvNeXtConfig.variant(name, **kw)
     return EfficientNetConfig.variant(name, **kw)
 
 
 def build_backbone(cfg, policy: DTypePolicy,
-                   generator: Optional[torch.Generator] = None
-                   ) -> EfficientNet:
-    if not isinstance(cfg, EfficientNetConfig):
-        raise NotImplementedError(
-            f"{type(cfg).__name__}: only EfficientNet backbones are ported "
-            "(ROADMAP A16)")
-    return EfficientNet(cfg, policy, generator)
+                   generator: Optional[torch.Generator] = None):
+    if isinstance(cfg, ViTConfig):
+        return ViT(cfg, policy, generator)
+    if isinstance(cfg, ConvNeXtConfig):
+        return ConvNeXt(cfg, policy, generator)
+    if isinstance(cfg, EfficientNetConfig):
+        return EfficientNet(cfg, policy, generator)
+    raise TypeError(f"{type(cfg).__name__} is not a backbone config "
+                    "(EfficientNetConfig, ViTConfig or ConvNeXtConfig)")
 
 
 def _bn1d(dim: int) -> nn.BatchNorm1d:
@@ -84,9 +103,9 @@ def _bn1d(dim: int) -> nn.BatchNorm1d:
 
 class ImageTower(nn.Module):
     """L2-normalized pooled backbone features (image_emb.py semantics),
-    on an NCHW batch."""
+    on an NCHW batch; ``cfg`` is any backbone config."""
 
-    def __init__(self, cfg: EfficientNetConfig = EfficientNetConfig.b4(),
+    def __init__(self, cfg=EfficientNetConfig.b4(),
                  use_bn: bool = False, policy: DTypePolicy = DTypePolicy(),
                  generator: Optional[torch.Generator] = None):
         super().__init__()
@@ -102,14 +121,15 @@ class ImageTower(nn.Module):
 
 
 class CvImageClassifier(nn.Module):
-    """EfficientNet + FC/BN neck + ArcFace (cv_classifier.py contract).
+    """Backbone + FC/BN neck + ArcFace (cv_classifier.py contract); ``cfg``
+    is any backbone config.
 
     Weights are drawn from ``generator`` (seed 0 when none is given): the
     backbone's, then the fc's (normal, std 1/sqrt(fan_in), zero bias),
     then the head's; ``models.convert.cv_classifier_from_jax`` carries
     trained weights over."""
 
-    def __init__(self, cfg: EfficientNetConfig, num_labels: int,
+    def __init__(self, cfg, num_labels: int,
                  fc_dim: int = 512, use_fc: bool = True,
                  arcface: ArcFaceParams = ArcFaceParams(m=0.2),
                  policy: DTypePolicy = DTypePolicy(),

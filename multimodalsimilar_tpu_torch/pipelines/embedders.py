@@ -25,7 +25,9 @@ Three padding rules, each as in the JAX package: a serving micro-batch
 last rows (tokens) to its bucket; ``ImageEmbedder.embed_batch`` pads a
 partial chunk to its pow2 bucket by repeating the last image;
 ``embed_keys`` pads its tail to the full batch by repeating the last
-image.
+image. The int8 text tower (``models/quant.py``) takes one activation
+scale over its whole padded batch, so for it these rules are part of
+the output, as in the JAX package.
 """
 
 from __future__ import annotations

@@ -169,9 +169,16 @@ def adamp_views(model: nn.Module) -> Dict[nn.Parameter, View]:
     BERT's query, key and value weights (Flax kernels [in, heads,
     head_dim]) take the head_dim axis of a (heads, head_dim, in) view, and
     their biases (Flax [heads, head_dim], so projected) axis 1 of a
-    (heads, head_dim) view."""
+    (heads, head_dim) view. ViT: ``cls_token`` [1, 1, D] and
+    ``pos_embed`` [1, N, D] take axis 2 (D, Flax's last axis); the packed
+    ``attn.qkv`` weight [3D, D] (Flax [D, 3, heads, head_dim]) the
+    head_dim axis of a (3, heads, head_dim, D) view, and its bias (Flax
+    [3, heads, head_dim], so projected) axis 2 of (3, heads, head_dim).
+    Everything else, ConvNeXt included (its depthwise [C, 1, 7, 7] is
+    Flax's [7, 7, 1, C]), takes dim 0."""
     from multimodalsimilar_tpu_torch.models.bert import BertLayer
     from multimodalsimilar_tpu_torch.models.heads import ArcFaceHead
+    from multimodalsimilar_tpu_torch.models.vit import ViT, ViTBlock
     views: Dict[nn.Parameter, View] = {}
     for m in model.modules():
         if isinstance(m, (ArcFaceHead, nn.Embedding)):
@@ -183,6 +190,14 @@ def adamp_views(model: nn.Module) -> Dict[nn.Parameter, View]:
                 out, inp = lin.weight.shape
                 views[lin.weight] = ((nh, out // nh, inp), 1)
                 views[lin.bias] = ((nh, out // nh), 1)
+        elif isinstance(m, ViT):
+            for p in (m.cls_token, m.pos_embed):
+                views[p] = (tuple(p.shape), 2)
+        elif isinstance(m, ViTBlock):
+            nh, qkv = m.num_heads, m.attn.qkv
+            d = qkv.weight.shape[1]
+            views[qkv.weight] = ((3, nh, d // nh, d), 2)
+            views[qkv.bias] = ((3, nh, d // nh), 2)
     return views
 
 

@@ -361,7 +361,7 @@ def test_import_refusals(tmp_path):
     with pytest.raises(KeyError):               # base preset: 12 layers
         cli.main(base + ["--kind", "nlp", "--bert_preset", "base",
                          "--overwrite"], device="cpu")
-    with pytest.raises(SystemExit, match="efficientnet"):
+    with pytest.raises(SystemExit, match="only EfficientNet checkpoints"):
         cli.main(["export-checkpoint", "--kind", "multimodal", "--backbone",
                   "convnext_tiny", "--checkpoint", str(tmp_path / "ckpt"),
                   "--out", str(tmp_path / "x.pt")], device="cpu")

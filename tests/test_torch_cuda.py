@@ -810,3 +810,73 @@ def test_cli_similar_nlp_on_card_without_pandas_or_yaml(dev, tmp_path,
     assert T.LAUNCHES["topk"] == launched           # the CPU: no kernel
     got, want = (set(s.data) for s in sinks)
     assert got == want and len(got) == 300
+
+
+@pytest.mark.parametrize("m,k,n", [(1, 64, 64), (16, 100, 37), (17, 768, 768),
+                                   (64 * 80, 768, 3072),
+                                   (256 * 128, 3072, 768)])
+def test_int_mm_on_card_is_exact(dev, m, k, n):
+    """``int8_matmul`` on the card (``torch._int_mm``, zero-padded to its
+    shapes: more than 16 rows, K and N multiples of 8) equals the exact
+    product (f64 on the card: every partial sum an integer below 2^53)
+    bit for bit, and the CPU route."""
+    from multimodalsimilar_tpu_torch.models import quant as Q
+    rng = np.random.default_rng(m + k + n)
+    x = torch.from_numpy(rng.integers(-127, 128, (m, k)).astype(np.int8))
+    w = torch.from_numpy(rng.integers(-127, 128, (n, k)).astype(np.int8))
+    got = Q.int8_matmul(x.to(dev), w.to(dev))
+    assert got.dtype == torch.int32 and got.shape == (m, n)
+    exact = x.to(dev).double() @ w.to(dev).double().t()
+    assert torch.equal(got.double(), exact)
+    if m <= 64 * 80:
+        assert torch.equal(got.cpu(), Q.int8_matmul(x, w))
+    big = torch.full((32, 3072), 127, dtype=torch.int8, device=dev)
+    assert int(Q.int8_matmul(big, -big[:8]).min()) == -127 * 127 * 3072
+
+
+@pytest.mark.parametrize("pool", ["cls", "mean"])
+def test_int8_tower_on_card_matches_cpu(dev, pool):
+    """The int8 text tower on the card against the CPU on one padded
+    batch: the int8 products are exact on both, the rest is f32 (softmax
+    probabilities in bf16), so the embeddings agree within 1e-4 of the
+    largest (a last-bit difference before a rounding to the 1/127 step can
+    move one quantized value)."""
+    from multimodalsimilar_tpu_torch.models.bert import BertConfig
+    from multimodalsimilar_tpu_torch.models.classifiers import (
+        NlpTextClassifier)
+    from multimodalsimilar_tpu_torch.models.quant import quantize_text_tower
+    from multimodalsimilar_tpu_torch.utils.dtypes import DTypePolicy
+    q = quantize_text_tower(NlpTextClassifier(
+        BertConfig.tiny(), pool=pool, policy=DTypePolicy.inference()))
+    rng = np.random.default_rng(7)
+    ids = torch.from_numpy(rng.integers(5, 128, (12, 24)).astype(np.int32))
+    mask = torch.ones_like(ids)
+    mask[3:, 10:] = 0
+    with torch.no_grad():
+        want = q.predict_emb(ids, mask).float()
+        got = q.to(dev).predict_emb(ids.to(dev), mask.to(dev)).float().cpu()
+    assert torch.allclose(got, want, rtol=0,
+                          atol=1e-4 * float(want.abs().max()))
+
+
+@pytest.mark.parametrize("name", ["vit_test", "convnext_test"])
+def test_new_backbones_on_card_match_cpu(dev, name):
+    """``vit_test`` and ``convnext_test`` features in full precision
+    (TF32 off in cuBLAS and cuDNN) on the card against the CPU within
+    1e-4, and under the inference policy within 2e-2 of the largest."""
+    from multimodalsimilar_tpu_torch.models.vision import (build_backbone,
+                                                           backbone_config)
+    from multimodalsimilar_tpu_torch.utils.dtypes import DTypePolicy
+    torch.backends.cudnn.allow_tf32 = False
+    x = torch.from_numpy(np.random.default_rng(8).normal(
+        size=(4, 3, 32, 32)).astype(np.float32))
+    for policy, tol in ((DTypePolicy.full_precision(), 1e-4),
+                        (DTypePolicy.inference(), 2e-2)):
+        model = build_backbone(backbone_config(name), policy)
+        with torch.no_grad():
+            want = model.features(x).float()
+            model = model.to(dev, memory_format=torch.channels_last)
+            got = model.features(x.to(dev).contiguous(
+                memory_format=torch.channels_last)).float().cpu()
+        scale = 1.0 if tol < 1e-3 else float(want.abs().max())
+        assert torch.allclose(got, want, rtol=0, atol=tol * scale), name

@@ -243,10 +243,13 @@ def test_eval_only_and_unported_backbones():
     model.train()      # trains, with drop-path masks from a generator
     with pytest.raises(RuntimeError, match="generator"):
         model(torch.zeros(2, 3, 16, 16))
-    for name in ("vit_base", "convnext_tiny"):
-        with pytest.raises(NotImplementedError, match="A16"):
-            backbone_config(name)
-    with pytest.raises(NotImplementedError, match="A16"):
+    # the ViT and ConvNeXt backbones are ported (tests/test_torch_vit.py,
+    # tests/test_torch_convnext.py); an unknown config type is refused
+    assert type(backbone_config("vit_base")).__name__ == "ViTConfig"
+    assert backbone_config("vit_base", image_size=384).resolution == 384
+    assert type(backbone_config("convnext_tiny")).__name__ == \
+        "ConvNeXtConfig"
+    with pytest.raises(TypeError, match="backbone config"):
         build_backbone(object(), DTypePolicy())
     # weights are a function of the generator's seed
     a = E.EfficientNet(E.EfficientNetConfig.tiny()).state_dict()

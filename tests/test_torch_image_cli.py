@@ -339,9 +339,12 @@ def test_refusals(cv_setup, mm_setup, tmp_path):
     args.checkpoint = None
     with pytest.raises(SystemExit, match="checkpoint"):
         cli._build_serve_service(args, device="cpu")
+    # a ViT backbone is ported: it gets as far as the images, which the
+    # default --img_root does not hold
     args = build_parser().parse_args(
-        ["serve", "--tower", "cv", "--data", "x", "--backbone", "vit_base"])
-    with pytest.raises(NotImplementedError, match="A16"):
+        ["serve", "--tower", "cv", "--data", "x", "--backbone", "vit_test",
+         "--image_size", "32", "--img_root", str(tmp_path / "none")])
+    with pytest.raises(SystemExit, match="no readable images"):
         cli._build_serve_service(args, table=table, device="cpu")
     # a checkpoint of another backbone does not fit the flags
     args = build_parser().parse_args(

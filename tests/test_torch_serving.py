@@ -981,11 +981,11 @@ def test_warm_serve_service_drives_every_path(tmp_path):
         service.close()
 
 
-def test_serve_score_th_defaults_and_unported_flags(tmp_path):
+def test_serve_score_th_defaults_and_unported_flags(tmp_path, capsys):
     """Unset --score_th resolves to the tower's reference operating point
     (nlp_infer.py:152); an explicit flag wins. The search-backend flags
-    raise instead of being ignored; the fasttext and daodian towers are
-    ported (tests/test_torch_daodian.py): without a model the fasttext
+    raise instead of being ignored, ``--int8`` builds the int8 tower; the
+    fasttext and daodian towers are ported (tests/test_torch_daodian.py): without a model the fasttext
     tower stops with a one-line error, and daodian has its own
     service."""
     args = build_parser().parse_args(["serve", "--data", "x"])
@@ -1000,11 +1000,19 @@ def test_serve_score_th_defaults_and_unported_flags(tmp_path):
         assert cli._serve_score_th(args) == want
         assert cli._serve_score_th(args) == jserve._serve_score_th(args)
     table = {"spu_sn": ["a"], "spu_name": ["b"]}
-    for argv in (["--pallas_topk"], ["--approx_recall", "0.9"],
-                 ["--int8"]):
+    for argv in (["--pallas_topk"], ["--approx_recall", "0.9"]):
         args = build_parser().parse_args(["serve", "--data", "x"] + argv)
         with pytest.raises(NotImplementedError):
             cli._build_serve_service(args, table=table, device="cpu")
+    # --int8 is ported (models/quant.py): the daemon serves the int8 tower
+    args = build_parser().parse_args(["serve", "--data", "x", "--int8",
+                                      "--max_length", "8"])
+    service, _ = cli._build_serve_service(args, table=table, device="cpu")
+    assert "int8 PTQ text tower" in capsys.readouterr().err
+    try:
+        assert service.similar("b", score_th=None)[0]["key"] == "a"
+    finally:
+        service.close()
     for tower, err in (("fasttext", SystemExit), ("daodian", ValueError)):
         args = build_parser().parse_args(["serve", "--data", "x",
                                           "--tower", tower])

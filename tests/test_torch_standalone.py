@@ -42,8 +42,8 @@ print(json.dumps([names, leaked]))
 """
 
 # the serving and export modules, which pull in the most of the package,
-# the image slice's, the daodian slice's, the training recipes' and the
-# command line's
+# the image slice's, the daodian slice's, the training recipes', the
+# command line's and the ViT, ConvNeXt and int8 towers'
 SERVING = ["cli.common", "cli.embed", "cli.embedders", "cli.serve",
            "pipelines.embed", "pipelines.microbatch", "pipelines.serving",
            "data.images", "pipelines.embcache", "models.efficientnet",
@@ -56,7 +56,10 @@ SERVING = ["cli.common", "cli.embed", "cli.embedders", "cli.serve",
            # the command line's
            "cli", "cli.__main__", "cli.parser", "cli.config", "cli.ckpt",
            "cli.ops", "models.reference_import", "models.reference_export",
-           "pipelines.spark", "pipelines.download"]
+           "pipelines.spark", "pipelines.download",
+           # the ViT, ConvNeXt and int8 towers
+           "models.vit", "models.convnext", "models.quant",
+           "models.hf_import"]
 
 
 def _py_files():
