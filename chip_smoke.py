@@ -256,7 +256,7 @@
    the plain head's on one batch (phase 4's tolerances), the checkpoint
    restores and serves through ``_load_cv_tower`` unchanged, with step
    p50/p95, examples/s, peak memory and a profiled step. (c) ``similar
-   nlp`` at ``configs/similar_nlp.yaml`` over 50,000 titles, bf16 and
+   nlp`` at ``configs/similar_nlp.yaml`` over 16,384 titles, bf16 and
    ``--int8``, through ``cli.main``: both launch the top-k; the int8
    embeddings' cosine to the f32 tower's (2,048 rows, TF32 off) must be
    >= 1 - 1e-3, the JAX package's budget, and the cosine to bf16 and the
@@ -268,6 +268,47 @@
    phase 5's fused path, top-k launches equal to micro-batches,
    the int8 and bf16 towers timed at buckets 1 and 64. The kernels line
    gets the new paths' launch counts.
+13. Phase 12 runs the multi-GPU layouts (``parallel/mesh.py``) in ranks
+   started by ``parallel/spawn.py`` (a time limit each: a hung collective
+   fails the phase): first one rank over NCCL (world 1, every collective
+   still through NCCL), the reference; on a machine with more than one
+   card, one rank per card over NCCL, held against it; then two ranks on
+   ``cuda:0`` over gloo, whose CUDA collectives stage through the host
+   (two shards meet on the card; their times are not scaling numbers).
+   In each rank: (a) ``train nlp`` at
+   ``configs/train_nlp_v2_dist.yaml`` (the base tower with dropout off,
+   a 10,205-class head, global batch 1,024 over 6,144 synthetic titles
+   with Zipf labels, 6 steps, class-balanced sampling) through
+   ``cli/train.py:_trainer`` over ``_mesh(args)``: f32 data-parallel,
+   ``--bf16_grads``, and with two ranks ``--model_parallel 2`` (10,206
+   classes, 5,103 a rank, the pad class masked). The loss and the
+   gradients of one global batch (reduced as a step reduces them, the
+   head gathered) and the per-step losses of every run of more than one
+   rank must match the one-rank f32 run's (losses within phase 4's kernel-path loss
+   tolerance; gradients within 1e-3 of each tensor's largest entry at the
+   head, 1e-2 under bf16, and 2e-2 in the bf16-computed tower; the pad
+   class without gradient); ArcFace launches equal the steps on every
+   rank, each on its own class block; the model-parallel checkpoint holds
+   the gathered head. Step p50, examples/s, peak memory and the
+   gradient all-reduce's time and share of the step are reported. (b)
+   ``similar nlp --config configs/similar_nlp.yaml`` over phase 2's
+   50,000 titles through ``cli.main``: each rank embeds its own rows, the
+   engine searches its block of the corpus, rank 0 writes; the two-rank
+   run's KV items must equal the one-rank run's exactly, top-k launches
+   counted per rank; after the job each rank holds the kernel against
+   its plain version on the inputs of its first launch there (its block
+   of the 65,536-row padded corpus, ``true_n`` masked, and the query
+   chunk), as phase 1 holds it. (c) ``sharded_knn_search`` at phase 1's shapes
+   (4,096 queries against 262,144 x 768 rows, in blocks of 131,072, with
+   duplicate rows across the block boundary), ip and l2: equal to the
+   one-block ``knn_search`` exactly, the tie to the lower index; each
+   rank then holds the kernel against its plain version on its own block
+   (ip and l2, k = 13), as phase 1 holds it. The
+   parent then times the top-k kernel on one block beside its bound,
+   the plain version and ``torch.topk``, and the ArcFace kernel on one
+   class block (5,103 x 768 at B = 128 and 1,024, as phase 3's recipe
+   heads). ``python3 chip_smoke.py --phases 12`` runs the builds and
+   phase 12 alone and prints no kernels or result line.
 
 Prints the card's name and power limit, one JSON line per phase, the
 ``{"kernels": [...]}`` line, and last ``{"ok": true, "device": ...}``.
@@ -1127,9 +1168,9 @@ def serve_vs_plain(service, queries, dev, buckets=(1, 8, 64)) -> dict:
 
 
 def closed_loop(call, texts, c: int) -> dict:
-    """max(192, 12 c) calls from ``c`` threads, each starting its next
+    """max(96, 12 c) calls from ``c`` threads, each starting its next
     call when the last returns; per-call latency on the host clock."""
-    n_req = max(192, 12 * c)
+    n_req = max(96, 12 * c)
     lat, failures, lock, nxt = [], [], threading.Lock(), [0]
 
     def client():
@@ -2866,7 +2907,7 @@ N_VIT_IMAGES = 4_096
 # precision_witness holds at WITNESS_COS)
 VIT_OWN_SCORE = 0.996
 N_NEW_CV_ROWS, N_NEW_TIMM_ROWS = 144, 288
-N_INT8_TITLES, N_INT8_F32 = 50_000, 2_048
+N_INT8_TITLES, N_INT8_F32 = 16_384, 2_048
 INT8_COS = 1e-3            # JAX's int8 budget against f32 (test_quant.py)
 # (rows, K, N) of int8 products: one row, 16 and 17 rows (the pad to
 # torch._int_mm's floor), a bucket-64 x 80-token request's QKV, and the
@@ -3140,8 +3181,408 @@ def phase11(dev) -> dict:
                                   SEED + 60, VIT_OWN_SCORE),
             "train": phase11_train(dev), "int8": phase11_int8(dev)}
 
+# -- phase 12: multi-GPU training and the corpus-sharded search --------------
 
-def main() -> None:
+DIST_BATCH, DIST_STEPS = 1_024, 6       # train_nlp_v2_dist.yaml's batch
+DIST_TIMEOUT = 600                      # a rank that hangs fails the phase
+# the loss of world 2 against world 1 on the same global batches: the
+# kernel path's loss tolerance of phase 4 (head_paths)
+DIST_LOSS_TOL = 2.0 * 64.0 * (AF_DCOS + math.sin(0.4) * math.sqrt(
+    2.0 * AF_DCOS))
+# gradients against world 1's f32 gradients, as a share of each tensor's
+# largest entry: phase 4's (head 1e-3, tower 2e-2); bf16 adds its rounding
+# of the mean (2^-8 of the largest shard gradient) to the head
+DIST_GRAD_TOL = {"f32": (1e-3, 2e-2), "bf16": (1e-2, 2e-2),
+                 "model_parallel": (1e-3, 2e-2)}
+
+
+def dist_args(output: str, *extra) -> argparse.Namespace:
+    """``train nlp --config configs/train_nlp_v2_dist.yaml`` as the command
+    line parses it (global batch 1,024, lr 5e-5 on both groups,
+    ``--bf16_grads``, class-balanced sampling), one epoch, logged every
+    step."""
+    from multimodalsimilar_tpu_torch.cli.common import _apply_yaml_config
+    from multimodalsimilar_tpu_torch.cli.parser import (_inject_yaml_argv,
+                                                        build_parser)
+    argv = ["train", "nlp", "--config",
+            config_path("train_nlp_v2_dist.yaml"), "--data", "unused",
+            "--output", output, "--epochs", "1", "--log_every", "1",
+            "--batch_size", str(DIST_BATCH), *extra]
+    parser = build_parser()
+    argv = _inject_yaml_argv(argv, parser)
+    args = parser.parse_args(argv)
+    _apply_yaml_config(args, argv)
+    return args
+
+
+def dist_first_grads(trainer, batch, dev) -> tuple:
+    """The loss and the gradients of one global batch on this rank's
+    block, reduced as a step reduces them, the class-sharded heads
+    gathered; the gradients are then cleared."""
+    from multimodalsimilar_tpu_torch.parallel.mesh import (MODEL_AXIS,
+                                                           shard_batch)
+    mesh = trainer.mesh
+    trainer.model.train()
+    trainer.generator.manual_seed(trainer._mask_seed())
+    loss, _ = trainer.task.train_loss(
+        to_device(shard_batch(mesh, batch), dev), trainer.margin)
+    loss.backward()
+    trainer._reduce_gradients()
+    loss = float(mesh.all_reduce(loss.detach().reshape(1), op="mean")[0])
+    grads = {}
+    for name, p in trainer.model.named_parameters():
+        g = p.grad
+        if name in trainer.shards:
+            g = mesh.all_gather(g, MODEL_AXIS).reshape(
+                (trainer.shards[name][1],) + tuple(g.shape[1:]))
+        grads[name] = g
+    trainer.optimizer.zero_grad(set_to_none=True)
+    return loss, grads
+
+
+def dist_grad_errors(grads: dict, ref: dict, tol: tuple) -> dict:
+    """Each gradient against world 1's, as a share of the tensor's largest
+    entry (at least 1e-4 of the model's largest gradient, as phase 4);
+    the head's pad rows must have no gradient."""
+    top = max(float(v.abs().max()) for v in ref.values())
+    worst = {"head": 0.0, "tower": 0.0}
+    for name, want in ref.items():
+        got = grads[name]
+        if got.shape[0] > want.shape[0]:           # the padded head
+            if float(got[want.shape[0]:].abs().max()) != 0.0:
+                raise AssertionError(f"{name}: a pad class has a gradient")
+            got = got[:want.shape[0]]
+        want = want.to(got.device)
+        group = "head" if name.startswith("head.") else "tower"
+        scale = max(float(want.abs().max()), 1e-4 * top)
+        rel = float((got - want).abs().max()) / scale
+        if rel > tol[group == "tower"]:
+            raise AssertionError(f"{name}: gradient differs from world 1's "
+                                 f"by {rel} of its largest entry {scale}")
+        worst[group] = max(worst[group], rel)
+    return worst
+
+
+def dist_train(dev, ref: bool, work: str) -> dict:
+    """(a): ``train nlp`` at ``train_nlp_v2_dist.yaml`` on this rank, f32
+    and ``--bf16_grads`` data-parallel, and ``--model_parallel 2`` where
+    the world divides by 2; dropout off. The reference world writes its
+    f32 gradients and losses; the other holds its own against them."""
+    import torch.distributed as dist
+    from multimodalsimilar_tpu_torch.cli.train import _pad_for_model_parallel
+    table = json.load(open(os.path.join(work, "train.json"),
+                           encoding="utf-8"))
+    tok = TextTokenizer.from_corpus(table["spu_name"])
+    world, rank = dist.get_world_size(), dist.get_rank()
+    model = NlpTextClassifier(
+        BertConfig.roberta_wwm_ext(hidden_dropout=0.0, attention_dropout=0.0),
+        num_labels=AF_C, arcface=A.ArcFaceParams(m=0.4),
+        generator=torch.Generator().manual_seed(SEED))
+    init = {k: v.clone() for k, v in model.state_dict().items()}
+    configs = ["f32", "bf16"] + (["model_parallel"] if world % 2 == 0
+                                 else [])
+    out = {}
+    for name in configs:
+        flags = ["--model_parallel", "2"] if name == "model_parallel" else []
+        args = dist_args(os.path.join(work, f"train_{name}_{world}"), *flags)
+        args.bf16_grads = name == "bf16"
+        src = TextClassificationSource(
+            table, tok, args.text_col, args.label_col, args.max_length,
+            clean=not args.no_clean, seq_buckets=args.seq_buckets)
+        num_labels, num_valid = _pad_for_model_parallel(AF_C, args)
+        model.load_state_dict(init)
+        if num_labels != AF_C:     # the pad row: masked, never a target
+            model.head.weight = torch.nn.Parameter(torch.cat(
+                [init["head.weight"], init["head.weight"][:1]]))
+            model.num_labels = num_labels
+        trainer = _trainer(text_arcface_task(model, num_valid=num_valid),
+                           args, DIST_STEPS, device=dev)
+        if name != "model_parallel":
+            trainer.ckpt = None      # phase 4 holds the one-card save
+        batch = next(src.batches(DIST_BATCH, shuffle=False))
+        first_loss, grads = dist_first_grads(trainer, batch, dev)
+        ref_path = os.path.join(work, "grads_f32.pt")
+        row = {"first_loss": first_loss,
+               "head_rows_on_rank": trainer.model.head.weight.shape[0]}
+        if ref and name == "f32" and rank == 0:
+            torch.save({k: v.cpu() for k, v in grads.items()}, ref_path)
+        elif not ref and rank == 0:
+            want = torch.load(ref_path, weights_only=True)
+            row["grad_rel_err"] = dist_grad_errors(grads, want,
+                                                   DIST_GRAD_TOL[name])
+        del grads
+        timed = []
+        reduce = trainer._reduce_gradients
+
+        def timed_reduce(reduce=reduce):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            reduce()
+            end.record()
+            timed.append((start, end))
+
+        trainer._reduce_gradients = timed_reduce
+        A.LAUNCHES["arcface"] = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        trainer.fit(src, args.epochs, args.batch_size,
+                    sampler_fn=_sampler_fn(args, table, args.label_col))
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        launches = A.LAUNCHES["arcface"]
+        if trainer.step != DIST_STEPS or launches != DIST_STEPS:
+            raise AssertionError(f"{name}: {trainer.step} steps, "
+                                 f"{launches} ArcFace launches on rank "
+                                 f"{rank}; want {DIST_STEPS} of each")
+        summary = trainer.timer.summary(args.batch_size)
+        reduce_ms = sum(a.elapsed_time(b) for a, b in timed) / len(timed)
+        row.update(steps=trainer.step, arcface_launches=launches,
+                   fit_s=fit_s, step_ms_p50=summary["p50_ms"],
+                   examples_per_s=summary["examples_per_sec"],
+                   max_memory_allocated=torch.cuda.max_memory_allocated(),
+                   all_reduce_ms_per_step=reduce_ms,
+                   all_reduce_share=reduce_ms / summary["p50_ms"])
+        if rank == 0:
+            losses = [ln["train/loss"] for ln in map(json.loads, open(
+                os.path.join(args.output, "metrics.jsonl"),
+                encoding="utf-8")) if "train/loss" in ln]
+            row["losses"] = losses
+            path = os.path.join(work, f"losses_{name}.json")
+            if ref:
+                json.dump([first_loss] + losses, open(path, "w"))
+            else:
+                want = json.load(open(os.path.join(
+                    work, "losses_f32.json" if name == "model_parallel"
+                    else f"losses_{name}.json")))
+                err = max(abs(a - b) for a, b in zip([first_loss] + losses,
+                                                      want))
+                if len(want) != len(losses) + 1 or err > DIST_LOSS_TOL:
+                    raise AssertionError(f"{name}: losses {losses} vs "
+                                         f"world 1's {want[1:]}")
+                row["loss_abs_err"] = err
+        full = trainer.full_state()
+        if name == "model_parallel" and rank == 0:
+            # the checkpoint is in the one-card layout
+            saved = trainer.ckpt.restore()["model"]["head.weight"]
+            if saved.shape != (num_labels, AF_D) or not torch.equal(
+                    saved, full["model"]["head.weight"].cpu()):
+                raise AssertionError("the model-parallel checkpoint does "
+                                     "not hold the gathered head")
+            row["checkpoint_head_rows"] = saved.shape[0]
+        del full
+        release(trainer)
+        model.head.weight = torch.nn.Parameter(init["head.weight"].clone())
+        model.head.mesh, model.head.column_offset = None, 0
+        model.num_labels = AF_C
+        out[name] = row
+        torch.cuda.empty_cache()
+    return out
+
+
+def dist_similar(ref: bool, work: str) -> dict:
+    """(b): ``similar nlp --config configs/similar_nlp.yaml`` over phase
+    2's 50,000 titles through ``cli.main`` on this rank. The reference
+    world writes its KV items; the other's rank 0 must write the same."""
+    import torch.distributed as dist
+    from multimodalsimilar_tpu_torch.cli import similar as cli_similar
+    sink = InMemoryKVSink()
+    saved = cli_similar._kv_sink
+    cli_similar._kv_sink = lambda args: sink
+    launch = T.topk_cuda
+    first = []
+
+    def recorded(corpus, queries, k, metric="ip", true_n=None):
+        if not first:                  # copies: the job may reuse them
+            first.append((corpus.clone(), queries.clone(), k, metric,
+                          true_n))
+        return launch(corpus, queries, k, metric, true_n)
+
+    T.topk_cuda = recorded
+    try:
+        _, _, wall, launches = run_cli(
+            ["similar", "nlp", "--config", config_path("similar_nlp.yaml"),
+             "--data", os.path.join(work, "titles.csv")])
+    finally:
+        cli_similar._kv_sink = saved
+        T.topk_cuda = launch
+    if launches["topk"] < 1:
+        raise AssertionError("similar nlp never launched the top-k kernel")
+    row = {"wall_s": wall, "topk_launches": launches["topk"],
+           "kernel_vs_plain": check_launch(f"similar nlp rank "
+                                           f"{dist.get_rank()}", *first[0])}
+    del first
+    if dist.get_rank() == 0:
+        items = kv_items(sink)
+        path = os.path.join(work, "similar_items.json")
+        if ref:
+            json.dump(items, open(path, "w", encoding="utf-8"))
+        else:
+            want = json.load(open(path, encoding="utf-8"))
+            if items != want:
+                bad = sum(items.get(k) != v for k, v in want.items())
+                raise AssertionError(f"sharded similar nlp: {bad} of "
+                                     f"{len(want)} KV items differ from "
+                                     f"the one-rank job's")
+        row["written"] = len(items)
+    return row
+
+
+def check_launch(name, corpus, queries, k, metric, true_n=None) -> dict:
+    """The top-k kernel against its plain version (k + 1 columns) on one
+    block's inputs, as phase 1's ``run`` holds it."""
+    got = T.topk_cuda(corpus, queries, k, metric, true_n)
+    want = T.topk_plain(corpus, queries, k + 1, metric, true_n)
+    torch.cuda.synchronize()
+    if true_n is not None and int(got[1].max()) >= true_n:
+        raise AssertionError(f"{name}: a masked row came back")
+    err = check_case(name, got, want, k)
+    return {"q": queries.shape[0], "n": corpus.shape[0],
+            "true_n": corpus.shape[0] if true_n is None else true_n,
+            "d": corpus.shape[1], "k": k, "metric": metric,
+            "max_abs_err": err}
+
+
+def dist_search(dev) -> dict:
+    """(c): ``sharded_knn_search`` at phase 1's shapes, 4,096 queries
+    against 262,144 x 768 rows in blocks over the data axis, with
+    duplicate rows on both sides of the block boundary: it must equal the
+    one-block answer (``knn_search`` on this rank) exactly; then the
+    kernel on this rank's block against its plain version."""
+    from multimodalsimilar_tpu_torch.parallel.mesh import (MeshRules,
+                                                           create_mesh)
+    from multimodalsimilar_tpu_torch.retrieval.knn import sharded_knn_search
+    mesh = create_mesh()
+    rng = np.random.default_rng(SEED + 120)
+    x = unit_rows(rng, N_CORPUS, DIM, dev)
+    half = N_CORPUS // 2
+    tied = [half - 1, 3, half - 2]
+    for a, b in zip(tied, (half, half + 7, N_CORPUS - 1)):
+        x[b] = x[a]                        # ties across the boundary
+    q = unit_rows(rng, N_QUERY, DIM, dev)
+    q[:3] = x[tied]
+    block = x[MeshRules(mesh).corpus_sharded(N_CORPUS)].contiguous()
+    out = {}
+    for metric in ("ip", "l2"):
+        T.LAUNCHES["topk"] = 0
+        v, i = sharded_knn_search(mesh, block, q, 13, metric)
+        torch.cuda.synchronize()
+        launches = T.LAUNCHES["topk"]
+        rv, ri = knn_search(x, q, 13, metric)
+        if not (torch.equal(v, rv) and torch.equal(i, ri)):
+            raise AssertionError(
+                f"sharded search ({metric}): {int((i != ri).sum())} "
+                f"indices and max score err {float((v - rv).abs().max())} "
+                f"against the one-block answer")
+        if i[0, :2].tolist() != [half - 1, half]:
+            raise AssertionError(f"{metric}: the tie across the boundary "
+                                 f"went to {i[0, :2].tolist()}")
+        out[metric] = {"topk_launches": launches, "exact": True,
+                       "kernel_vs_plain": check_launch(
+                           f"search block {mesh.rank} ({metric})", block, q,
+                           13, metric)}
+    return out
+
+
+def phase12_rank(ref: bool, work: str) -> dict:
+    """What every rank of phase 12 runs: (a), (b) and (c) of the
+    docstring, its prints swallowed (rank 0's trainer logs every step)."""
+    import contextlib
+    import io
+
+    import torch.distributed as dist
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", torch.cuda.current_device())
+    with contextlib.redirect_stdout(io.StringIO()):
+        train = dist_train(dev, ref, work)
+        similar = dist_similar(ref, work)
+    return {"rank": dist.get_rank(), "world": dist.get_world_size(),
+            "backend": dist.get_backend(), "train": train,
+            "similar": similar, "search": dist_search(dev)}
+
+
+def phase12(dev) -> dict:
+    """Multi-GPU training and the corpus-sharded search (see the
+    docstring): one rank over NCCL (the reference), one rank per card
+    over NCCL where there are several, then two ranks on ``cuda:0`` over
+    gloo, each spawn with a time limit."""
+    from multimodalsimilar_tpu_torch.parallel.spawn import spawn
+    torch.cuda.empty_cache()
+    work = tempfile.mkdtemp(prefix="chip_smoke_dist_")
+    try:
+        rng = np.random.default_rng(SEED + 110)
+        n = DIST_BATCH * DIST_STEPS
+        json.dump({"spu_name": make_titles(n, rng),
+                   "tag_new_id": [int(v) for v in
+                                  zipf_with_last(n, AF_C, rng)]},
+                  open(os.path.join(work, "train.json"), "w",
+                       encoding="utf-8"))
+        titles = make_titles(N_TITLES, np.random.default_rng(SEED + 1))
+        write_csv(os.path.join(work, "titles.csv"),
+                  {"spu_sn": [f"spu{i:06d}" for i in range(N_TITLES)],
+                   "spu_name": titles})
+        n_cards = torch.cuda.device_count()
+        wall = {}
+
+        def run(name, world, ref, backend):
+            t0 = time.perf_counter()
+            ranks = spawn(phase12_rank, world, (ref, work), device="cuda",
+                          backend=backend, timeout=DIST_TIMEOUT,
+                          threads=None)
+            wall[name] = time.perf_counter() - t0
+            for r in ranks:
+                mp = r["train"].get("model_parallel")
+                if mp and mp["head_rows_on_rank"] != (AF_C + 1) // 2:
+                    raise AssertionError(f"{name} rank {r['rank']} holds "
+                                         f"{mp['head_rows_on_rank']} "
+                                         f"classes")
+            return ranks
+
+        nccl = run("nccl", 1, True, "nccl")
+        every_card = (run("nccl_every_card", n_cards, False, "nccl")
+                      if n_cards > 1 else None)
+        gloo = run("gloo_on_one_card", 2, False, "gloo")
+        # the kernel on one block of (c), alone, beside its bound and
+        # torch.topk of the same block
+        rng = np.random.default_rng(SEED + 121)
+        block = unit_rows(rng, N_CORPUS // 2, DIM, dev)
+        q = unit_rows(rng, N_QUERY, DIM, dev)
+        shard = {"q": N_QUERY, "n": N_CORPUS // 2, "d": DIM, "k": 13,
+                 "metric": "ip",
+                 "ms": cuda_ms(lambda: T.topk_cuda(block, q, 13, "ip")),
+                 "plain_ms": cuda_ms(lambda: T.topk_plain(block, q, 13,
+                                                          "ip"), reps=1),
+                 "library_ms": cuda_ms(lambda: topk_library(block, q, 13,
+                                                            "ip"))}
+        shard["bound_ms"], shard["bound_by"] = T.bound_ms(
+            N_QUERY, N_CORPUS // 2, DIM, 13, "ip")
+        del block, q
+        torch.cuda.empty_cache()
+        # the kernel on one class block of --model_parallel 2 (5,103 of
+        # 10,206 classes): a rank's 1,024 rows here, and a micro-batch of
+        # 128 (the batch a rank takes when the data axis splits it 8 ways)
+        blocks = [recipe_head(dev, f"model_parallel block, B={b}", b,
+                              (AF_C + 1) // 2, AF_D, 0.4)
+                  for b in (128, DIST_BATCH)]
+        return {"nccl": nccl, "nccl_every_card": every_card,
+                "gloo_on_one_card": gloo, "arcface_blocks": blocks,
+                "spawn_wall_s": wall,
+                "gloo_times": "two ranks share one card and their "
+                              "collectives stage through the host: not a "
+                              "scaling number",
+                "search_shard": shard}
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def main(argv=None) -> None:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--phases", default=None, metavar="N,M",
+                        help="run only these phases (a rehearsal: no "
+                             "kernels line and no result line)")
+    only = parser.parse_args(argv).phases
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this script runs on "
                          "an NVIDIA GPU")
@@ -3166,6 +3607,14 @@ def main() -> None:
               flush=True)
         return result
 
+    if only:
+        for n in only.split(","):
+            fn = globals()[f"phase{int(n)}"]
+            args = (dev, 0.05) if int(n) == 4 else (dev,)
+            print(json.dumps({f"phase{n}": run(f"phase{n}", fn, *args)},
+                             default=str), flush=True)
+        print(json.dumps({"phase_s": phase_s}), flush=True)
+        return
     p1 = run("phase1", phase1, dev)
     print(json.dumps({"phase1": p1["cases"]}), flush=True)
     print(json.dumps({"phase1_select": p1["select"]["cases"]}), flush=True)
@@ -3189,6 +3638,8 @@ def main() -> None:
     print(json.dumps({"phase10": p10}), flush=True)
     p11 = run("phase11", phase11, dev)
     print(json.dumps({"phase11": p11}), flush=True)
+    p12 = run("phase12", phase12, dev)
+    print(json.dumps({"phase12": p12}), flush=True)
     print(json.dumps({"phase_s": phase_s,
                       "total_s": time.perf_counter() - t0_all}), flush=True)
     cli_launches = p10["launches"]
@@ -3288,6 +3739,38 @@ def main() -> None:
     arcface["launches_cv_convnext"] = \
         p11["train"]["convnext"]["arcface_launches"]
     arcface["launches_cv_vit"] = p11["train"]["vit"]["arcface_launches"]
+    gloo = p12["gloo_on_one_card"]
+    # phase 12: launches on each rank of the two-rank run (gloo, one card)
+    arcface["launches_model_parallel"] = [
+        r["train"]["model_parallel"]["arcface_launches"] for r in gloo]
+    arcface["launches_data_parallel"] = {
+        name: [r["train"][name]["arcface_launches"] for r in gloo]
+        for name in ("f32", "bf16")}
+    arcface["launches_nccl"] = [r["train"]["f32"]["arcface_launches"]
+                                for r in p12["nccl"]]
+    topk["launches_sharded_search"] = [r["search"]["ip"]["topk_launches"]
+                                       for r in gloo]
+    topk["launches_sharded_similar_nlp"] = [
+        r["similar"]["topk_launches"] for r in gloo]
+    topk["sharded_search_shard"] = p12["search_shard"]
+    if p12["nccl_every_card"]:
+        arcface["launches_nccl_every_card"] = [
+            r["train"]["f32"]["arcface_launches"]
+            for r in p12["nccl_every_card"]]
+    # phase 12's checks of the kernel against its plain version on the
+    # sharded paths' blocks, every rank of every run
+    shard_checks = [c for r in p12["nccl"] + gloo + (
+        p12["nccl_every_card"] or []) for c in [r["similar"][
+            "kernel_vs_plain"]] + [r["search"][m]["kernel_vs_plain"]
+                                   for m in ("ip", "l2")]]
+    topk["sharded_blocks_max_abs_err"] = max(c["max_abs_err"]
+                                             for c in shard_checks)
+    topk["max_abs_err"] = max(topk["max_abs_err"],
+                              topk["sharded_blocks_max_abs_err"])
+    arcface["model_parallel_shapes"] = [{k: h[k] for k in (
+        "head", "b", "c", "d", "m", "max_abs_err", "ms", "plain_ms",
+        "yardstick_ms", "bound_ms", "bound_by")}
+        for h in p12["arcface_blocks"]]
     print(json.dumps({"kernels": [topk, arcface, topk_select]}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -8,8 +8,9 @@ check.
 ``_enable_compile_cache`` has no counterpart: it turns on XLA's
 persistent compilation cache, and the port compiles nothing per job
 (its kernels are built once into ``multimodalsimilar_tpu_torch/build``,
-``ops/_build.py``). ``_mesh`` and ``_ckpt_has_pp`` belong to the
-multi-device layouts (ROADMAP A17).
+``ops/_build.py``). ``_mesh`` builds the ``(data, model)`` mesh over the
+ranks ``torchrun`` started (``parallel/mesh.py``); ``_ckpt_has_pp``
+belongs to the pipeline-parallel layout (ROADMAP A17 part 2).
 """
 
 from __future__ import annotations
@@ -152,17 +153,37 @@ def _make_table_sink(table: str, key_col=None):
     return ParquetTableSink(table)
 
 
-def _knn_backend_mesh(args) -> None:
-    """The similar jobs' search flags. The JAX package picks a search
-    backend and a device mesh here; the port has one search, exact on
+def _mesh(args=None):
+    """The ``(data, model)`` mesh over every rank (``--model_parallel``
+    ranks on the model axis; one rank without a process group)."""
+    from multimodalsimilar_tpu_torch.parallel.mesh import create_mesh
+    mp = int(getattr(args, "model_parallel", 1) or 1) if args else 1
+    return create_mesh(model=mp)
+
+
+def _knn_backend_mesh(args):
+    """The mesh the similar jobs search over, or None. The JAX package
+    also picks a search backend here; the port has one search, exact on
     the device (``csrc/topk.cu``, ``csrc/topk_select.cu`` above k = 128),
-    so ``--pallas_topk`` and ``--approx_recall`` raise instead of being
-    ignored."""
-    for flag in ("pallas_topk", "approx_recall"):
-        if getattr(args, flag, None) not in (None, False):
-            raise NotImplementedError(
-                f"--{flag}: the port has no search-backend option; the "
-                "device runs the exact search (csrc/topk.cu on a card)")
+    so ``--pallas_topk`` raises instead of being ignored.
+    ``--approx_recall r`` (0 < r <= 1) is the JAX package's approximate
+    search, a TPU op that it runs exactly on any other backend, without
+    a mesh: so does the port, after a notice."""
+    if getattr(args, "pallas_topk", False):
+        raise NotImplementedError(
+            "--pallas_topk: the port has no search-backend option; the "
+            "device runs the exact search (csrc/topk.cu on a card)")
+    approx = getattr(args, "approx_recall", None)
+    if approx is not None:
+        if not 0.0 < approx <= 1.0:
+            raise ValueError(f"approx_recall must be in (0, 1], "
+                             f"got {approx!r}")
+        print(f"--approx_recall {approx}: the approximate k-NN is a TPU op "
+              "(approx_max_k); on this device the search is exact, on one "
+              "device, as the JAX package runs it off a TPU",
+              file=sys.stderr)
+        return None
+    return _mesh(args)
 
 
 def _kv_sink(args):

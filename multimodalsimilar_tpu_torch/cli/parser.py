@@ -5,15 +5,22 @@ preloading read by ``cli/config.py`` (no PyYAML).
 
 ``main(argv=None, device="cuda")`` runs a command on the card; the CPU
 is asked for with ``main(argv, device="cpu")``, as the tests do (there is
-no ``--device`` flag, since the JAX parser has none). Flags whose layouts
-are not ported parse as in JAX and raise in the commands: the multi-GPU
-flags and ``--remat*`` (ROADMAP A17), ``--pallas_topk`` and
-``--approx_recall`` (the device runs one exact search).
+no ``--device`` flag, since the JAX parser has none). Under ``torchrun``
+(``WORLD_SIZE`` > 1) ``main`` first joins the process group
+(``parallel.mesh.init_distributed``: NCCL with one card a rank, gloo on
+the CPU), so ``torchrun --nproc_per_node N -m
+multimodalsimilar_tpu_torch.cli train nlp --config
+configs/train_nlp_v2_dist.yaml ...`` trains data-parallel over N cards.
+Flags whose layouts are not ported parse as in JAX and raise in the
+commands: ``--tensor_parallel``, ``--sequence_parallel``,
+``--pipeline_parallel`` and ``--remat*`` (ROADMAP A17 part 2), and
+``--pallas_topk`` (the device runs one exact search).
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 
 from multimodalsimilar_tpu_torch.cli.ckpt import (cmd_eval,
@@ -40,6 +47,10 @@ _EMB_CACHE = ("packed embedding cache directory (pipelines/embcache.py): "
               "one data.bin instead of per-SKU emb.txt files")
 _NOT_PORTED_SEARCH = ("refused: the port has one search, exact on the "
                       "device (csrc/topk.cu)")
+_APPROX = ("target recall of the JAX package's approximate TPU search, "
+           "0 < R <= 1; the search here is exact, as JAX runs it off a "
+           "TPU")
+_NOT_PORTED = "not ported (ROADMAP A17 part 2): refused"
 
 
 def _add_common_train_flags(p):
@@ -91,13 +102,11 @@ def _add_common_train_flags(p):
                    choices=["tiny", "base", "large"])
     p.add_argument("--fused_loss", action="store_true",
                    help="stream ArcFace+CE over class tiles (wide heads)")
-    p.add_argument("--remat", action="store_true",
-                   help="not ported (ROADMAP A17): refused")
+    p.add_argument("--remat", action="store_true", help=_NOT_PORTED)
     p.add_argument("--remat_policy", default="full",
-                   choices=["full", "dots"],
-                   help="not ported (ROADMAP A17): refused")
+                   choices=["full", "dots"], help=_NOT_PORTED)
     p.add_argument("--remat_skip", type=int, default=0, metavar="K",
-                   help="not ported (ROADMAP A17): refused")
+                   help=_NOT_PORTED)
     p.add_argument("--async_save", action="store_true",
                    help="periodic checkpoint writes overlap the next steps")
     p.add_argument("--resume", action="store_true",
@@ -108,18 +117,23 @@ def _add_common_train_flags(p):
                    help="torch.profiler trace of a few steady-state steps "
                         "to DIR")
     p.add_argument("--model_parallel", type=int, default=1, metavar="N",
-                   help="not ported (ROADMAP A17): refused unless 1")
+                   help="shard the ArcFace class weights over N ranks of "
+                        "the mesh's model axis (classes padded to a "
+                        "multiple of N and masked); the ranks come from "
+                        "torchrun")
     p.add_argument("--tensor_parallel", action="store_true",
-                   help="not ported (ROADMAP A17): refused")
+                   help=_NOT_PORTED)
     p.add_argument("--sequence_parallel", action="store_true",
-                   help="not ported (ROADMAP A17): refused")
+                   help=_NOT_PORTED)
     p.add_argument("--pipeline_parallel", type=int, default=0, metavar="M",
-                   help="not ported (ROADMAP A17): refused unless 0")
+                   help="not ported (ROADMAP A17 part 2): refused unless 0")
     p.add_argument("--grad_accum", type=int, default=1, metavar="K",
                    help="accumulate grads over K micro-batches before each "
                         "optimizer step")
     p.add_argument("--bf16_grads", action="store_true",
-                   help="not ported (ROADMAP A17): refused")
+                   help="all-reduce data-parallel gradients in bfloat16 "
+                        "(per-shard BatchNorm statistics); not with "
+                        "--model_parallel")
     p.add_argument("--seed", type=int, default=0)
 
 
@@ -166,7 +180,7 @@ def _add_search_flags(p):
     p.add_argument("--pallas_topk", action="store_true",
                    help=_NOT_PORTED_SEARCH)
     p.add_argument("--approx_recall", type=float, default=None,
-                   metavar="R", help=_NOT_PORTED_SEARCH)
+                   metavar="R", help=_APPROX)
 
 
 def _add_train(sub):
@@ -412,7 +426,7 @@ def _add_serve(sub):
     srv.add_argument("--pallas_topk", action="store_true",
                      help=_NOT_PORTED_SEARCH)
     srv.add_argument("--approx_recall", type=float, default=None,
-                     metavar="R", help=_NOT_PORTED_SEARCH)
+                     metavar="R", help=_APPROX)
     _add_int8(srv)
     _add_image_flags(srv)
     srv.add_argument("--emb_cache", default=None, metavar="DIR",
@@ -489,7 +503,8 @@ def _add_ops_and_checkpoints(sub):
                      help="clear an already-populated --out dir")
     imp.add_argument("--pipeline_parallel", type=int, default=0,
                      metavar="M",
-                     help="not ported (ROADMAP A17): refused unless 0")
+                     help="not ported (ROADMAP A17 part 2): refused "
+                          "unless 0")
     imp.set_defaults(fn=cmd_import_checkpoint)
 
     exp = sub.add_parser("export-checkpoint", allow_abbrev=False)
@@ -600,6 +615,10 @@ def main(argv=None, device="cuda"):
     argv = _inject_yaml_argv(argv, parser)
     args = parser.parse_args(argv)
     _apply_yaml_config(args, argv)
+    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
+        from multimodalsimilar_tpu_torch.parallel.mesh import (
+            init_distributed)
+        init_distributed(device)
     profile = getattr(args, "profile", None)
     try:
         if profile and not args.fn.__name__.startswith("cmd_train"):

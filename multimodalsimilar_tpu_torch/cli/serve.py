@@ -26,8 +26,9 @@ service through it too.
 
 As in ``cli/train.py``, the functions take the ``argparse.Namespace`` the
 JAX package's ``serve`` parser builds (``configs/serve*.yaml``'s values);
-the port's own parser comes with its CLI (ROADMAP A15). The
-search-backend flags raise ``NotImplementedError``. pandas and pyarrow
+the port's own parser comes with its CLI (ROADMAP A15).
+``--pallas_topk`` raises ``NotImplementedError``; ``--approx_recall``
+serves the exact search after a notice (``cli/common.py``). pandas and pyarrow
 are imported only by the ``--emb_table`` functions and ``read_table``:
 pass ``table=`` to build a service without them.
 """
@@ -77,10 +78,16 @@ def _serve_warm_payload(args):
 
 
 def _check_ported(args) -> None:
-    _knn_backend_mesh(args)
+    """The daemons serve on one card: a mesh of more than one rank is
+    sharded serving (ROADMAP A17 part 2)."""
     if int(getattr(args, "model_parallel", 1) or 1) != 1:
         raise NotImplementedError("--model_parallel: the port serves on "
-                                  "one card (ROADMAP A17)")
+                                  "one card (ROADMAP A17 part 2)")
+    mesh = _knn_backend_mesh(args)
+    if mesh is not None and mesh.size > 1:
+        raise NotImplementedError(
+            f"serve over {mesh.size} ranks: the port serves on one card "
+            f"(sharded serving, ROADMAP A17 part 2)")
 
 
 def _columns(table) -> list:

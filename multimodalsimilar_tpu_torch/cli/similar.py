@@ -7,7 +7,15 @@ builds its embedder and calls the port's job (``pipelines/similar.py``),
 whose search is the top-k kernel (``csrc/topk.cu``, k <= 128) or the
 selection kernel (``csrc/topk_select.cu``, k > 128) on a card. The KV
 sink is Redis with ``--redis_host``, else an in-memory dry run.
-``--pallas_topk`` and ``--approx_recall`` raise (``_knn_backend_mesh``).
+``--pallas_topk`` raises and ``--approx_recall`` runs the exact search on
+one device (``_knn_backend_mesh``).
+
+Under ``torchrun`` (``python -m multimodalsimilar_tpu_torch.cli`` joins
+the process group when ``WORLD_SIZE`` > 1) ``similar nlp`` and ``similar
+multimodal`` shard the search over the ranks as the JAX jobs do over the
+mesh's data axis; ``similar nlp`` also embeds each rank's own rows. Rank
+0 writes the sink and prints the result. ``similar daodian`` runs on one
+card (its per-area engines are small; ROADMAP A17 part 2).
 """
 
 from __future__ import annotations
@@ -54,15 +62,21 @@ def cmd_similar_nlp(args, device="cuda"):
         if not table["dt"]:
             raise SystemExit(f"--dt {args.dt}: no rows match in the input "
                              f"table")
-    _knn_backend_mesh(args)
+    mesh = _knn_backend_mesh(args)
     sink = _kv_sink(args)
     embed_fn = _embed_fn_from_embedder(
         _build_text_embedder(args, df=table, device=device))
     n = nlp_similar_job(table, embed_fn, sink, text_col=args.text_col,
                         key_col=args.key_col, k=args.k,
                         score_th=args.score_th,
-                        ttl_seconds=args.exp_seconds, device=device)
-    print(json.dumps({"written": n}))
+                        ttl_seconds=args.exp_seconds, device=device,
+                        mesh=mesh)
+    _print_rank0(mesh, {"written": n})
+
+
+def _print_rank0(mesh, result: dict) -> None:
+    if mesh is None or mesh.rank == 0:
+        print(json.dumps(result))
 
 
 def cmd_similar_multimodal(args, device="cuda"):
@@ -78,7 +92,7 @@ def cmd_similar_multimodal(args, device="cuda"):
     from multimodalsimilar_tpu_torch.pipelines.similar import (
         multimodal_similar_job, take_rows)
     table = read_table(args.data)
-    _knn_backend_mesh(args)
+    mesh = _knn_backend_mesh(args)
     if args.checkpoint:
         emb, keep = _fused_embeddings(args, table, device=device)
         table = take_rows(table, keep)
@@ -104,8 +118,8 @@ def cmd_similar_multimodal(args, device="cuda"):
     sink = _kv_sink(args)
     n = multimodal_similar_job(table, emb, sink, key_col=args.key_col,
                                k=args.k, ttl_seconds=args.exp_seconds,
-                               device=device)
-    print(json.dumps({"written": n}))
+                               device=device, mesh=mesh)
+    _print_rank0(mesh, {"written": n})
 
 
 def _gen_titles(table) -> list:
@@ -169,7 +183,11 @@ def cmd_similar_daodian(args, device="cuda"):
             "need the target date; pass --dt YYYY-MM-DD.")
     date_key = args.dt.replace("-", "") if (args.dt and args.date_keyed) \
         else None
-    _knn_backend_mesh(args)
+    mesh = _knn_backend_mesh(args)
+    if mesh is not None and mesh.size > 1:
+        raise NotImplementedError(
+            f"similar daodian over {mesh.size} ranks: the daodian job runs "
+            f"on one card (ROADMAP A17 part 2)")
     merged = daodian_similar_job(
         table, embed_titles, embed_skus, sink, ttl_seconds=args.exp_seconds,
         date_key=date_key, dt_col=args.dt_col, target_dt=args.dt,

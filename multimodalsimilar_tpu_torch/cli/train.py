@@ -10,23 +10,29 @@ tables as ``{column: list}`` mappings, trains, writes ``{output}/ckpt``,
 ``{output}/metrics.jsonl`` and, for the text recipes without
 ``--tokenizer``, ``{output}/vocab.txt``, and returns the Trainer
 (``train fasttext`` writes ``{output}/fasttext.pkl`` and returns the
-model). Flags that select the multi-GPU layouts raise (ROADMAP A17)
-instead of being ignored, and each command refuses the flags the JAX
-command refuses.
+model). Under ``torchrun`` every rank runs the command over the mesh of
+``_mesh(args)``: ``--batch_size`` is the global batch, ``--bf16_grads``
+all-reduces the gradients in bfloat16 and ``--model_parallel N`` shards
+the ArcFace heads' classes over N ranks, each head padded to a multiple
+of N with the pad classes masked (``_pad_for_model_parallel``). The
+flags of tensor, sequence and pipeline parallelism raise (ROADMAP A17
+part 2) instead of being ignored, and each command refuses the flags the
+JAX command refuses.
 """
 
 from __future__ import annotations
 
 import os
+import sys
 
 import torch
 
 from multimodalsimilar_tpu_torch.data.datasets import InputError, column
 
-# multi-GPU flags (ROADMAP A17) -> the value that leaves them off
-_NOT_PORTED = {"model_parallel": 1, "tensor_parallel": False,
-               "sequence_parallel": False, "pipeline_parallel": 0,
-               "bf16_grads": False}
+# flags of layouts not ported (ROADMAP A17 part 2) -> the value that
+# leaves them off
+_NOT_PORTED = {"tensor_parallel": False, "sequence_parallel": False,
+               "pipeline_parallel": 0}
 
 
 def _set_flags(args, flags) -> dict:
@@ -40,8 +46,24 @@ def _check_ported(args) -> None:
     bad = _set_flags(args, _NOT_PORTED)
     if bad:
         raise NotImplementedError(
-            f"flags {bad}: the multi-GPU layouts are not ported to the "
-            f"PyTorch trainer (ROADMAP A17)")
+            f"flags {bad}: tensor, sequence and pipeline parallelism are "
+            f"not ported to the PyTorch trainer (ROADMAP A17 part 2)")
+
+
+def _pad_for_model_parallel(num_labels, args):
+    """(head_size, num_valid): pad a class count up to a
+    ``--model_parallel`` multiple (a class block per rank; 10205 =
+    5*13*157 shares no factor with 2, 4 or 8). Pad classes are masked to
+    -inf in the task loss and eval (``train/tasks._mask_pad``): loss and
+    accuracy equal the unpadded head's."""
+    mp = int(getattr(args, "model_parallel", 1) or 1)
+    if mp <= 1 or num_labels % mp == 0:
+        return num_labels, None
+    padded = -(-num_labels // mp) * mp
+    print(f"--model_parallel {mp}: padding head {num_labels} -> {padded} "
+          f"classes ({padded - num_labels} masked pad classes)",
+          file=sys.stderr)
+    return padded, num_labels
 
 
 def _opt_step_units(args, steps_per_epoch):
@@ -82,8 +104,10 @@ def _trainer(task, args, steps_per_epoch, device="cuda"):
     """``--optimizer`` (AdamW or AdamP, each as one optimizer with a tower
     group and a head group with their own weight decay) under
     ``--scheduler``, ``--grad_accum`` and ``--profile``, and the Trainer
-    of ``args``; checkpoints and ``metrics.jsonl`` go under
+    of ``args`` over ``_mesh(args)`` (``--model_parallel``,
+    ``--bf16_grads``); checkpoints and ``metrics.jsonl`` go under
     ``args.output``."""
+    from multimodalsimilar_tpu_torch.cli.common import _mesh
     from multimodalsimilar_tpu_torch.train.optim import (AdamP, adamp_views,
                                                          dual_group)
     from multimodalsimilar_tpu_torch.train.trainer import (Trainer,
@@ -110,12 +134,15 @@ def _trainer(task, args, steps_per_epoch, device="cuda"):
         checkpoint_dir=os.path.join(args.output, "ckpt"),
         metrics_path=os.path.join(args.output, "metrics.jsonl"),
         profile_dir=getattr(args, "profile", None),
+        model_parallel_heads=getattr(args, "model_parallel", 1) > 1,
+        bf16_grad_allreduce=getattr(args, "bf16_grads", False),
         grad_accum=accum,
         overwrite=getattr(args, "overwrite", False),
         async_save=getattr(args, "async_save", False),
         seed=args.seed)
     os.makedirs(args.output, exist_ok=True)
-    return Trainer(task, make_optimizer, cfg, device=device)
+    return Trainer(task, make_optimizer, cfg, device=device,
+                   mesh=_mesh(args))
 
 
 def _sampler_fn(args, table, label_col):
@@ -202,12 +229,14 @@ def cmd_train_nlp(args, table=None, eval_table=None, device="cuda"):
             seq_buckets=getattr(args, "seq_buckets", None))
 
     src = source(table)
+    num_labels, num_valid = _pad_for_model_parallel(
+        _num_labels(table, args.label_col), args)
     model = NlpTextClassifier(
         config, pool=getattr(args, "pool", "cls"),
-        generator=_generator(args),
-        num_labels=_num_labels(table, args.label_col),
+        generator=_generator(args), num_labels=num_labels,
         arcface=ArcFaceParams(m=args.margin))
-    trainer = _trainer(text_arcface_task(model, fused_loss=args.fused_loss),
+    trainer = _trainer(text_arcface_task(model, fused_loss=args.fused_loss,
+                                         num_valid=num_valid),
                        args, max(len(src) // args.batch_size, 1), device)
     return _fit(trainer, args, src,
                 source(eval_table) if eval_table is not None else None,
@@ -255,12 +284,13 @@ def cmd_train_multilabel(args, table=None, eval_table=None, device="cuda"):
             seq_buckets=getattr(args, "seq_buckets", None)), cols)
 
     src = source(table)
-    model = NlpMultilabelClassifier(
-        config, *(_num_labels(table, c) for c in cols),
-        generator=_generator(args))
+    sizes, valid = zip(*(_pad_for_model_parallel(_num_labels(table, c),
+                                                 args) for c in cols))
+    model = NlpMultilabelClassifier(config, *sizes,
+                                    generator=_generator(args))
     task = multilabel_arcface_task(
         model, weights=(args.lv1_weight, args.lv2_weight, args.tag_weight),
-        fused_loss=args.fused_loss)
+        fused_loss=args.fused_loss, num_valid=valid)
     trainer = _trainer(task, args, max(len(src) // args.batch_size, 1),
                        device)
     return _fit(trainer, args, src,
@@ -301,13 +331,15 @@ def cmd_train_cv(args, table=None, eval_table=None, device="cuda"):
             t, args.img_root, args.key_col, args.label_col, args.image_size,
             train_aug=train_aug, decode_cache=args.decode_cache)
 
+    num_labels, num_valid = _pad_for_model_parallel(
+        _num_labels(table, args.label_col), args)
     model = CvImageClassifier(
         backbone_config(args.backbone, image_size=args.image_size),
-        num_labels=_num_labels(table, args.label_col), fc_dim=args.fc_dim,
+        num_labels=num_labels, fc_dim=args.fc_dim,
         arcface=ArcFaceParams(m=args.margin), generator=_generator(args))
     model = model.to(memory_format=torch.channels_last)
-    trainer = _trainer(cv_arcface_task(model), args, steps_per_epoch,
-                       device)
+    trainer = _trainer(cv_arcface_task(model, num_valid), args,
+                       steps_per_epoch, device)
     return _fit(trainer, args, source(table, True),
                 source(eval_table, False) if eval_table is not None
                 else None, _sampler_fn(args, table, args.label_col))
@@ -373,12 +405,14 @@ def cmd_train_multimodal(args, table=None, eval_table=None,
             clean=not args.no_clean)
 
     src = source(table, True)
+    num_labels, num_valid = _pad_for_model_parallel(
+        _num_labels(table, args.label_col), args)
     model = MultimodalClassifier(
         config, backbone_config(args.backbone, image_size=args.image_size),
-        num_labels=_num_labels(table, args.label_col), fc_dim=args.fc_dim,
+        num_labels=num_labels, fc_dim=args.fc_dim,
         generator=_generator(args))
     model = model.to(memory_format=torch.channels_last)
-    trainer = _trainer(multimodal_arcface_task(model), args,
+    trainer = _trainer(multimodal_arcface_task(model, num_valid), args,
                        max(len(src) // args.batch_size, 1), device)
     return _fit(trainer, args, src,
                 source(eval_table, False) if eval_table is not None

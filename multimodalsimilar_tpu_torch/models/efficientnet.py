@@ -156,8 +156,26 @@ def _bn_module(cfg: EfficientNetConfig, channels: int
                ) -> Optional[nn.BatchNorm2d]:
     if cfg.folded:
         return None                     # BN folded into the conv
-    return nn.BatchNorm2d(channels, eps=cfg.bn_eps,
-                          momentum=round(1.0 - cfg.bn_momentum, 6))
+    return with_stats_mesh(nn.BatchNorm2d(
+        channels, eps=cfg.bn_eps, momentum=round(1.0 - cfg.bn_momentum, 6)))
+
+
+def with_stats_mesh(bn: nn.modules.batchnorm._BatchNorm
+                    ) -> nn.modules.batchnorm._BatchNorm:
+    """``bn`` with its ``stats_mesh`` field declared: the mesh over whose
+    data group ``batch_norm`` takes the train()-mode statistics, ``None``
+    (this rank's batch alone) until ``set_stats_mesh`` sets it."""
+    bn.stats_mesh = None
+    return bn
+
+
+def set_stats_mesh(model: nn.Module, mesh) -> None:
+    """Every BatchNorm of ``model`` takes its train()-mode statistics over
+    ``mesh``'s data group (``None``: over this rank's batch alone). The
+    Trainer calls it on its default data-parallel path."""
+    for m in model.modules():
+        if isinstance(m, nn.modules.batchnorm._BatchNorm):
+            m.stats_mesh = mesh
 
 
 def conv(x: torch.Tensor, mod: nn.Conv2d, dtype: torch.dtype
@@ -178,15 +196,32 @@ def batch_norm(x: torch.Tensor, bn: Optional[nn.modules.batchnorm._BatchNorm],
     clipped at 0 (Flax ``_compute_stats``), and the running statistics
     move to ``momentum * running + (1 - momentum) * batch`` with that same
     biased variance (``F.batch_norm`` would store the unbiased one,
-    n/(n-1) larger) at Flax's momentum (0.9, torch's 0.1)."""
+    n/(n-1) larger) at Flax's momentum (0.9, torch's 0.1).
+
+    A module given a mesh (its ``stats_mesh`` field, ``set_stats_mesh``)
+    takes the statistics of the global batch:
+    the per-rank sums of x and x^2 are all-reduced over the mesh's data
+    group, differentiably, as GSPMD normalizes over the whole batch (the
+    ranks' shards are equal)."""
     if bn is None:
         return x
     shape = (1, -1) + (1,) * (x.dim() - 2)
     if bn.training:
         xf = x.float()
         dims = [d for d in range(x.dim()) if d != 1]
-        mean = xf.mean(dims)
-        var = torch.clamp_min((xf * xf).mean(dims) - mean * mean, 0.0)
+        mesh = getattr(bn, "stats_mesh", None)
+        if mesh is None:
+            mean = xf.mean(dims)
+            ex2 = (xf * xf).mean(dims)
+        else:
+            from torch.distributed.nn.functional import all_reduce
+
+            from multimodalsimilar_tpu_torch.parallel.mesh import DATA_AXIS
+            count = xf.numel() // xf.shape[1] * mesh.data
+            sums = all_reduce(torch.stack([xf.sum(dims), (xf * xf).sum(dims)]),
+                              group=mesh.group(DATA_AXIS))
+            mean, ex2 = sums[0] / count, sums[1] / count
+        var = torch.clamp_min(ex2 - mean * mean, 0.0)
         with torch.no_grad():
             keep = 1.0 - bn.momentum
             bn.running_mean.copy_(keep * bn.running_mean

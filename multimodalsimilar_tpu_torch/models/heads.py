@@ -6,6 +6,15 @@ without a label. The margin is an argument, so the per-epoch curriculum
 only changes a float. The device picks the margin path: the CUDA kernel
 for CUDA tensors, its plain version for CPU tensors (``ops/arcface.py``);
 there is no ``use_fused`` switch.
+
+``shard(mesh)`` keeps only this rank's block of classes on the mesh's
+model axis (the JAX package's ``class_sharded`` placement,
+``--model_parallel``): the head then returns the [B, C / model] logits
+of its own classes, the margin kernel unchanged on them (a label on
+another rank's block becomes -1, no target here), and ``train/tasks.py``
+takes the loss and accuracy over the model group. The embedding enters
+through ``copy_to_model_group``, so each rank's tower receives the
+gradient of every block.
 """
 
 from __future__ import annotations
@@ -18,6 +27,28 @@ from torch import nn
 
 from multimodalsimilar_tpu_torch.ops.arcface import (
     ArcFaceParams, arcface_logits_fused, cosine_logits)
+from multimodalsimilar_tpu_torch.parallel.mesh import (MODEL_AXIS,
+                                                       MeshRules)
+
+
+class _CopyToModelGroup(torch.autograd.Function):
+    """Identity forward; backward sums the gradient over the mesh's model
+    group (every rank of a data coordinate runs the same tower on the
+    same batch, and each class block adds its share of the gradient)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return ctx.mesh.all_reduce(grad.contiguous().clone(),
+                                   MODEL_AXIS), None
+
+
+def copy_to_model_group(x: torch.Tensor, mesh) -> torch.Tensor:
+    return _CopyToModelGroup.apply(x, mesh)
 
 
 class ArcFaceHead(nn.Module):
@@ -29,6 +60,34 @@ class ArcFaceHead(nn.Module):
         self.weight = nn.Parameter(torch.empty(num_classes, dim,
                                                dtype=torch.float32))
         self.reset_parameters(generator)
+        # the class-sharding layout, set by ``shard``: the mesh whose
+        # model axis holds the blocks (None: the head is whole) and the
+        # first class of this rank's block
+        self.mesh = None
+        self.column_offset = 0
+
+    @property
+    def num_classes(self) -> int:
+        """The classes of the whole head, every block's."""
+        n = self.weight.shape[0]
+        return n if self.mesh is None else n * self.mesh.model
+
+    def shard(self, mesh) -> slice:
+        """Keep this rank's block of classes (``MeshRules.class_sharded``:
+        the class count must divide by the model axis); returns it."""
+        rows = MeshRules(mesh).class_sharded(self.num_classes)
+        self.weight = nn.Parameter(self.weight.detach()[rows].clone())
+        self.mesh, self.column_offset = mesh, rows.start
+        return rows
+
+    def local_labels(self, labels: torch.Tensor) -> torch.Tensor:
+        """Each label's column in this rank's block, -1 where another
+        block holds it (the labels as they are when the head is whole)."""
+        if self.mesh is None:
+            return labels
+        local = labels - self.column_offset
+        return torch.where((local >= 0) & (local < self.weight.shape[0]),
+                           local, torch.full_like(local, -1))
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None):
         """xavier-uniform: U(-a, a) with a = sqrt(6 / (C + D))."""
@@ -41,6 +100,10 @@ class ArcFaceHead(nn.Module):
     def forward(self, x: torch.Tensor, label: Optional[torch.Tensor] = None,
                 m: Optional[float] = None, is_test: bool = False
                 ) -> torch.Tensor:
+        if self.mesh is not None:
+            x = copy_to_model_group(x, self.mesh)
+            if label is not None:
+                label = self.local_labels(label)
         if is_test or label is None:
             return cosine_logits(x, self.weight)
         af = self.params_af

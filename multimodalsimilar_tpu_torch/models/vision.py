@@ -41,7 +41,7 @@ from multimodalsimilar_tpu_torch.models.bert import Dropout
 from multimodalsimilar_tpu_torch.models.convnext import (ConvNeXt,
                                                          ConvNeXtConfig)
 from multimodalsimilar_tpu_torch.models.efficientnet import (
-    EfficientNet, EfficientNetConfig, batch_norm)
+    EfficientNet, EfficientNetConfig, batch_norm, with_stats_mesh)
 from multimodalsimilar_tpu_torch.models.heads import ArcFaceHead
 from multimodalsimilar_tpu_torch.models.vit import ViT, ViTConfig
 from multimodalsimilar_tpu_torch.ops.arcface import ArcFaceParams, l2_normalize
@@ -98,7 +98,8 @@ def build_backbone(cfg, policy: DTypePolicy,
 
 
 def _bn1d(dim: int) -> nn.BatchNorm1d:
-    return nn.BatchNorm1d(dim, eps=1e-5, momentum=0.1)   # flax momentum 0.9
+    # flax momentum 0.9
+    return with_stats_mesh(nn.BatchNorm1d(dim, eps=1e-5, momentum=0.1))
 
 
 class ImageTower(nn.Module):

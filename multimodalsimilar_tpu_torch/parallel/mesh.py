@@ -1,0 +1,236 @@
+"""The (data, model) device mesh over ``torch.distributed`` (counterpart
+of multimodalsimilar_tpu/parallel/mesh.py).
+
+The JAX package runs one SPMD program over a ``jax.sharding.Mesh`` and
+lets XLA insert the collectives. The port runs one process per card
+(``torchrun``, or ``parallel/spawn.py`` in the tests and
+``chip_smoke.py``) and calls the collectives itself, on two families of
+process groups:
+
+* rank ``r`` sits at mesh coordinate ``(r // model, r % model)``, as
+  ``np.asarray(devices).reshape(data, model)`` places devices in JAX;
+* its **data group** holds the ranks with its model coordinate (the
+  gradient all-reduce, the corpus-sharded search, BatchNorm's global
+  statistics); its **model group** the ranks with its data coordinate,
+  which see the same batch (the class-sharded ArcFace heads).
+
+Without a process group (a plain one-process run) the mesh is 1 x 1 and
+every collective is the identity. With one, even of one rank, every
+collective runs through the backend: NCCL when each rank has its own
+card, gloo on the CPU.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import datetime
+import os
+import sys
+from typing import Any, Dict, List, Optional
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+DATA_AXIS = "data"
+MODEL_AXIS = "model"
+# how long a collective may wait for its peers before the rank fails
+TIMEOUT = datetime.timedelta(seconds=300)
+
+
+def init_distributed(device="cuda") -> int:
+    """Join the process group that ``torchrun`` describes in the
+    environment (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``,
+    ``MASTER_ADDR``/``MASTER_PORT``); returns the world size.
+
+    On a card each rank takes ``cuda:LOCAL_RANK`` as its current device
+    and the backend is NCCL; ``device="cpu"`` joins over gloo. The failure
+    policy is the JAX package's (``mesh.py:40-53``): a plain one-process
+    run (``WORLD_SIZE`` unset or 1) goes on as world 1 without a process
+    group, and a cluster that was asked for but cannot be joined raises
+    rather than run N independent jobs."""
+    if dist.is_initialized():
+        return dist.get_world_size()
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if world <= 1:
+        print("torch.distributed not initialized (WORLD_SIZE unset or 1); "
+              "single-process mode", file=sys.stderr, flush=True)
+        return 1
+    rank = int(os.environ["RANK"])
+    if torch.device(device).type == "cuda":
+        torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", rank)))
+        backend = "nccl"
+    else:
+        backend = "gloo"
+    dist.init_process_group(backend, init_method="env://", rank=rank,
+                            world_size=world, timeout=TIMEOUT)
+    return world
+
+
+class Mesh:
+    """This rank's view of a ``(data, model)`` mesh: the shape, its
+    coordinates, its two process groups and the collectives over them.
+    Build it with ``create_mesh``."""
+
+    def __init__(self, data: int, model: int, rank: int = 0,
+                 groups: Optional[Dict[str, Any]] = None):
+        self.data, self.model, self.rank = data, model, rank
+        self._groups = groups or {}
+
+    @property
+    def shape(self) -> Dict[str, int]:
+        return {DATA_AXIS: self.data, MODEL_AXIS: self.model}
+
+    @property
+    def size(self) -> int:
+        return self.data * self.model
+
+    @property
+    def data_index(self) -> int:
+        return self.rank // self.model
+
+    @property
+    def model_index(self) -> int:
+        return self.rank % self.model
+
+    @property
+    def distributed(self) -> bool:
+        """True when the collectives run through a process group."""
+        return bool(self._groups)
+
+    def group(self, axis: str):
+        """The process group of ``axis`` (None without one)."""
+        return self._groups.get(axis)
+
+    def __repr__(self) -> str:
+        return (f"Mesh(data={self.data}, model={self.model}, "
+                f"rank={self.rank}, distributed={self.distributed})")
+
+    # -- collectives ------------------------------------------------------
+
+    def all_reduce(self, t: torch.Tensor, axis: str = DATA_AXIS,
+                   op: str = "sum") -> torch.Tensor:
+        """``t`` reduced in place over ``axis`` (``op``: sum, mean, max or
+        min); returns ``t``. A mean divides the sum by the axis size."""
+        group = self.group(axis)
+        if group is None:
+            return t
+        red = {"sum": dist.ReduceOp.SUM, "mean": dist.ReduceOp.SUM,
+               "max": dist.ReduceOp.MAX, "min": dist.ReduceOp.MIN}[op]
+        dist.all_reduce(t, op=red, group=group)
+        if op == "mean":
+            t.div_(self.shape[axis])
+        return t
+
+    def all_gather(self, t: torch.Tensor,
+                   axis: str = DATA_AXIS) -> torch.Tensor:
+        """[axis size, *t.shape]: ``t`` of every rank of the axis, in
+        coordinate order."""
+        group = self.group(axis)
+        if group is None:
+            return t[None]
+        t = t.contiguous()
+        parts = [torch.empty_like(t) for _ in range(self.shape[axis])]
+        dist.all_gather(parts, t, group=group)
+        return torch.stack(parts)
+
+    def all_gather_rows(self, t: torch.Tensor,
+                        axis: str = DATA_AXIS) -> torch.Tensor:
+        """The rows of ``t`` [n_r, ...] of every rank of the axis,
+        concatenated in coordinate order; ``n_r`` may differ by rank."""
+        if self.group(axis) is None:
+            return t
+        n = torch.tensor([t.shape[0]], dtype=torch.int64, device=t.device)
+        counts = self.all_gather(n, axis)[:, 0].tolist()
+        pad = torch.zeros((max(counts),) + tuple(t.shape[1:]),
+                          dtype=t.dtype, device=t.device)
+        pad[:t.shape[0]] = t
+        parts = self.all_gather(pad, axis)
+        return torch.cat([p[:c] for p, c in zip(parts, counts)])
+
+    def broadcast_object(self, obj: Any, src: int = 0) -> Any:
+        """``obj`` of global rank ``src`` on every rank."""
+        if not self.distributed:
+            return obj
+        box: List[Any] = [obj]
+        dist.broadcast_object_list(box, src=src)
+        return box[0]
+
+    def barrier(self) -> None:
+        if self.distributed:
+            dist.barrier()
+
+
+def create_mesh(data: Optional[int] = None, model: int = 1) -> Mesh:
+    """The ``(data, model)`` mesh over every rank of the process group
+    (one rank, without one). With ``model=1`` every rank sits on the data
+    axis. Every rank must call it, in the same order as its other
+    ``create_mesh`` calls: building the process groups is collective."""
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    if data is None:
+        if world % model != 0:
+            raise ValueError(f"{world} devices not divisible by "
+                             f"model={model}")
+        data = world // model
+    if data * model != world:
+        raise ValueError(f"mesh {data}x{model} != {world} devices")
+    if not dist.is_initialized():
+        return Mesh(data, model)
+    rank = dist.get_rank()
+    layout = np.arange(world).reshape(data, model)
+    groups = {}
+    for axis, lines in ((MODEL_AXIS, layout), (DATA_AXIS, layout.T)):
+        for ranks in lines:
+            group = dist.new_group([int(r) for r in ranks])
+            if rank in ranks:
+                groups[axis] = group
+    return Mesh(data, model, rank, groups)
+
+
+def _block(n: int, parts: int, index: int) -> slice:
+    if n % parts:
+        raise ValueError(f"{n} rows not divisible by {parts} shards")
+    step = n // parts
+    return slice(index * step, (index + 1) * step)
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshRules:
+    """Which block of each array this rank holds (the JAX package's
+    NamedShardings: batch on ``data``, ArcFace class weights [C, D] on
+    ``model``, the retrieval corpus [N, D] on ``data``)."""
+
+    mesh: Mesh
+
+    def batch(self, n: int) -> slice:
+        return _block(n, self.mesh.data, self.mesh.data_index)
+
+    def class_sharded(self, num_classes: int) -> slice:
+        return _block(num_classes, self.mesh.model, self.mesh.model_index)
+
+    def corpus_sharded(self, n: int) -> slice:
+        return _block(n, self.mesh.data, self.mesh.data_index)
+
+
+def shard_batch(mesh: Mesh, batch: Dict[str, Any],
+                strict: bool = False) -> Dict[str, Any]:
+    """This rank's part of a host batch (numpy arrays or tensors, the
+    same global batch on every rank): each leaf whose leading dim divides
+    by the data axis is cut to this rank's block of rows; the rest
+    (scalars, metadata, an indivisible batch) stay whole on every rank,
+    as the JAX package replicates them. ``strict=True`` refuses an
+    indivisible leaf instead (the ``--bf16_grads`` path, whose per-rank
+    gradients would otherwise each cover the whole batch)."""
+    n_data = mesh.data
+    bad = [tuple(v.shape) for v in batch.values()
+           if getattr(v, "ndim", 0) >= 1 and v.shape[0] % n_data]
+    if strict and bad:
+        raise ValueError(
+            f"bf16_grad_allreduce: batch dims {bad} are not divisible by "
+            f"the data axis ({n_data} devices); pad the batch (batch "
+            f"sources do by default) or drop --bf16_grads")
+    if n_data == 1:
+        return batch
+    rows = MeshRules(mesh).batch
+    return {k: v[rows(v.shape[0])] if getattr(v, "ndim", 0) >= 1
+            and v.shape[0] % n_data == 0 else v for k, v in batch.items()}

@@ -20,6 +20,13 @@ Counterpart of ``multimodalsimilar_tpu/pipelines/similar.py``:
 Tables are pandas DataFrames or ``{column: list}`` mappings (the card
 machine has no pandas); the daodian job hands each area to its embedders
 as a ``{column: list}`` mapping.
+
+``mesh=`` (``parallel.mesh.Mesh``, every rank calling the job with the
+same table) shards the text and fused jobs over its data axis: each rank
+embeds its own block of rows (``embed_sharded``), the vectors are
+all-gathered into the query set, the engine searches its block of the
+corpus (``sharded_knn_search``), and rank 0 alone runs the filters and
+writes the sink; every rank returns the count rank 0 wrote.
 """
 
 from __future__ import annotations
@@ -50,10 +57,50 @@ def write_neighbor_map(sink: KVSink, neighbor_map: Dict[str, List[str]],
     return len(items)
 
 
+def _sharded(mesh) -> bool:
+    return mesh is not None and mesh.data > 1
+
+
+def row_block(mesh, n: int) -> range:
+    """This rank's contiguous block of ``n`` rows on the data axis
+    (ceil(n / data) rows a rank, the last block shorter)."""
+    per = -(-n // mesh.data)
+    return range(min(mesh.data_index * per, n),
+                 min((mesh.data_index + 1) * per, n))
+
+
+def embed_sharded(mesh, n: int, embed_rows: Callable[[range], np.ndarray],
+                  device) -> np.ndarray:
+    """[n, D]: ``embed_rows(block)`` of every rank's ``row_block``,
+    all-gathered in row order (each rank embeds only its own rows)."""
+    import torch
+    local = np.asarray(embed_rows(row_block(mesh, n)), np.float32)
+    t = torch.from_numpy(np.ascontiguousarray(local)).to(device)
+    return mesh.all_gather_rows(t).cpu().numpy()
+
+
+def _search_and_write(engine: SimilarityEngine, mesh, k: int,
+                      rules: FilterRules, sink: KVSink, ttl_seconds: int,
+                      key_fn: Callable[[str], str]) -> int:
+    """The engine's neighbour map written to ``sink``. Sharded, every
+    rank runs the search and rank 0 alone filters and writes."""
+    if not engine.sharded:
+        return write_neighbor_map(sink, engine.similar_map(k, rules),
+                                  ttl_seconds, key_fn)
+    if mesh.rank == 0:
+        n = write_neighbor_map(sink, engine.similar_map(k, rules),
+                               ttl_seconds, key_fn)
+    else:
+        engine.search(k)     # this rank's shard of every query's search
+        n = None
+    return mesh.broadcast_object(n)
+
+
 def nlp_similar_job(table, embed_texts, sink: KVSink,
                     text_col: str = "spu_name", key_col: str = "spu_sn",
                     k: int = 13, score_th: float = 0.9,
-                    ttl_seconds: int = WEEK, device="cuda") -> int:
+                    ttl_seconds: int = WEEK, device="cuda",
+                    mesh=None) -> int:
     """``table`` is a pandas DataFrame or a ``{column: list}`` mapping.
 
     Divergence kept ON PURPOSE, as in the JAX package: the reference loop
@@ -61,26 +108,34 @@ def nlp_similar_job(table, embed_texts, sink: KVSink,
     so with duplicate spu_sn rows it can write a key as its own neighbor;
     we always drop same-key neighbors and dedup (see retrieval/filters.py
     docstring)."""
-    emb = embed_texts([str(t) for t in column(table, text_col)])
+    texts = [str(t) for t in column(table, text_col)]
+    if _sharded(mesh):
+        emb = embed_sharded(mesh, len(texts), lambda rows: embed_texts(
+            [texts[i] for i in rows]), device)
+    else:
+        emb = embed_texts(texts)
     engine = SimilarityEngine(emb, column(table, key_col), metric="ip",
-                              normalize=True, device=device)
-    nmap = engine.similar_map(k, FilterRules(score_threshold=score_th,
-                                             same_category=False))
-    return write_neighbor_map(sink, nmap, ttl_seconds,
-                              lambda s: f"dj_similar:{s}")
+                              normalize=True, device=device, mesh=mesh)
+    return _search_and_write(
+        engine, mesh, k, FilterRules(score_threshold=score_th,
+                                     same_category=False),
+        sink, ttl_seconds, lambda s: f"dj_similar:{s}")
 
 
 def multimodal_similar_job(table, embeddings, sink: KVSink,
                            key_col: str = "spu_sn", k: int = 13,
-                           ttl_seconds: int = WEEK, device="cuda") -> int:
+                           ttl_seconds: int = WEEK, device="cuda",
+                           mesh=None) -> int:
     """L2 metric on raw (un-normalized) fused embeddings, no threshold
     (multimodal_infer.py:140-159). ``table`` is a pandas DataFrame or a
-    ``{column: list}`` mapping whose rows ``embeddings`` [N, D] follow."""
+    ``{column: list}`` mapping whose rows ``embeddings`` [N, D] follow
+    (all of them on every rank under a mesh)."""
     engine = SimilarityEngine(embeddings, column(table, key_col),
-                              metric="l2", normalize=False, device=device)
-    nmap = engine.similar_map(k, FilterRules(same_category=False))
-    return write_neighbor_map(sink, nmap, ttl_seconds,
-                              lambda s: f"dj_similar:{s}")
+                              metric="l2", normalize=False, device=device,
+                              mesh=mesh)
+    return _search_and_write(engine, mesh, k,
+                             FilterRules(same_category=False), sink,
+                             ttl_seconds, lambda s: f"dj_similar:{s}")
 
 
 def norm_dt(v) -> str:

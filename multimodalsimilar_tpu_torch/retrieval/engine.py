@@ -8,11 +8,15 @@ lists come back to the host for the business-rule pass.
 ``fused_search_fn`` chains a tower into that search for the serving
 daemon.
 
-There is no backend, mesh or approximate-recall option: the device decides
-which path runs, and the JAX package's sharded and approximate searches are
-TPU paths. A full-ranking self-search (k >= n) under a same-category rule,
-the daodian text arm's, runs per category group
-(``_grouped_self_similar_map``), as in the JAX package.
+There is no backend or approximate-recall option: the device decides
+which path runs (the JAX package's approximate search is a TPU path).
+With a ``mesh`` whose data axis is above 1 the engine holds only this
+rank's block of the padded corpus and searches it with
+``sharded_knn_search`` (the JAX engine's sharded dispatch); every rank of
+the data axis then makes the same calls with the same queries and gets
+the same answers. A full-ranking self-search (k >= n) under a
+same-category rule, the daodian text arm's, runs per category group
+(``_grouped_self_similar_map``), as in the JAX package, on one device.
 """
 
 from __future__ import annotations
@@ -26,7 +30,8 @@ import torch
 from multimodalsimilar_tpu_torch.retrieval.filters import (
     FilterRules, _factorize, filter_neighbors, merge_neighbor_maps)
 from multimodalsimilar_tpu_torch.retrieval.knn import (
-    corpus_block_rows, knn_search, pad_corpus, plan_query_chunk)
+    corpus_block_rows, knn_search, next_pow2, pad_corpus, plan_query_chunk,
+    sharded_knn_search)
 from multimodalsimilar_tpu_torch.utils.devices import resolve_device
 
 
@@ -48,11 +53,14 @@ class SimilarityEngine:
                  categories: Optional[Sequence] = None,
                  dts: Optional[Sequence] = None,
                  metric: str = "ip", normalize: bool = True,
-                 device="cuda"):
+                 device="cuda", mesh=None):
         """``normalize=True`` reproduces faiss.normalize_L2 before indexing
         (cosine similarity); the fused-L2 job passes normalize=False,
-        metric='l2'. ``device`` holds the corpus and runs the search."""
+        metric='l2'. ``device`` holds the corpus and runs the search;
+        ``mesh`` (``parallel.mesh.Mesh``) shards it over its data axis."""
         self.device = resolve_device(device)
+        self.mesh = mesh
+        self.sharded = mesh is not None and mesh.data > 1
         emb = np.asarray(embeddings, np.float32)
         self.keys = list(keys)
         self.categories = categories
@@ -160,7 +168,11 @@ class SimilarityEngine:
         return len(rep_rows), len(app_src)
 
     def _patch_corpus_dev(self, rep_rows, rep_emb, app_emb):
-        """Apply an upsert delta to the cached device corpus, in place."""
+        """Apply an upsert delta to the cached device corpus, in place (a
+        sharded corpus is cut again from the host mirror at the next
+        search)."""
+        if self.sharded:
+            self._corpus_dev = None
         if self._corpus_dev is None:
             return
         corpus_dev, true_n, block = self._corpus_dev
@@ -186,7 +198,17 @@ class SimilarityEngine:
 
     def _ensure_corpus_dev(self):
         """(corpus_dev, true_n, block): the corpus uploaded once per engine,
-        pre-padded on the host to a block multiple."""
+        pre-padded on the host to a block multiple; sharded, this rank's
+        block of the corpus padded to a multiple of the data axis and at
+        least ``next_pow2(n, lo=512)`` rows (the JAX engine's bucket)."""
+        if self._corpus_dev is None and self.sharded:
+            from multimodalsimilar_tpu_torch.parallel.mesh import MeshRules
+            corpus, true_n = pad_corpus(self._emb, self.mesh.data,
+                                        self.metric,
+                                        target_rows=next_pow2(self.n, 512))
+            shard = corpus[MeshRules(self.mesh).corpus_sharded(len(corpus))]
+            self._corpus_dev = (torch.from_numpy(np.ascontiguousarray(
+                shard)).to(self.device), true_n, None)
         if self._corpus_dev is None:
             block = corpus_block_rows(self.n)
             corpus, true_n = pad_corpus(self._emb, block, self.metric)
@@ -195,13 +217,20 @@ class SimilarityEngine:
         return self._corpus_dev
 
     def _chunk_rows(self, k_eff: int) -> int:
-        return plan_query_chunk(self.n, self._emb.shape[1], k_eff,
+        rows = plan_query_chunk(self.n, self._emb.shape[1], k_eff,
                                 self.device, cap=self.QUERY_CHUNK)
+        if self.sharded:    # every rank must make the same calls
+            t = torch.tensor([rows], dtype=torch.int64, device=self.device)
+            rows = int(self.mesh.all_reduce(t, op="min")[0])
+        return rows
 
     def _dispatch_chunk(self, chunk: torch.Tensor, k: int):
         """Search ONE query chunk on the cached device corpus; returns
         device tensors (no readback)."""
         corpus_dev, true_n, _ = self._corpus_dev
+        if self.sharded:
+            return sharded_knn_search(self.mesh, corpus_dev, chunk, k,
+                                      self.metric, true_n=true_n)
         return knn_search(corpus_dev, chunk, k, self.metric, true_n=true_n)
 
     def search(self, k: int, queries=None):
@@ -255,6 +284,10 @@ class SimilarityEngine:
         it in place); the chain runs inside it."""
         if self.n == 0:
             return None
+        if self.sharded:
+            raise NotImplementedError(
+                "the fused serving chain over a sharded corpus (sharded "
+                "serving, ROADMAP A17 part 2)")
         self._ensure_corpus_dev()
         limit = self._chunk_rows(min(k, self.n))
         metric, normalized = self.metric, self._normalized
@@ -303,7 +336,7 @@ class SimilarityEngine:
     def similar_map(self, k: int, rules: FilterRules
                     ) -> Dict[object, List[object]]:
         if (rules.same_category and self.categories is not None
-                and self.n > 0 and k >= self.n):
+                and self.n > 0 and k >= self.n and not self.sharded):
             return self._grouped_self_similar_map(rules)
         scores, idx = self.search(k)
         return filter_neighbors(scores, idx, self.keys, self.categories,

@@ -1,10 +1,10 @@
 """Exact k-NN — the FAISS ``IndexFlat`` replacement, in PyTorch.
 
 Counterpart of ``multimodalsimilar_tpu/retrieval/knn.py`` (``knn_search``,
-``l2_normalize_rows``, ``pad_corpus``). The contract is the same: 'ip'
-returns inner products sorted descending, 'l2' squared L2 distances sorted
-ascending, ties go to the lower index, rows past ``true_n`` never win, and
-``k`` shrinks to ``min(k, true_n)``.
+``l2_normalize_rows``, ``pad_corpus``, ``sharded_knn_search``). The
+contract is the same: 'ip' returns inner products sorted descending, 'l2'
+squared L2 distances sorted ascending, ties go to the lower index, rows
+past ``true_n`` never win, and ``k`` shrinks to ``min(k, true_n)``.
 
 On a CUDA tensor the search is ``csrc/topk.cu`` for k <= 128 and the
 large-k route (f32 products, then ``csrc/topk_select.cu``) above; on a CPU
@@ -88,16 +88,67 @@ def plan_query_chunk(n: int, d: int, k: int, device: torch.device,
     return int(max(1, min(cap, 0.5 * free // per_query)))
 
 
-def pad_corpus(corpus: np.ndarray, multiple: int, metric: str = "ip"
-               ) -> Tuple[np.ndarray, int]:
-    """Pad corpus rows to a multiple of ``multiple`` with rows that can
-    never win (zeros for IP after the index mask, 1e18 rows for L2) and
-    return the true length to mask by."""
+def pad_corpus(corpus: np.ndarray, multiple: int, metric: str = "ip",
+               target_rows: Optional[int] = None) -> Tuple[np.ndarray, int]:
+    """Pad corpus rows to a multiple of ``multiple`` (at least
+    ``target_rows`` when given: bucketed targets let similarly sized
+    corpora share one shard shape) with rows that can never win (zeros
+    for IP after the index mask, 1e18 rows for L2) and return the true
+    length to mask by."""
     n = corpus.shape[0]
-    pad = (-n) % multiple
+    want = max(n, target_rows or 0)
+    want += (-want) % multiple
+    pad = want - n
     if pad == 0:
         return corpus, n
     fill = np.zeros((pad, corpus.shape[1]), corpus.dtype)
     if metric == "l2":
         fill = fill + 1e18
     return np.concatenate([corpus, fill], axis=0), n
+
+
+def sharded_knn_search(mesh, corpus_shard: torch.Tensor,
+                       queries: torch.Tensor, k: int, metric: str = "ip",
+                       true_n: Optional[int] = None
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Exact top-k with the corpus row-sharded over the mesh's data axis
+    (the JAX package's ``sharded_knn_search``): every rank passes its own
+    block of ``rows`` rows of the padded corpus (``pad_corpus`` to a
+    multiple of the axis, ``MeshRules.corpus_sharded``) and the same
+    queries, and every rank gets the same (scores, indices), equal to
+    ``knn_search`` over the whole corpus, FAISS order included.
+
+    Each rank searches its block with the kernels (``knn_search``:
+    ``csrc/topk.cu``, or the selection kernel where its k exceeds
+    ``MAX_K``) at ``local_k = min(k, rows)``, masking past ``true_n -
+    rank * rows``, and offsets its indices by ``rank * rows``; slots with
+    no real row carry (-inf, n). Only the [Q, local_k] candidates cross
+    between ranks (an all-gather); the merge keeps ``k_out = min(k,
+    true_n, ranks * local_k)`` by a stable descending sort: candidates
+    lie shard-major and each shard's in (score desc, index asc), so among
+    equal scores position order is index order."""
+    n_dev, i = mesh.data, mesh.data_index
+    rows, d = corpus_shard.shape
+    n = rows * n_dev
+    limit = n if true_n is None else true_n
+    local_k = min(k, rows)
+    k_out = min(k, limit, n_dev * local_k)
+    q = queries.shape[0]
+    dev = queries.device
+    vals = torch.full((q, local_k), float("-inf"), dtype=torch.float32,
+                      device=dev)
+    idx = torch.full((q, local_k), n, dtype=torch.int32, device=dev)
+    local_n = min(max(limit - i * rows, 0), rows)
+    if local_n and q and local_k:
+        v, gi = knn_search(corpus_shard, queries, local_k, metric,
+                           true_n=local_n)
+        vals[:, :v.shape[1]] = -v if metric == "l2" else v
+        idx[:, :gi.shape[1]] = gi + i * rows
+    v_all = mesh.all_gather(vals)                   # [n_dev, Q, local_k]
+    i_all = mesh.all_gather(idx)
+    v_flat = v_all.permute(1, 0, 2).reshape(q, n_dev * local_k)
+    i_flat = i_all.permute(1, 0, 2).reshape(q, n_dev * local_k)
+    top, order = torch.sort(v_flat, dim=1, descending=True, stable=True)
+    vals = top[:, :k_out]
+    idx = torch.gather(i_flat, 1, order[:, :k_out])
+    return (-vals if metric == "l2" else vals), idx

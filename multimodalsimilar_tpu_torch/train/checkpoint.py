@@ -19,6 +19,13 @@ The async contract is the JAX package's:
   the same step after a failure does write; ``force=True`` rewrites a
   step that was already saved (the end-of-fit save after the epoch-end
   margin update).
+
+A checkpoint is always in the one-card layout. A run whose ArcFace heads
+are class-sharded over the mesh's model axis (``--model_parallel``)
+gathers each head and its optimizer moments before rank 0 writes
+(``gather_shards``), and cuts them to each rank's block again on resume
+(``shard_state``): a ``--model_parallel 2`` checkpoint serves, embeds and
+exports on one card unchanged, as an orbax global array does in JAX.
 """
 
 from __future__ import annotations
@@ -29,6 +36,8 @@ import threading
 from typing import Any, List, Optional
 
 import torch
+
+from multimodalsimilar_tpu_torch.parallel.mesh import MODEL_AXIS, MeshRules
 
 _NAME = re.compile(r"^step_(\d+)\.pt$")
 
@@ -122,3 +131,70 @@ class CheckpointManager:
             return None
         return torch.load(self._path(step), map_location="cpu",
                           weights_only=True)
+
+
+def _sharded_entries(state: dict, shards: dict, optimizer):
+    """(section, key, parameter name) of every tensor of ``state`` that
+    holds a sharded parameter's rows: its weight, its gradient so far and
+    its optimizer moments (torch numbers a parameter by its position over
+    the optimizer's groups)."""
+    position = {id(p): i for i, p in enumerate(
+        p for g in optimizer.param_groups for p in g["params"])}
+    out = []
+    for name, (param, _) in shards.items():
+        out.append(("model", name, name))
+        if name in state.get("accum_grads", {}):
+            out.append(("accum_grads", name, name))
+        moments = state["optimizer"]["state"].get(position[id(param)], {})
+        out += [(("optimizer", position[id(param)]), k, name)
+                for k, v in moments.items()
+                if torch.is_tensor(v) and v.dim() == param.dim()]
+    return out
+
+
+def _section(state: dict, where):
+    if isinstance(where, tuple):
+        return state[where[0]]["state"][where[1]]
+    return state[where]
+
+
+def _rebuilt(state: dict) -> dict:
+    """``state`` with fresh dicts down to the tensors (the tensors shared),
+    so the caller's state dicts are never edited."""
+    out = dict(state)
+    out["model"] = dict(state["model"])
+    out["accum_grads"] = dict(state.get("accum_grads", {}))
+    opt = dict(state["optimizer"])
+    opt["state"] = {k: dict(v) for k, v in opt["state"].items()}
+    out["optimizer"] = opt
+    return out
+
+
+def gather_shards(state: dict, shards: dict, optimizer, mesh) -> dict:
+    """``state`` (the Trainer's, with ``shards``: name -> (parameter, whole
+    class count) of its class-sharded heads) in the one-card layout: each
+    sharded tensor all-gathered over the model group. Every rank calls
+    it."""
+    out = _rebuilt(state)
+    for where, key, name in _sharded_entries(out, shards, optimizer):
+        sec = _section(out, where)
+        t = sec[key]
+        sec[key] = mesh.all_gather(t, MODEL_AXIS).reshape(
+            (shards[name][1],) + tuple(t.shape[1:]))
+    return out
+
+
+def shard_state(state: dict, shards: dict, optimizer, mesh) -> dict:
+    """A one-card ``state`` cut to this rank's block of each sharded
+    head (``MeshRules.class_sharded``): the mesh shape must be the one
+    the Trainer shards for."""
+    out = _rebuilt(state)
+    for where, key, name in _sharded_entries(out, shards, optimizer):
+        sec = _section(out, where)
+        full = shards[name][1]
+        if sec[key].shape[0] != full:
+            raise ValueError(f"{name}: the checkpoint holds "
+                             f"{sec[key].shape[0]} classes, the model "
+                             f"{full}")
+        sec[key] = sec[key][MeshRules(mesh).class_sharded(full)]
+    return out

@@ -22,9 +22,35 @@ multimodalsimilar_tpu/train/trainer.py), on one device.
 * ``profile_dir``: a ``torch.profiler`` trace (``utils/profiling.py``) of
   ``profile_num_steps`` steps after micro-step ``profile_start_step``.
 
-The JAX package's mesh placements (class-sharded heads, TP, SP, PP,
-bf16 gradient all-reduce) are multi-GPU work (ROADMAP A17): their
-``TrainerConfig`` fields raise when set.
+Over a ``mesh`` (``parallel/mesh.py``; every rank builds the same Trainer
+and iterates the same global batches) the step computes what the JAX
+package's pjit step computes on the whole batch:
+
+* each rank takes its block of the batch (``shard_batch``) and the mean
+  loss over it; at each accumulation boundary the gradients are meaned
+  over the data group in f32 (``_reduce_gradients``: flat buckets, one
+  all-reduce each, after the backward), and BatchNorm normalizes with
+  the global batch's statistics (``models/efficientnet.py:batch_norm``);
+* ``bf16_grad_allreduce`` (``--bf16_grads``, JAX
+  ``_train_step_bf16_impl``) all-reduces the gradients in bfloat16,
+  normalizes each shard with its own statistics and means the running
+  ones over the data group after every micro-step; it refuses an
+  indivisible batch and a class-sharded head;
+* ``model_parallel_heads`` (``--model_parallel``) cuts each ArcFace head
+  whose class count divides by the model axis to this rank's block of
+  classes, with its optimizer moments (``ArcFaceHead.shard``; the tasks
+  take the loss over the model group); the rest stay whole, and when
+  nothing divides the Trainer raises, as JAX does;
+* dropout masks are drawn from ``(seed, step)`` mixed with the rank's
+  data coordinate (the ranks of one data coordinate see one batch and
+  draw the same masks);
+* metrics are meaned over the data group where they are logged, eval
+  sums over the whole split; rank 0 alone writes metrics and
+  checkpoints, the latter in the one-card layout with the head blocks
+  gathered (``full_state``), and ``load_state`` cuts them again.
+
+Tensor, sequence and pipeline parallelism are not ported (ROADMAP A17
+part 2): their ``TrainerConfig`` fields raise when set.
 """
 
 from __future__ import annotations
@@ -39,18 +65,24 @@ import torch
 
 from multimodalsimilar_tpu_torch.data.prefetch import prefetch_to_device
 from multimodalsimilar_tpu_torch.models.bert import set_dropout_generator
-from multimodalsimilar_tpu_torch.train.checkpoint import CheckpointManager
-from multimodalsimilar_tpu_torch.train.metrics import (MeanAccumulator,
-                                                       MetricLogger)
+from multimodalsimilar_tpu_torch.models.efficientnet import set_stats_mesh
+from multimodalsimilar_tpu_torch.parallel.mesh import (DATA_AXIS,
+                                                       create_mesh,
+                                                       shard_batch)
+from multimodalsimilar_tpu_torch.train.checkpoint import (CheckpointManager,
+                                                          gather_shards,
+                                                          shard_state)
+from multimodalsimilar_tpu_torch.train.metrics import MetricLogger
 from multimodalsimilar_tpu_torch.train.tasks import Task
 from multimodalsimilar_tpu_torch.utils.devices import resolve_device
 from multimodalsimilar_tpu_torch.utils.profiling import StepTimer, trace
 
-# TrainerConfig fields of the JAX package's multi-device layouts (ROADMAP
-# A17), with the value that leaves them off
-_NOT_PORTED = {"model_parallel_heads": False, "tensor_parallel": False,
-               "sequence_parallel": False, "pipeline_parallel": False,
-               "bf16_grad_allreduce": False}
+# TrainerConfig fields of the JAX package's layouts that are not ported
+# (ROADMAP A17 part 2), with the value that leaves them off
+_NOT_PORTED = {"tensor_parallel": False, "sequence_parallel": False,
+               "pipeline_parallel": False}
+# gradient elements per all-reduce of _reduce_gradients
+BUCKET_ELEMENTS = 8 * 2**20
 
 
 def _f32(x: float) -> float:
@@ -82,20 +114,23 @@ class TrainerConfig:
     profile_dir: Optional[str] = None     # torch.profiler trace output
     profile_start_step: int = 3           # past the warm-up steps
     profile_num_steps: int = 5
-    # multi-device layouts (see _NOT_PORTED): raise when set
+    # shard the ArcFace heads' classes over the mesh's model axis
     model_parallel_heads: bool = False
+    # all-reduce data-parallel gradients in bfloat16 (per-shard BatchNorm)
+    bf16_grad_allreduce: bool = False
+    # not ported (see _NOT_PORTED): raise when set
     tensor_parallel: bool = False
     sequence_parallel: bool = False
     pipeline_parallel: bool = False
-    bf16_grad_allreduce: bool = False
 
     def __post_init__(self):
         bad = [k for k, off in _NOT_PORTED.items()
                if getattr(self, k) != off]
         if bad:
             raise NotImplementedError(
-                f"TrainerConfig {bad}: the multi-device layouts are not "
-                f"ported to the PyTorch trainer (ROADMAP A17)")
+                f"TrainerConfig {bad}: tensor, sequence and pipeline "
+                f"parallelism are not ported to the PyTorch trainer "
+                f"(ROADMAP A17 part 2)")
         if self.grad_accum < 1:
             raise ValueError(f"grad_accum must be >= 1, got "
                              f"{self.grad_accum}")
@@ -105,17 +140,46 @@ class Trainer:
     """``make_optimizer(model) -> (optimizer, schedules)``, e.g.
     ``lambda m: dual_group_adamw(m, tower_sched, head_sched, 0.01)``. The
     model (``task.model``) moves to ``device``, which defaults to the card
-    and raises without one unless it is ``"cpu"``."""
+    and raises without one unless it is ``"cpu"``. ``mesh`` defaults to
+    ``create_mesh()``: every rank on the data axis (one rank without a
+    process group)."""
 
     def __init__(self, task: Task, make_optimizer: Callable,
-                 config: TrainerConfig = TrainerConfig(), device="cuda"):
+                 config: TrainerConfig = TrainerConfig(), device="cuda",
+                 mesh=None):
         self.device = resolve_device(device)
         self.task = task
         self.config = config
+        self.mesh = mesh if mesh is not None else create_mesh()
+        if config.bf16_grad_allreduce and config.model_parallel_heads:
+            raise ValueError(
+                "bf16_grad_allreduce is a pure-DP path (shard_map over the "
+                "data axis with fully replicated params); it cannot compose "
+                "with model_parallel_heads/tensor_parallel/"
+                "pipeline_parallel — pick one")
         self.model = task.model.to(self.device)
+        # name -> (parameter, classes of the whole head) of each head cut
+        # to this rank's block
+        self.shards = {}
+        if config.model_parallel_heads and self.mesh.model > 1:
+            self.shards = self._shard_heads()
+            if self.shards and task.fused_loss:
+                raise NotImplementedError(
+                    "--fused_loss with --model_parallel: the fused loss "
+                    "streams one device's whole head")
         self.optimizer, self.schedules = make_optimizer(self.model)
-        self.logger = MetricLogger(config.metrics_path,
-                                   config.tensorboard_dir)
+        if self.shards and not isinstance(self.optimizer,
+                                          torch.optim.AdamW):
+            raise NotImplementedError(
+                f"{type(self.optimizer).__name__} with --model_parallel: "
+                f"AdamP's channel view of a head weight spans every class "
+                f"block (ROADMAP A17 part 2)")
+        if not config.bf16_grad_allreduce \
+                and self.mesh.group(DATA_AXIS) is not None:
+            set_stats_mesh(self.model, self.mesh)   # global statistics
+        self.logger = (MetricLogger(config.metrics_path,
+                                    config.tensorboard_dir)
+                       if self.mesh.rank == 0 else None)
         self.ckpt = (CheckpointManager(config.checkpoint_dir,
                                        async_save=config.async_save)
                      if config.checkpoint_dir else None)
@@ -125,13 +189,52 @@ class Trainer:
         self.margin = _f32(config.margin_init)
         self.timer = StepTimer(skip_first=2)
 
+    # -- placement ------------------------------------------------------
+
+    def _shard_heads(self) -> dict:
+        """Cut each ArcFace head whose class count divides by the model
+        axis to this rank's block; raise when none does (the JAX
+        package's ``_place_state`` diagnosis, its messages)."""
+        from multimodalsimilar_tpu_torch.models.heads import ArcFaceHead
+        from multimodalsimilar_tpu_torch.train.optim import HEAD_NAMES
+        n = self.mesh.model
+        sharded, skipped = {}, []
+        for name, mod in self.model.named_modules():
+            if not (isinstance(mod, ArcFaceHead)
+                    and set(name.split(".")) & HEAD_NAMES):
+                continue
+            classes = mod.weight.shape[0]
+            if classes % n:
+                skipped.append((f"{name}.weight", classes))
+                continue
+            mod.shard(self.mesh)
+            sharded[f"{name}.weight"] = (mod.weight, classes)
+        if skipped and not sharded:
+            detail = ", ".join(f"{k} (classes={c}, {c} % {n} != 0)"
+                               for k, c in sorted(set(skipped)))
+            raise ValueError(
+                f"model_parallel={n} cannot shard any head: {detail}. "
+                f"Pick an N dividing the class count (e.g. 10205 = "
+                f"5*13*157 -> N=5), or drop --model_parallel.")
+        if skipped:
+            names = ", ".join(sorted({k for k, _ in skipped}))
+            print(f"model_parallel={n}: replicating indivisible heads "
+                  f"{names} (sharded {len(sharded)} weight shapes)",
+                  flush=True)
+        return sharded
+
+    def _batch_norms(self):
+        return [m for m in self.model.modules()
+                if isinstance(m, torch.nn.modules.batchnorm._BatchNorm)]
+
     # -- state ----------------------------------------------------------
 
     def state(self) -> dict:
-        """The training state a checkpoint holds (live references): the
-        model's parameters and buffers (BatchNorm statistics), optimizer,
-        schedules, margin and, between accumulation boundaries, the
-        gradients accumulated so far."""
+        """The training state a checkpoint holds (live references; a
+        class-sharded head as this rank's block): the model's parameters
+        and buffers (BatchNorm statistics), optimizer, schedules, margin
+        and, between accumulation boundaries, the gradients accumulated
+        so far."""
         grads = {name: p.grad for name, p in self.model.named_parameters()
                  if p.grad is not None}
         return {"step": self.step, "model": self.model.state_dict(),
@@ -139,7 +242,21 @@ class Trainer:
                 "schedulers": self.schedules.state_dict(),
                 "margin": self.margin, "accum_grads": grads}
 
+    def full_state(self) -> dict:
+        """``state()`` in the one-card layout: the class-sharded heads
+        and their optimizer moments gathered over the model group (a
+        collective: every rank calls it)."""
+        if not self.shards:
+            return self.state()
+        return gather_shards(self.state(), self.shards, self.optimizer,
+                             self.mesh)
+
     def load_state(self, state: dict) -> None:
+        """Load a ``full_state()`` (the one-card layout), cutting the
+        class-sharded heads to this rank's block."""
+        if self.shards:
+            state = shard_state(state, self.shards, self.optimizer,
+                                self.mesh)
         self.model.load_state_dict(state["model"])
         self.optimizer.load_state_dict(state["optimizer"])
         self.schedules.load_state_dict(state["schedulers"])
@@ -150,31 +267,105 @@ class Trainer:
             p.grad = (grads[name].to(p.device, p.dtype) if name in grads
                       else None)
 
+    def _save(self, step: int, force: bool = False) -> None:
+        """Rank 0 writes ``full_state()``; every rank meets at a barrier
+        once the copy to the host is made."""
+        state = self.full_state()
+        if self.mesh.rank == 0:
+            self.ckpt.save(step, state, force=force)
+        self.mesh.barrier()
+
     # -- steps ------------------------------------------------------------
+
+    def _mask_seed(self) -> int:
+        """Dropout's seed for this micro-step: ``(seed, step)``, mixed
+        with the rank's data coordinate (unchanged on coordinate 0)."""
+        base = (self.config.seed << 32) + self.step
+        return (base ^ (self.mesh.data_index * 0x9E3779B97F4A7C15)) \
+            & (2**64 - 1)
 
     def train_step(self, batch: Dict[str, torch.Tensor]
                    ) -> Dict[str, torch.Tensor]:
-        """One micro-step on a device batch (an optimizer step at every
-        ``grad_accum``-th); returns its metrics as device scalars (no host
+        """One micro-step on this rank's block of a batch (``shard_batch``;
+        the whole batch on one device), an optimizer step at every
+        ``grad_accum``-th; returns its metrics as device scalars (no host
         sync)."""
         accum = self.config.grad_accum
         self.model.train()
-        self.generator.manual_seed((self.config.seed << 32) + self.step)
+        self.generator.manual_seed(self._mask_seed())
         loss, metrics = self.task.train_loss(batch, self.margin)
         # the accumulated gradient is the mean of the micro-steps'
         (loss / accum if accum > 1 else loss).backward()
+        if self.config.bf16_grad_allreduce:
+            self._mean_batch_norm_statistics()
         self.step += 1
         if self.step % accum == 0:
+            self._reduce_gradients()
             self.optimizer.step()
             self.optimizer.zero_grad(set_to_none=True)
             self.schedules.step()
         return metrics
+
+    def _reduce_gradients(self) -> None:
+        """Mean the gradients over the data group: flat buckets of up to
+        ``BUCKET_ELEMENTS``, one all-reduce each, in f32 (or bfloat16 under
+        ``bf16_grad_allreduce``, cast back after the mean, as JAX's
+        ``pmean(g.astype(bf16))``)."""
+        if self.mesh.group(DATA_AXIS) is None:
+            return
+        grads = [p.grad for p in self.model.parameters()
+                 if p.grad is not None]
+        dtype = (torch.bfloat16 if self.config.bf16_grad_allreduce
+                 else torch.float32)
+        bucket, size = [], 0
+        for i, g in enumerate(grads):
+            bucket.append(g)
+            size += g.numel()
+            if size < BUCKET_ELEMENTS and i + 1 < len(grads):
+                continue
+            flat = torch.cat([b.reshape(-1) for b in bucket]).to(dtype)
+            self.mesh.all_reduce(flat, DATA_AXIS, "mean")
+            for b, part in zip(bucket, flat.split([b.numel()
+                                                   for b in bucket])):
+                b.copy_(part.view_as(b))
+            bucket, size = [], 0
+
+    def _mean_batch_norm_statistics(self) -> None:
+        """``--bf16_grads``: each shard normalized with its own statistics;
+        the float running statistics are meaned over the data group, all
+        of them in one flat all-reduce."""
+        bufs = [b for m in self._batch_norms()
+                for b in (m.running_mean, m.running_var)]
+        if not bufs or self.mesh.group(DATA_AXIS) is None:
+            return
+        flat = torch.cat([b.reshape(-1) for b in bufs])
+        self.mesh.all_reduce(flat, DATA_AXIS, "mean")
+        for b, part in zip(bufs, flat.split([b.numel() for b in bufs])):
+            b.copy_(part.view_as(b))
+
+    def _mean_metrics(self, metrics: Dict[str, torch.Tensor]
+                      ) -> Dict[str, float]:
+        """A step's metrics meaned over the data group, as host floats."""
+        if not metrics:
+            return {}
+        t = torch.stack([v.detach().float().reshape(()) for v in
+                         metrics.values()])
+        t = self.mesh.all_reduce(t, DATA_AXIS, "mean")
+        return dict(zip(metrics, t.tolist()))
 
     def eval_step(self, batch: Dict[str, torch.Tensor]
                   ) -> Dict[str, torch.Tensor]:
         self.model.eval()
         with torch.no_grad():
             return self.task.eval_metrics(batch)
+
+    def _shards(self, batches, strict: bool = False):
+        """(this rank's block of each host batch, its weight): the weight
+        is the batch's rows over the data axis, so the weighted sums over
+        the ranks count every row once, a batch left whole included."""
+        for b in batches:
+            n = int(next(iter(b.values())).shape[0])
+            yield shard_batch(self.mesh, b, strict=strict), n / self.mesh.data
 
     # -- curriculum ------------------------------------------------------
 
@@ -188,24 +379,44 @@ class Trainer:
     # -- evaluation -------------------------------------------------------
 
     def evaluate(self, batches: Iterator) -> Dict[str, float]:
-        """Mean metrics over a split. Depth-2 lagged readback: batch N-2's
-        scalars are read while batch N runs, which overlaps the readback
-        and bounds the batches held on the device."""
-        accs: Dict[str, MeanAccumulator] = {}
+        """Mean metrics over a split (every rank gets the same numbers).
+        Depth-2 lagged readback: batch N-2's scalars are read while batch
+        N runs, which overlaps the readback and bounds the batches held on
+        the device."""
+        sums: Dict[str, list] = {}
         pending: deque = deque()
 
-        def consume(metrics, n):
+        def consume(metrics, w):
             for k, v in metrics.items():
-                accs.setdefault(k, MeanAccumulator()).update(float(v), n)
+                acc = sums.setdefault(k, [0.0, 0.0])
+                acc[0] += float(v) * w
+                acc[1] += w
 
-        for batch in prefetch_to_device(batches, self.device):
-            n = int(next(iter(batch.values())).shape[0])
-            pending.append((self.eval_step(batch), n))
+        weights: deque = deque()
+        host = self._shards(batches)
+
+        def blocks():
+            for b, w in host:
+                weights.append(w)
+                yield b
+
+        for batch in prefetch_to_device(blocks(), self.device):
+            pending.append((self.eval_step(batch), weights.popleft()))
             if len(pending) > 2:
                 consume(*pending.popleft())
         while pending:
             consume(*pending.popleft())
-        return {k: a.compute() for k, a in accs.items()}
+        if not sums:
+            return {}
+        t = torch.tensor([v for acc in sums.values() for v in acc],
+                         dtype=torch.float64, device=self.device)
+        t = self.mesh.all_reduce(t, DATA_AXIS).tolist()
+        return {k: t[2 * i] / t[2 * i + 1] for i, k in enumerate(sums)}
+
+    def _log(self, step: int, metrics: Dict[str, float],
+             prefix: str) -> None:
+        if self.logger is not None:
+            self.logger.log(step, metrics, prefix=prefix)
 
     # -- main loop ---------------------------------------------------------
 
@@ -213,7 +424,7 @@ class Trainer:
             eval_source=None, eval_batch_size: Optional[int] = None,
             sampler_fn=None, shuffle: bool = True,
             resume: bool = False) -> dict:
-        """Run the training recipe; returns ``state()``.
+        """Run the training recipe; returns ``full_state()``.
 
         ``sampler_fn(epoch) -> WeightedSampler | None`` plugs in the
         class-balanced sampling of the _v2/_daodian recipes.
@@ -221,7 +432,8 @@ class Trainer:
         ``checkpoint_dir`` and continues from its step, margin and
         optimizer state; without it, a populated ``checkpoint_dir`` is
         refused unless ``overwrite`` is set. Warm starts load weights into
-        the model before the Trainer is built."""
+        the model before the Trainer is built. ``batch_size`` is the
+        global batch, split over the data axis."""
         cfg = self.config
         if cfg.margin_delta_per_epoch and not self.task.dynamic_margin:
             raise ValueError(
@@ -231,7 +443,7 @@ class Trainer:
         if self.ckpt is not None and self.ckpt.latest_step() is not None:
             if resume:
                 self.load_state(self.ckpt.restore())
-                self.logger.log(self.step, {"resumed": 1.0})
+                self._log(self.step, {"resumed": 1.0}, "")
             elif not cfg.overwrite:
                 raise ValueError(
                     f"checkpoint_dir {self.ckpt.directory!r} already holds "
@@ -240,7 +452,10 @@ class Trainer:
                     f"overwrite=True (--overwrite) to discard it, or point "
                     f"at a fresh directory.")
             else:
-                self.ckpt.clear()
+                self.mesh.barrier()      # every rank has looked
+                if self.mesh.rank == 0:
+                    self.ckpt.clear()
+                self.mesh.barrier()
         timer = self.timer = StepTimer(skip_first=2)
         accum = cfg.grad_accum
         prev_loss = None
@@ -252,7 +467,9 @@ class Trainer:
                 it = train_source.batches(batch_size, shuffle=shuffle,
                                           seed=cfg.seed, epoch=epoch,
                                           sampler=sampler)
-                for batch in prefetch_to_device(it, self.device):
+                blocks = (b for b, _ in self._shards(
+                    it, strict=cfg.bf16_grad_allreduce))
+                for batch in prefetch_to_device(blocks, self.device):
                     metrics = self.train_step(batch)
                     trained = True
                     step = self.step          # micro-steps
@@ -277,7 +494,7 @@ class Trainer:
                     opt_step = step // accum
                     if opt_step % cfg.log_every == 0:
                         # the CURRENT step's metrics (a sync on log steps)
-                        m = {k: float(v) for k, v in metrics.items()}
+                        m = self._mean_metrics(metrics)
                         summary = timer.summary(batch_size)
                         if summary:
                             m["examples_per_sec"] = summary[
@@ -286,19 +503,21 @@ class Trainer:
                         m["margin"] = self.margin
                         if accum > 1:
                             m["opt_step"] = float(opt_step)
-                        self.logger.log(step, m, prefix="train/")
+                        self._log(step, m, "train/")
                     if eval_source is not None \
                             and opt_step % cfg.eval_every == 0:
                         # the whole split, the final partial batch included
                         ev = self.evaluate(eval_source.batches(
                             eval_batch_size or batch_size, shuffle=False,
                             drop_remainder=False))
-                        self.logger.log(step, ev, prefix="eval/")
+                        self._log(step, ev, "eval/")
                     if self.ckpt and opt_step % cfg.save_every == 0:
-                        self.ckpt.save(step, self.state())
+                        self._save(step)
                 if cfg.margin_delta_per_epoch:
                     self.update_margin(cfg.margin_delta_per_epoch)
         if self.ckpt and trained:
-            self.ckpt.save(self.step, self.state(), force=True)
-            self.ckpt.wait()   # the end-of-run save must be durable
-        return self.state()
+            self._save(self.step, force=True)
+            if self.mesh.rank == 0:
+                self.ckpt.wait()   # the end-of-run save must be durable
+            self.mesh.barrier()
+        return self.full_state()

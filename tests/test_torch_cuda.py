@@ -880,3 +880,77 @@ def test_new_backbones_on_card_match_cpu(dev, name):
                 memory_format=torch.channels_last)).float().cpu()
         scale = 1.0 if tol < 1e-3 else float(want.abs().max())
         assert torch.allclose(got, want, rtol=0, atol=tol * scale), name
+
+
+# -- the multi-GPU layouts: two ranks on this card over gloo -----------------
+
+def _spawn_on_card(fn, world, *args):
+    from multimodalsimilar_tpu_torch.parallel.spawn import spawn
+    return spawn(fn, world, args, device="cuda", backend="gloo",
+                 timeout=180, threads=None)
+
+
+def test_class_sharded_head_on_card_matches_one_rank(dev):
+    """The 10,206-class head (10,205 padded) in two blocks of 5,103 on two
+    ranks: each block's logits are the kernel's (one launch a rank) and
+    equal the one-rank kernel's columns exactly (the same products); the
+    cross-entropy over the model group and the gradients of x (summed over
+    the blocks) and of each block match the one-rank head's (rtol 1e-5:
+    the log-sum-exp adds its blocks in another order)."""
+    import torch_parallel_workers as W
+    from multimodalsimilar_tpu_torch.models.heads import ArcFaceHead
+    from multimodalsimilar_tpu_torch.train.tasks import _ce
+    b, c, d = 64, 10_206, 768
+    ranks = _spawn_on_card(W.card_head, 2, b, c, d, 7)
+    x, w, labels = W._card_inputs(b, c, d, 7)
+    head = ArcFaceHead(c, d).to(dev)
+    with torch.no_grad():
+        head.weight.copy_(w.to(dev))
+    x = x.to(dev).requires_grad_(True)
+    logits = head(x, labels.to(dev), m=0.4)
+    loss = _ce(logits, labels.to(dev))
+    loss.backward()
+    want = logits.detach().cpu().numpy()
+    for j, r in enumerate(ranks):
+        cols = slice(j * c // 2, (j + 1) * c // 2)
+        assert r["launches"] == 1
+        np.testing.assert_array_equal(r["logits"], want[:, cols])
+        np.testing.assert_allclose(r["loss"], float(loss.detach()),
+                                   rtol=1e-5)
+        gw = head.weight.grad[cols].cpu().numpy()
+        np.testing.assert_allclose(r["grad_w"], gw, rtol=1e-5,
+                                   atol=1e-5 * np.abs(gw).max())
+        gx = x.grad.cpu().numpy()
+        np.testing.assert_allclose(r["grad_x"], gx, rtol=1e-5,
+                                   atol=1e-5 * np.abs(gx).max())
+
+
+@pytest.mark.parametrize("metric", ["ip", "l2"])
+@pytest.mark.parametrize("k", [13, 200])
+def test_sharded_search_on_card_equals_one_block(dev, metric, k):
+    """``sharded_knn_search`` over two ranks on this card (the top-k
+    kernel, or the selection kernel at k = 200, on each block) equals
+    ``knn_search`` over the whole corpus on one rank exactly, duplicate
+    rows across the block boundary included; the corpus (20,001 rows) is
+    padded to 20,002."""
+    import torch_parallel_workers as W
+    rng = np.random.default_rng(k)
+    corpus = rng.integers(-3, 4, (20_001, 96)).astype(np.float32)
+    corpus[10_001] = corpus[10_000]
+    corpus[20_000] = corpus[17]
+    queries = np.concatenate([corpus[[10_000, 17]], rng.integers(
+        -3, 4, (62, 96)).astype(np.float32)])
+    ranks = _spawn_on_card(W.card_search, 2, corpus, queries, k, metric)
+    wv, wi = knn_search_on(dev, corpus, queries, k, metric)
+    for r in ranks:
+        assert r["launches"] == 1
+        np.testing.assert_array_equal(r["i"], wi)
+        np.testing.assert_array_equal(r["v"], wv)
+    assert list(wi[0, :2]) == [10_000, 10_001]
+
+
+def knn_search_on(dev, corpus, queries, k, metric):
+    from multimodalsimilar_tpu_torch.retrieval.knn import knn_search
+    v, i = knn_search(torch.from_numpy(corpus).to(dev),
+                      torch.from_numpy(queries).to(dev), k, metric)
+    return v.cpu().numpy(), i.cpu().numpy()

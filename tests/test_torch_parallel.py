@@ -1,0 +1,690 @@
+"""Multi-GPU layouts on the CPU: the port over gloo against the JAX package
+over the same mesh shape on tests/conftest.py's 8 virtual CPU devices.
+
+The port's ranks are processes (``parallel/spawn.py``, one torch thread
+each, a port the OS picks, a time limit per spawn); what they run is in
+``tests/torch_parallel_workers.py``, which imports no JAX. Two spawns
+serve every case: a world of 2 (data 2) and one of 4 (data 2 x model 2),
+started in the background while the JAX references compute. Weights go
+JAX -> port through the ``*_from_jax`` converters; models are tiny, in
+full precision, dropout off.
+
+Tolerances: Adam turns float noise in a near-zero gradient into an
+lr-sized step, so fits are compared through their per-step losses (f32:
+rtol 1e-4, as the JAX package's own model-parallel test) and through the
+first batch's gradients (within 1e-4 of each tensor's largest entry, as
+tests/test_torch_train_recipes.py). ``--bf16_grads`` rounds the gradients
+to bfloat16 before the mean (2^-8 relative to the largest shard
+gradient): gradients within 2e-2 of the tensor's largest entry against
+JAX's f32 gradients, losses rtol 2e-3 (both packages round the same f32
+gradients). The search is exact: indices and scores equal.
+"""
+
+import concurrent.futures
+import dataclasses
+import json
+import os
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import optax
+import pytest
+import torch
+
+import torch_parallel_workers as W
+from multimodalsimilar_tpu.models import efficientnet as JE
+from multimodalsimilar_tpu.models.bert import BertConfig as JBertConfig
+from multimodalsimilar_tpu.models.classifiers import (
+    NlpMultilabelClassifier as JMultilabel)
+from multimodalsimilar_tpu.models.classifiers import (
+    NlpTextClassifier as JClassifier)
+from multimodalsimilar_tpu.models.vision import (
+    CvImageClassifier as JCvImageClassifier)
+from multimodalsimilar_tpu.parallel.mesh import create_mesh as j_mesh
+from multimodalsimilar_tpu.parallel.mesh import shard_batch as j_shard
+from multimodalsimilar_tpu.retrieval.knn import pad_corpus as j_pad
+from multimodalsimilar_tpu.retrieval.knn import (
+    sharded_knn_search as j_sharded)
+from multimodalsimilar_tpu.train import tasks as JT
+from multimodalsimilar_tpu.train.optim import dual_group_adamw as j_adamw
+from multimodalsimilar_tpu.train.trainer import Trainer as JTrainer
+from multimodalsimilar_tpu.train.trainer import TrainState as JTrainState
+from multimodalsimilar_tpu.train.trainer import (
+    TrainerConfig as JTrainerConfig)
+from multimodalsimilar_tpu.utils.dtypes import DTypePolicy as JPolicy
+from multimodalsimilar_tpu_torch import cli
+from multimodalsimilar_tpu_torch.cli import similar as CS
+from multimodalsimilar_tpu_torch.models.bert import BertConfig
+from multimodalsimilar_tpu_torch.models.classifiers import NlpTextClassifier
+from multimodalsimilar_tpu_torch.models.convert import (
+    cv_classifier_from_jax, multilabel_classifier_from_jax,
+    text_classifier_from_jax)
+from multimodalsimilar_tpu_torch.models.efficientnet import set_stats_mesh
+from multimodalsimilar_tpu_torch.models.heads import ArcFaceHead
+from multimodalsimilar_tpu_torch.parallel.mesh import (Mesh, MeshRules,
+                                                       shard_batch)
+from multimodalsimilar_tpu_torch.parallel.spawn import spawn
+from multimodalsimilar_tpu_torch.pipelines.similar import nlp_similar_job
+from multimodalsimilar_tpu_torch.pipelines.sinks import InMemoryKVSink
+from multimodalsimilar_tpu_torch.retrieval.knn import knn_search
+from multimodalsimilar_tpu_torch.train.checkpoint import CheckpointManager
+from multimodalsimilar_tpu_torch.train.optim import (AdamP,
+                                                     dual_group,
+                                                     dual_group_adamw)
+from multimodalsimilar_tpu_torch.train.tasks import text_arcface_task
+from multimodalsimilar_tpu_torch.train.trainer import Trainer, TrainerConfig
+
+torch.set_num_threads(1)
+
+JFULL = JPolicy.full_precision()
+NO_DROPOUT = dict(hidden_dropout=0.0, attention_dropout=0.0)
+VOCAB = 96
+BERT = dict(vocab_size=VOCAB, num_layers=1, **NO_DROPOUT)
+BERT_HIDDEN = 64
+B, S = 8, 10
+LRS = (1e-3, 1e-2)
+TIMEOUT = 120
+
+
+def _text_batches(n, labels, seed, keys=("labels",)):
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        ids = rng.integers(5, VOCAB, (B, S)).astype(np.int32)
+        mask = (np.arange(S)[None] < rng.integers(3, S + 1, (B, 1))
+                ).astype(np.int32)
+        b = {"input_ids": ids * mask, "attention_mask": mask,
+             "token_type_ids": np.zeros_like(ids)}
+        for key, c in zip(keys, labels):
+            b[key] = rng.integers(0, c, B).astype(np.int32)
+        out.append(b)
+    return out
+
+
+def _images(n, seed):
+    return np.random.default_rng(seed).integers(
+        0, 256, (n, 16, 16, 3)).astype(np.uint8)
+
+
+class _NoDropCv(JCvImageClassifier):
+    """The JAX image classifier with the neck's dropout off in train mode."""
+
+    def predict_emb(self, images, train=False, deterministic=None):
+        return super().predict_emb(images, train=train, deterministic=True)
+
+
+def _cv_cfgs():
+    return (dataclasses.replace(JE.EfficientNetConfig.tiny(),
+                                drop_path_rate=0.0),
+            dataclasses.replace(
+                W.E.EfficientNetConfig.tiny(), drop_path_rate=0.0))
+
+
+# -- the cases: (JAX model + task, mesh shape, port spec, batches) -----------
+
+_TOWER = {}
+
+
+def _tower():
+    """One JAX init of the tiny tower, shared by every text case (each
+    case draws its heads with numpy): a compile saved per case."""
+    if not _TOWER:
+        jmodel = JClassifier(JBertConfig.tiny(**BERT), num_labels=2)
+        _TOWER["params"] = jax.device_get(jax.jit(lambda: jmodel.init(
+            {"params": jax.random.key(0)}, jnp.zeros((2, S), jnp.int32),
+            label=jnp.zeros(2, jnp.int32)))()["params"]["tower"])
+    return _TOWER["params"]
+
+
+def _head(c, rng):
+    """xavier-uniform [C, D], as both packages' ArcFace heads draw."""
+    d = BERT_HIDDEN
+    bound = np.sqrt(6.0 / (c + d))
+    return {"weight": rng.uniform(-bound, bound, (c, d)).astype(np.float32)}
+
+
+def _case_text(num_labels, num_valid, seed):
+    jmodel = JClassifier(JBertConfig.tiny(**BERT), num_labels=num_labels,
+                         policy=JFULL)
+    batches = _text_batches(3, [num_valid or num_labels], seed)
+    params = {"tower": _tower(),
+              "head": _head(num_labels, np.random.default_rng(seed))}
+    sd = text_classifier_from_jax(params, BertConfig.tiny(**BERT))
+    spec = {"bert": BERT, "num_labels": num_labels, "num_valid": num_valid}
+    return (JT.text_arcface_task(jmodel, num_valid=num_valid),
+            {"params": params}, spec, sd, batches)
+
+
+def _case_multilabel(labels, seed):
+    jmodel = JMultilabel(JBertConfig.tiny(**BERT), *labels, policy=JFULL)
+    keys = ("lv1_label", "lv2_label", "tag_label")
+    batches = _text_batches(4, labels, seed, keys)
+    rng = np.random.default_rng(seed)
+    params = {"tower": _tower(), **{f"{lv}_head": _head(c, rng) for lv, c
+                                    in zip(("lv1", "lv2", "tag"), labels)}}
+    sd = multilabel_classifier_from_jax(params, BertConfig.tiny(**BERT))
+    return (JT.multilabel_arcface_task(jmodel), {"params": params},
+            {"bert": BERT, "labels": labels}, sd, batches)
+
+
+_CV = {}
+
+
+def _case_cv(seed):
+    """The tiny EfficientNet classifier (one JAX init, shared by the cv
+    cases) and one batch: after one step the running statistics depend
+    only on the init."""
+    jcfg, cfg = _cv_cfgs()
+    jmodel = _NoDropCv(jcfg, num_labels=7, fc_dim=12, policy=JFULL)
+    rng = np.random.default_rng(seed)
+    batches = [{"images": _images(B, seed),
+                "labels": rng.integers(0, 7, B).astype(np.int32)}]
+    if not _CV:
+        _CV["v"] = jax.device_get(jax.jit(lambda x: jmodel.init(
+            {"params": jax.random.key(0)}, x,
+            label=jnp.zeros(B, jnp.int32)))(
+            jnp.zeros((B, 16, 16, 3), jnp.float32)))
+    v = _CV["v"]
+    sd = cv_classifier_from_jax(v, cfg)
+    return (JT.cv_arcface_task(jmodel), v,
+            {"num_labels": 7, "fc_dim": 12}, sd, batches)
+
+
+CASES = {
+    # world 2: data 2
+    "dp_f32": (lambda: _case_text(11, None, 1), (2, 1), {"eval_every": 3}),
+    "dp_bf16": (lambda: _case_text(11, None, 2), (2, 1),
+                {"bf16_grad_allreduce": True}),
+    "cv_f32": (lambda: _case_cv(3), (2, 1), {}),
+    "cv_bf16": (lambda: _case_cv(4), (2, 1),
+                {"bf16_grad_allreduce": True}),
+    # world 4: data 2 x model 2
+    "mp_padded": (lambda: _case_text(38, 37, 5), (2, 2),
+                  {"model_parallel_heads": True, "eval_every": 3}),
+    # heterogeneous heads (lv1's 5 classes stay whole) and --grad_accum
+    "mp_multilabel": (lambda: _case_multilabel((5, 8, 12), 6), (2, 2),
+                      {"model_parallel_heads": True, "grad_accum": 2}),
+}
+
+
+def _jax_run(name, ref, tmp):
+    """JAX: the first batch's gradients and the per-step losses of
+    ``Trainer.fit`` on the case's mesh, from the case's init."""
+    _, shape, cfg = CASES[name]
+    jtask, variables, spec, sd, batches = ref
+    mesh = j_mesh(jax.devices()[:shape[0] * shape[1]], *shape)
+    accum = cfg.get("grad_accum", 1)
+    tx = j_adamw(lambda s: LRS[0], lambda s: LRS[1])
+    if accum > 1:
+        tx = optax.MultiSteps(tx, every_k_schedule=accum)
+    path = os.path.join(tmp, f"{name}.jax.jsonl")
+    trainer = JTrainer(jtask, tx, mesh, JTrainerConfig(
+        log_every=1, metrics_path=path, **cfg))
+    state = trainer._place_state(JTrainState(
+        step=jnp.zeros((), jnp.int32), params=variables["params"],
+        batch_stats=variables.get("batch_stats", {}),
+        opt_state=tx.init(variables["params"]),
+        margin=jnp.asarray(0.4, jnp.float32)))
+    grad = jax.jit(jax.grad(lambda p, b: jtask.train_loss(
+        p, state.batch_stats, b, jax.random.key(0), state.margin)[0]))
+    if cfg.get("bf16_grad_allreduce"):
+        # the shard_map step: each shard's gradients (its own BatchNorm
+        # statistics), meaned before the bf16 rounding
+        halves = [{k: v[h * B // 2:(h + 1) * B // 2]
+                   for k, v in batches[0].items()} for h in range(2)]
+        grads = jax.tree_util.tree_map(
+            lambda a, b: (a + b) / 2,
+            *[jax.device_get(grad(state.params, h)) for h in halves])
+    else:
+        grads = jax.device_get(grad(state.params, j_shard(mesh,
+                                                          batches[0])))
+    evals = _evals(cfg, batches)
+    final = trainer.fit(W.Batches(batches), 1, B,
+                        W.Batches(evals) if evals else None,
+                        initial_state=state)
+    return {"grads": grads, "losses": _losses(path),
+            "evals": {key: _losses(path, f"eval/{key}")
+                      for key in ("acc", "loss")},
+            "final": jax.device_get(final), "spec": spec,
+            "batches": batches, "variables": variables}
+
+
+def _evals(cfg, batches):
+    """The eval split of a case that evaluates: the first batch and 7 rows
+    of the second (not divisible by the data axis: left whole on every
+    rank, weighted by its share)."""
+    if "eval_every" not in cfg:
+        return None
+    return [batches[0], {k: v[:7] for k, v in batches[1].items()}]
+
+
+def _losses(path, key="train/loss"):
+    return [(ln["step"], ln[key]) for ln in map(
+        json.loads, open(path)) if key in ln]
+
+
+def _search_cases():
+    rng = np.random.default_rng(11)
+    ints = rng.integers(-3, 4, (20, 8)).astype(np.float32)
+    ints[10] = ints[9]                  # a tie across the shard boundary
+    ints[12] = ints[3]
+    q_int = np.concatenate([ints[[9, 3]], rng.integers(
+        -3, 4, (3, 8)).astype(np.float32)])
+    x = rng.standard_normal((37, 16)).astype(np.float32)
+    q = rng.standard_normal((5, 16)).astype(np.float32)
+    big = rng.standard_normal((400, 8)).astype(np.float32)
+    qb = rng.standard_normal((3, 8)).astype(np.float32)
+    return [(x, q, 7, "ip", None), (x, q, 7, "l2", None),
+            (ints, q_int, 6, "ip", None), (ints, q_int, 6, "l2", None),
+            (x[:9], q, 8, "ip", None),       # k > the 5 rows a shard holds
+            (x[:16], q, 6, "l2", 7),         # ragged true_n: shard 1 empty
+            (big, qb, 150, "ip", None)]      # k > 128
+
+
+def _similar_table():
+    words = ["苹果", "香蕉", "牛奶", "酸奶", "可乐", "汽水", "面包"]
+    rng = np.random.default_rng(12)
+    titles = ["".join(rng.choice(words, 3)) for _ in range(30)]
+    titles += titles[:5]                     # duplicates: exact ties
+    return {"spu_sn": [f"s{i}" for i in range(len(titles))],
+            "spu_name": titles}
+
+
+def _similar_weights():
+    from multimodalsimilar_tpu_torch.data.tokenizer import TextTokenizer
+    tok = TextTokenizer.from_corpus(_similar_table()["spu_name"])
+    bert = dict(vocab_size=tok.vocab_size, **NO_DROPOUT)
+    model = NlpTextClassifier(BertConfig.tiny(**bert), num_labels=3,
+                              generator=torch.Generator().manual_seed(3))
+    return bert, {k: v.numpy() for k, v in model.state_dict().items()}
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    """Both spawns in the background, the JAX references meanwhile.
+    Returns {"port": {key: [rank 0's result, ...]}, "jax": {case: ...}}
+    with the fit cases keyed by name, the others by (function, world)."""
+    tmp = str(tmp_path_factory.mktemp("parallel"))
+    refs = {name: make() for name, (make, _, _) in CASES.items()}
+    jobs = {2: [(("mesh_layout", 2), "mesh_layout", ((2, 1),))],
+            4: [(("mesh_layout", 4), "mesh_layout", ((2, 2),))]}
+    for name, (_, shape, cfg) in CASES.items():
+        _, _, spec, sd, batches = refs[name]
+        out = os.path.join(tmp, name)
+        os.makedirs(out)
+        if name == "mp_padded":
+            cfg = dict(cfg, checkpoint_dir=os.path.join(out, "ckpt"))
+        jobs[shape[0] * shape[1]].append((name, "fit", (
+            _kind(name), spec, {k: v.numpy() for k, v in sd.items()},
+            batches, shape, cfg, LRS, out, _evals(cfg, batches))))
+    jobs[4].append((("train_cli", 4), "train_cli", (
+        _train_argv(tmp),)))
+    bert, weights = _similar_weights()
+    jobs[2] += [(("search", 2), "search", (_search_cases(), 2)),
+                (("similar", 2), "similar", (_similar_table(), weights,
+                                             bert, 2, 5, 0.5))]
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        futures = {world: pool.submit(
+            spawn, W.run, world, ([(fn, args) for _, fn, args in js],),
+            timeout=TIMEOUT) for world, js in jobs.items()}
+        jax_out = {name: _jax_run(name, refs[name], tmp) for name in CASES}
+        port = {world: f.result() for world, f in futures.items()}
+    results = {key: [ranks[i] for ranks in port[world]]
+               for world, js in jobs.items()
+               for i, (key, _, _) in enumerate(js)}
+    return {"port": results, "jax": jax_out, "tmp": tmp}
+
+
+def _train_argv(tmp):
+    """``train nlp --model_parallel 2`` over 37 classes of titles."""
+    rng = np.random.default_rng(13)
+    path = os.path.join(tmp, "train.csv")
+    with open(path, "w", encoding="utf-8") as f:
+        f.write("spu_name,labels\n")
+        for i in range(64):
+            f.write(f"{'甲乙丙丁戊'[i % 5] * 2}{rng.integers(0, 999)},"
+                    f"{i % 37}\n")
+    return ["train", "nlp", "--data", path, "--output",
+            os.path.join(tmp, "cli"), "--batch_size", "16", "--epochs", "1",
+            "--max_length", "12", "--eval_every", "1000", "--save_every",
+            "1000", "--log_every", "2", "--model_parallel", "2"]
+
+
+def _kind(name):
+    return ("cv" if name.startswith("cv") else
+            "multilabel" if "multilabel" in name else "text")
+
+
+def _assert_grads(got, want, tol):
+    """Every gradient within ``tol`` of its tensor's largest entry
+    (floored at 1e-4 of the model's largest gradient); the ones that are
+    zero in exact arithmetic below 1e-6 of it on both sides."""
+    want = {n: np.asarray(want[n]) for n in got}
+    top = max(float(np.abs(w).max()) for w in want.values())
+    for n, w in want.items():
+        g = np.asarray(got[n])
+        if np.abs(w).max() <= 1e-6 * top:
+            assert np.abs(g).max() <= 1e-5 * top, n
+            continue
+        scale = max(float(np.abs(w).max()), 1e-4 * top)
+        assert np.abs(g - w).max() <= tol * scale, (n, np.abs(g - w).max(),
+                                                   scale)
+
+
+def _want_grads(name, ref):
+    grads = ref["grads"]
+    cfg = BertConfig.tiny(**BERT)
+    if _kind(name) == "text":
+        return text_classifier_from_jax(grads, cfg)
+    if _kind(name) == "multilabel":
+        return multilabel_classifier_from_jax(grads, cfg)
+    return cv_classifier_from_jax(
+        {"params": grads, "batch_stats": ref["variables"]["batch_stats"]},
+        _cv_cfgs()[1])
+
+
+# -- the mesh ----------------------------------------------------------------
+
+@pytest.mark.parametrize("world", [2, 4])
+def test_mesh_coordinates_groups_and_collectives(runs, world):
+    """Rank r sits at (r // model, r % model); the data group holds the
+    ranks of its model coordinate, the model group those of its data
+    coordinate; all-reduce, all-gather (equal and ragged rows) and the
+    object broadcast over each; ``shard_batch`` cuts divisible leaves."""
+    model = 1 if world == 2 else 2
+    for r, got in enumerate(runs["port"][("mesh_layout", world)]):
+        d, m = r // model, r % model
+        assert got["coords"] == (d, m)
+        data_ranks = [i * model + m for i in range(world // model)]
+        model_ranks = [d * model + j for j in range(model)]
+        assert got["sum_data"] == sum(data_ranks)
+        assert got["max_data"] == max(data_ranks)
+        assert got["gather_data"] == data_ranks
+        assert got["sum_model"] == sum(model_ranks)
+        assert got["gather_model"] == model_ranks
+        assert got["rows_data"] == [float(i) for i in data_ranks
+                                    for _ in range(i + 1)]
+        assert got["object"] == {"from": 0}
+        n_data = world // model
+        rows = np.arange(24).reshape(8, 3)[
+            d * 8 // n_data:(d + 1) * 8 // n_data]
+        np.testing.assert_array_equal(got["batch"]["x"], rows)
+        np.testing.assert_array_equal(got["batch"]["meta"], np.arange(3))
+
+
+def test_shard_batch_and_mesh_rules_in_process():
+    """A hand-built mesh needs no process group for the placement rules;
+    ``strict`` refuses an indivisible leaf with the JAX bf16 message."""
+    mesh = Mesh(2, 2, rank=3)
+    assert (mesh.data_index, mesh.model_index) == (1, 1)
+    rules = MeshRules(mesh)
+    assert rules.batch(8) == slice(4, 8)
+    assert rules.class_sharded(38) == slice(19, 38)
+    assert rules.corpus_sharded(512) == slice(256, 512)
+    with pytest.raises(ValueError, match="not divisible"):
+        rules.class_sharded(37)
+    got = shard_batch(mesh, {"x": np.arange(6), "y": np.arange(3)})
+    np.testing.assert_array_equal(got["x"], [3, 4, 5])
+    np.testing.assert_array_equal(got["y"], [0, 1, 2])   # left whole
+    with pytest.raises(ValueError, match="not divisible by the data axis"):
+        shard_batch(mesh, {"x": np.arange(3)}, strict=True)
+
+
+def test_head_class_block_layout_in_process():
+    """``ArcFaceHead.shard`` keeps the block at the rank's model
+    coordinate; ``local_labels`` maps the whole head's labels to its
+    columns (-1 on another block) and ``num_classes`` counts every
+    block's classes."""
+    head = ArcFaceHead(6, 4, generator=torch.Generator().manual_seed(0))
+    whole = head.weight.detach().clone()
+    labels = torch.tensor([0, 3, 5, -1])
+    assert torch.equal(head.local_labels(labels), labels)
+    assert (head.num_classes, head.column_offset, head.mesh) == (6, 0, None)
+    mesh = Mesh(2, 2, rank=1)
+    assert (mesh.data_index, mesh.model_index) == (0, 1)
+    assert head.shard(mesh) == slice(3, 6)
+    torch.testing.assert_close(head.weight.detach(), whole[3:],
+                               rtol=0, atol=0)
+    assert (head.num_classes, head.column_offset) == (6, 3)
+    assert head.local_labels(labels).tolist() == [-1, 0, 2, -1]
+
+
+def test_batch_norm_stats_mesh_field_in_process():
+    """Every BatchNorm of the image classifier declares ``stats_mesh``
+    (None: this rank's batch alone) and ``set_stats_mesh`` sets each."""
+    model, _ = W.build("cv", {"num_labels": 7, "fc_dim": 12})
+    bns = [m for m in model.modules()
+           if isinstance(m, torch.nn.modules.batchnorm._BatchNorm)]
+    assert bns and all(m.stats_mesh is None for m in bns)
+    mesh = Mesh(2, 1, rank=0)
+    set_stats_mesh(model, mesh)
+    assert all(m.stats_mesh is mesh for m in bns)
+
+
+# -- training ----------------------------------------------------------------
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_fit_losses_match_jax(runs, name):
+    """Per-step losses of the port's fit over the mesh (rank 0's
+    metrics.jsonl, meaned over the data group) against the JAX Trainer's
+    on the same mesh shape."""
+    ref = runs["jax"][name]
+    got = _losses(os.path.join(runs["tmp"], name, "metrics.jsonl"))
+    want = ref["losses"]
+    assert [s for s, _ in got] == [s for s, _ in want]
+    rtol = 2e-3 if "bf16" in name else 1e-4
+    np.testing.assert_allclose([v for _, v in got], [v for _, v in want],
+                               rtol=rtol)
+
+
+@pytest.mark.parametrize("name", ["dp_f32", "mp_padded"])
+def test_eval_matches_jax(runs, name):
+    """``evaluate`` over the mesh (each rank's block of a divisible batch,
+    the 7-row batch whole on every rank at half its weight, sums over
+    the data group; over class blocks, the sharded cross-entropy and the
+    global argmax) against the JAX Trainer's eval on the same split."""
+    ref = runs["jax"][name]
+    path = os.path.join(runs["tmp"], name, "metrics.jsonl")
+    for key, rtol in (("acc", 0), ("loss", 1e-4)):
+        got, want = _losses(path, f"eval/{key}"), ref["evals"][key]
+        assert [s for s, _ in got] == [s for s, _ in want] == [3]
+        np.testing.assert_allclose([v for _, v in got],
+                                   [v for _, v in want], rtol=rtol,
+                                   atol=1e-7)
+
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_first_gradients_match_jax(runs, name):
+    """The first batch's gradients, meaned over the data group (bf16 under
+    ``--bf16_grads``) and, for class-sharded heads, gathered over the
+    model group, against JAX's gradients of the global batch."""
+    ref = runs["jax"][name]
+    got = runs["port"][name][0]["grads"]
+    tol = 2e-2 if "bf16" in name else 1e-4
+    _assert_grads(got, _want_grads(name, ref), tol)
+
+
+@pytest.mark.parametrize("name", ["mp_padded", "mp_multilabel"])
+def test_model_parallel_heads_are_class_blocks(runs, name):
+    """Each rank holds rows [j C / 2, (j + 1) C / 2) of each head whose
+    class count divides (the padded 38 = 37 + 1, the multilabel lv2 and
+    tag heads), the same block on both data coordinates; the indivisible
+    lv1 head (5 classes) stays whole; the gathered state is whole."""
+    ranks = runs["port"][name]
+    final = ranks[0]["state"]
+    want = {"mp_padded": {"head.weight": 38},
+            "mp_multilabel": {"lv2_head.weight": 8,
+                              "tag_head.weight": 12}}[name]
+    for got in ranks:
+        assert set(got["heads"]) == set(want)
+        d, m = got["coords"]
+        for key, c in want.items():
+            assert final[key].shape[0] == c
+            np.testing.assert_array_equal(
+                got["heads"][key], final[key][m * c // 2:(m + 1) * c // 2])
+    if name == "mp_multilabel":
+        assert final["lv1_head.weight"].shape[0] == 5
+
+
+def test_train_nlp_command_pads_and_shards_the_head(runs):
+    """``train nlp --model_parallel 2`` on 4 ranks (data 2 x model 2): 37
+    classes padded to 38, a block of 19 rows a rank, the checkpoint in the
+    one-card layout."""
+    for got in runs["port"][("train_cli", 4)]:
+        assert got["shards"] == ["head.weight"]
+        assert got["block"] == (19, BERT_HIDDEN)
+        assert got["saved"] == (38, BERT_HIDDEN)
+
+
+def test_batch_norm_statistics_match_jax(runs):
+    """Default path: BatchNorm normalizes with the global batch's
+    statistics (every BN module given the mesh); ``--bf16_grads``: with
+    each shard's, the running statistics meaned over the data group. The
+    running statistics after the fit equal JAX's (atol 1e-5)."""
+    _, cfg = _cv_cfgs()
+    for name in ("cv_f32", "cv_bf16"):
+        ref = runs["jax"][name]
+        rank0 = runs["port"][name][0]
+        assert (rank0["bn_mesh"] > 0) == (name == "cv_f32")
+        final = ref["final"]
+        want = cv_classifier_from_jax({"params": final.params,
+                                       "batch_stats": final.batch_stats},
+                                      cfg)
+        for key, v in rank0["state"].items():
+            if key.endswith(("running_mean", "running_var")):
+                np.testing.assert_allclose(v, want[key].numpy(), rtol=0,
+                                           atol=1e-5, err_msg=key)
+
+
+def test_model_parallel_checkpoint_restores_on_one_rank(runs):
+    """A checkpoint written at model 2 is in the one-card layout: one
+    process with the unsharded model restores it (optimizer moments of
+    the whole head included) and its parameters equal the gathered
+    final state."""
+    ref = runs["jax"]["mp_padded"]
+    state = CheckpointManager(os.path.join(
+        runs["tmp"], "mp_padded", "ckpt")).restore()
+    assert state["model"]["head.weight"].shape[0] == 38
+    model, task = W.build("text", ref["spec"])
+    trainer = Trainer(task, lambda m: dual_group_adamw(m, lambda s: LRS[0],
+                                                       lambda s: LRS[1]),
+                      TrainerConfig(), device="cpu")
+    trainer.load_state(state)
+    final = runs["port"]["mp_padded"][0]["state"]
+    for k, v in model.state_dict().items():
+        np.testing.assert_array_equal(v.numpy(), final[k], err_msg=k)
+    moments = trainer.optimizer.state[model.head.weight]
+    assert moments["exp_avg"].shape == model.head.weight.shape
+    assert trainer.step == 3
+    metrics = trainer.eval_step({k: torch.from_numpy(v) for k, v in
+                                 ref["batches"][0].items()})
+    assert np.isfinite(float(metrics["loss"]))
+
+
+def test_refusals_match_jax():
+    """``--bf16_grads`` with class-sharded heads (JAX's ValueError, word
+    for word); a model axis that divides no head; the fused loss and
+    AdamP with class-sharded heads (not ported)."""
+    model = NlpTextClassifier(BertConfig.tiny(**BERT), num_labels=37)
+    opt = lambda m: dual_group_adamw(m, lambda s: 1e-3,  # noqa: E731
+                                     lambda s: 1e-3)
+    with pytest.raises(ValueError) as got:
+        Trainer(text_arcface_task(model), opt,
+                TrainerConfig(bf16_grad_allreduce=True,
+                              model_parallel_heads=True), device="cpu")
+    jmodel = JClassifier(JBertConfig.tiny(**BERT), num_labels=37)
+    with pytest.raises(ValueError) as want:
+        JTrainer(JT.text_arcface_task(jmodel), optax.adamw(1e-3),
+                 j_mesh(jax.devices()[:2], 1, 2),
+                 JTrainerConfig(bf16_grad_allreduce=True,
+                                model_parallel_heads=True))
+    assert str(got.value) == str(want.value)
+    mesh = Mesh(1, 2)          # placement only: no collective runs
+    with pytest.raises(ValueError, match="cannot shard any head"):
+        Trainer(text_arcface_task(model), opt,
+                TrainerConfig(model_parallel_heads=True), device="cpu",
+                mesh=mesh)
+    for task, make in ((text_arcface_task(NlpTextClassifier(
+            BertConfig.tiny(**BERT), num_labels=4), fused_loss=True), opt),
+            (text_arcface_task(NlpTextClassifier(
+                BertConfig.tiny(**BERT), num_labels=4)),
+             lambda m: dual_group(m, AdamP, lambda s: 1e-3,
+                                  lambda s: 1e-3))):
+        with pytest.raises(NotImplementedError, match="model_parallel"):
+            Trainer(task, make, TrainerConfig(model_parallel_heads=True),
+                    device="cpu", mesh=Mesh(1, 2))
+
+
+# -- retrieval ---------------------------------------------------------------
+
+@pytest.mark.parametrize("case", range(len(_search_cases())))
+def test_sharded_search_matches_one_shard_and_jax(runs, case):
+    """``sharded_knn_search`` over 2 ranks: equal on both ranks, equal to
+    the one-shard ``knn_search`` (FAISS order, ties to the lower index
+    across the shard boundary) and to the JAX ``sharded_knn_search`` on a
+    2-device mesh (indices equal, scores within f32 rounding; exact on
+    the integer cases)."""
+    corpus, queries, k, metric, true_n = _search_cases()[case]
+    ranks = [r[case] for r in runs["port"][("search", 2)]]
+    np.testing.assert_array_equal(ranks[0][0], ranks[1][0])
+    np.testing.assert_array_equal(ranks[0][1], ranks[1][1])
+    v, i = ranks[0]
+    limit = len(corpus) if true_n is None else true_n
+    wv, wi = knn_search(torch.from_numpy(corpus), torch.from_numpy(queries),
+                        k, metric, true_n=limit)
+    np.testing.assert_array_equal(i, wi.numpy())
+    np.testing.assert_allclose(v, wv.numpy(), rtol=1e-6, atol=1e-6)
+    mesh = j_mesh(jax.devices()[:2], 2, 1)
+    padded, n = j_pad(corpus, 2, metric)
+    jv, ji = j_sharded(mesh, jnp.asarray(padded), jnp.asarray(queries), k,
+                       metric, true_n=n if true_n is None else true_n)
+    np.testing.assert_array_equal(i, np.asarray(ji))
+    np.testing.assert_allclose(v, np.asarray(jv), rtol=1e-5, atol=1e-5)
+
+
+def test_sharded_similar_nlp_writes_the_one_rank_lists(runs):
+    """``nlp_similar_job`` over 2 ranks (each embeds its own rows, the
+    query set all-gathered, the corpus searched in blocks, rank 0 writes)
+    writes exactly the one-rank job's KV items, and every rank returns the
+    count."""
+    got = runs["port"][("similar", 2)]
+    bert, weights = _similar_weights()
+    model = NlpTextClassifier(BertConfig.tiny(**bert), num_labels=3)
+    model.load_state_dict({k: torch.from_numpy(v)
+                           for k, v in weights.items()})
+    from multimodalsimilar_tpu_torch.data.tokenizer import TextTokenizer
+    from multimodalsimilar_tpu_torch.pipelines.embedders import TextEmbedder
+    table = _similar_table()
+    embedder = TextEmbedder(model, TextTokenizer.from_corpus(
+        table["spu_name"]), max_length=12, batch_size=16, device="cpu")
+    sink = InMemoryKVSink()
+    n = nlp_similar_job(table, lambda t: embedder(list(t)), sink, k=5,
+                        score_th=0.5, device="cpu")
+    assert n > 0 and got[0]["n"] == got[1]["n"] == n
+    assert got[0]["items"] == {k: v for k, (v, _) in sink.data.items()}
+
+
+def test_approx_recall_runs_the_exact_search(tmp_path, monkeypatch, capsys):
+    """``similar nlp --approx_recall 0.95`` writes the lists the command
+    writes without it, after one notice on stderr (the JAX package runs
+    its approximate TPU search exactly off a TPU, without a mesh); a
+    recall outside (0, 1] raises as JAX's ``knn_search`` does."""
+    table = _similar_table()
+    path = tmp_path / "t.csv"
+    path.write_text("spu_sn,spu_name\n" + "".join(
+        f"{k},{t}\n" for k, t in zip(table["spu_sn"], table["spu_name"])),
+        encoding="utf-8")
+    base = ["similar", "nlp", "--data", str(path), "--bert_preset", "tiny",
+            "--max_length", "12", "--score_th", "0.5"]
+    written = []
+    for extra in ([], ["--approx_recall", "0.95"]):
+        sink = InMemoryKVSink()
+        monkeypatch.setattr(CS, "_kv_sink", lambda args, s=sink: s)
+        cli.main(base + extra, device="cpu")
+        written.append({k: v for k, (v, _) in sink.data.items()})
+    assert written[0] and written[0] == written[1]
+    err = capsys.readouterr().err
+    assert err.count("--approx_recall 0.95") == 1 and "exact" in err
+    with pytest.raises(ValueError, match="approx_recall"):
+        cli.main(base + ["--approx_recall", "0"], device="cpu")

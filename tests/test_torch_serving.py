@@ -983,8 +983,10 @@ def test_warm_serve_service_drives_every_path(tmp_path):
 
 def test_serve_score_th_defaults_and_unported_flags(tmp_path, capsys):
     """Unset --score_th resolves to the tower's reference operating point
-    (nlp_infer.py:152); an explicit flag wins. The search-backend flags
-    raise instead of being ignored, ``--int8`` builds the int8 tower; the
+    (nlp_infer.py:152); an explicit flag wins. ``--pallas_topk`` raises
+    instead of being ignored, ``--approx_recall`` serves the exact search
+    after a notice (as JAX serves it off a TPU; out of (0, 1] it raises
+    as JAX's ``knn_search`` does), ``--int8`` builds the int8 tower; the
     fasttext and daodian towers are ported (tests/test_torch_daodian.py): without a model the fasttext
     tower stops with a one-line error, and daodian has its own
     service."""
@@ -1000,10 +1002,23 @@ def test_serve_score_th_defaults_and_unported_flags(tmp_path, capsys):
         assert cli._serve_score_th(args) == want
         assert cli._serve_score_th(args) == jserve._serve_score_th(args)
     table = {"spu_sn": ["a"], "spu_name": ["b"]}
-    for argv in (["--pallas_topk"], ["--approx_recall", "0.9"]):
-        args = build_parser().parse_args(["serve", "--data", "x"] + argv)
-        with pytest.raises(NotImplementedError):
-            cli._build_serve_service(args, table=table, device="cpu")
+    args = build_parser().parse_args(["serve", "--data", "x",
+                                      "--pallas_topk"])
+    with pytest.raises(NotImplementedError):
+        cli._build_serve_service(args, table=table, device="cpu")
+    args = build_parser().parse_args(["serve", "--data", "x",
+                                      "--approx_recall", "1.5"])
+    with pytest.raises(ValueError, match="approx_recall"):
+        cli._build_serve_service(args, table=table, device="cpu")
+    args = build_parser().parse_args(["serve", "--data", "x",
+                                      "--approx_recall", "0.9",
+                                      "--max_length", "8"])
+    service, _ = cli._build_serve_service(args, table=table, device="cpu")
+    assert "search is exact" in capsys.readouterr().err
+    try:
+        assert service.similar("b", score_th=None)[0]["key"] == "a"
+    finally:
+        service.close()
     # --int8 is ported (models/quant.py): the daemon serves the int8 tower
     args = build_parser().parse_args(["serve", "--data", "x", "--int8",
                                       "--max_length", "8"])

@@ -43,7 +43,8 @@ print(json.dumps([names, leaked]))
 
 # the serving and export modules, which pull in the most of the package,
 # the image slice's, the daodian slice's, the training recipes', the
-# command line's and the ViT, ConvNeXt and int8 towers'
+# command line's, the ViT, ConvNeXt and int8 towers' and the multi-GPU
+# layouts'
 SERVING = ["cli.common", "cli.embed", "cli.embedders", "cli.serve",
            "pipelines.embed", "pipelines.microbatch", "pipelines.serving",
            "data.images", "pipelines.embcache", "models.efficientnet",
@@ -59,7 +60,9 @@ SERVING = ["cli.common", "cli.embed", "cli.embedders", "cli.serve",
            "pipelines.spark", "pipelines.download",
            # the ViT, ConvNeXt and int8 towers
            "models.vit", "models.convnext", "models.quant",
-           "models.hf_import"]
+           "models.hf_import",
+           # the multi-GPU layouts
+           "parallel", "parallel.mesh", "parallel.spawn"]
 
 
 def _py_files():

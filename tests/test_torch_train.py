@@ -539,15 +539,20 @@ def test_async_failure_reraises_and_a_retry_writes(tmp_path, monkeypatch):
     assert mgr.latest_step() is None and mgr.restore() is None
 
 
-def test_unported_options_raise():
-    """Only the multi-GPU layouts (ROADMAP A17) stay unported: the
-    TrainerConfig fields and the command flags raise; accumulation,
-    profiling, AdamP, the cosine schedules and the fused loss run."""
-    for field in ("model_parallel_heads", "tensor_parallel",
-                  "sequence_parallel", "pipeline_parallel",
-                  "bf16_grad_allreduce"):
+def test_unported_options_raise(tmp_path):
+    """Only tensor, sequence and pipeline parallelism (ROADMAP A17 part 2)
+    stay unported: their TrainerConfig fields and command flags raise;
+    accumulation, profiling, AdamP, the cosine schedules, the fused loss,
+    class-sharded heads and the bf16 gradient all-reduce build (the last
+    two run in tests/test_torch_parallel.py). ``--model_parallel 2`` on
+    one process fails as the JAX package's ``create_mesh`` does on one
+    device."""
+    for field in ("tensor_parallel", "sequence_parallel",
+                  "pipeline_parallel"):
         with pytest.raises(NotImplementedError, match="A17"):
             TrainerConfig(**{field: True})
+    for field in ("model_parallel_heads", "bf16_grad_allreduce"):
+        assert getattr(TrainerConfig(**{field: True}), field)
     assert TrainerConfig(grad_accum=2, profile_dir="/nowhere").grad_accum == 2
     with pytest.raises(ValueError, match="grad_accum"):
         TrainerConfig(grad_accum=0)
@@ -558,13 +563,19 @@ def test_unported_options_raise():
                 save_every=1, log_every=1, margin=0.4,
                 margin_delta_per_epoch=0.0, output="unused", seed=0,
                 epochs=1)
-    for flag, value in (("model_parallel", 2), ("bf16_grads", True),
-                        ("tensor_parallel", True),
+    for flag, value in (("tensor_parallel", True),
                         ("sequence_parallel", True),
                         ("pipeline_parallel", 2)):
         args = argparse.Namespace(**base, **{flag: value})
         with pytest.raises(NotImplementedError, match=flag):
             _trainer(text_arcface_task(model), args, 4, device="cpu")
+    args = argparse.Namespace(**base, model_parallel=2)
+    with pytest.raises(ValueError, match="not divisible by model=2"):
+        _trainer(text_arcface_task(model), args, 4, device="cpu")
+    args = argparse.Namespace(**{**base, "output": str(tmp_path)},
+                              bf16_grads=True)
+    trainer = _trainer(text_arcface_task(model), args, 4, device="cpu")
+    assert trainer.config.bf16_grad_allreduce
 
 
 def test_cli_trainer_builds_the_v2_recipe(tmp_path):

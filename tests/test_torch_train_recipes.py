@@ -800,8 +800,10 @@ def test_train_commands_run_two_epochs(tmp_path):
 
 def test_train_commands_refuse_what_jax_refuses(tmp_path):
     """The JAX commands' refusals (SystemExit) of flags that do not apply,
-    and the port's own of the multi-GPU layouts and remat
-    (NotImplementedError, ROADMAP A17), before any work."""
+    and the port's own of the layouts it has not ported (tensor and
+    pipeline parallelism, remat: NotImplementedError, ROADMAP A17 part
+    2), before any work. ``--model_parallel`` and ``--bf16_grads`` run
+    (tests/test_torch_parallel.py)."""
     argv = ["--data", "unused.csv", "--img_root", "unused"]
     for cmd, fn, flag in (("cv", CT.cmd_train_cv, ["--fused_loss"]),
                           ("cv", CT.cmd_train_cv, ["--remat"]),
@@ -815,7 +817,7 @@ def test_train_commands_refuse_what_jax_refuses(tmp_path):
     for cmd, fn in (("nlp", CT.cmd_train_nlp),
                     ("multilabel", CT.cmd_train_multilabel),
                     ("pair", CT.cmd_train_pair)):
-        for flag in (["--model_parallel", "2"], ["--bf16_grads"],
+        for flag in (["--tensor_parallel"], ["--pipeline_parallel", "2"],
                      ["--remat"]):
             with pytest.raises(NotImplementedError, match="A17"):
                 fn(_cmd_args(["train", cmd, "--data", str(tmp_path / "x")]

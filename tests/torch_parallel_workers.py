@@ -1,0 +1,263 @@
+"""What each rank runs in tests/test_torch_parallel.py.
+
+The ranks start under ``spawn`` (``multimodalsimilar_tpu_torch.parallel.
+spawn``) and import this module afresh, so it imports torch and the port
+only: no JAX (whose import costs seconds and would miss
+tests/conftest.py's platform setup). Every function runs on every rank
+of a gloo process group on the CPU and returns plain numpy and Python
+values.
+"""
+
+import dataclasses
+import os
+
+import numpy as np
+import torch
+
+from multimodalsimilar_tpu_torch.models import efficientnet as E
+from multimodalsimilar_tpu_torch.models.bert import BertConfig
+from multimodalsimilar_tpu_torch.models.classifiers import (
+    NlpMultilabelClassifier, NlpTextClassifier)
+from multimodalsimilar_tpu_torch.models.vision import CvImageClassifier
+from multimodalsimilar_tpu_torch.parallel.mesh import (DATA_AXIS, MODEL_AXIS,
+                                                       MeshRules,
+                                                       create_mesh,
+                                                       shard_batch)
+from multimodalsimilar_tpu_torch.pipelines.similar import nlp_similar_job
+from multimodalsimilar_tpu_torch.pipelines.sinks import InMemoryKVSink
+from multimodalsimilar_tpu_torch.retrieval.knn import (pad_corpus,
+                                                       sharded_knn_search)
+from multimodalsimilar_tpu_torch.train.optim import dual_group_adamw
+from multimodalsimilar_tpu_torch.train.tasks import (cv_arcface_task,
+                                                     multilabel_arcface_task,
+                                                     text_arcface_task)
+from multimodalsimilar_tpu_torch.train.trainer import Trainer, TrainerConfig
+from multimodalsimilar_tpu_torch.utils.dtypes import DTypePolicy
+
+FULL = DTypePolicy.full_precision()
+
+
+class Batches:
+    """A source that yields the same global batches on every rank (the
+    Trainer cuts each rank's block)."""
+
+    def __init__(self, batches):
+        self.items = batches
+
+    def __len__(self):
+        return sum(len(b["labels" if "labels" in b else "tag_label"])
+                   for b in self.items)
+
+    def batches(self, batch_size, shuffle=True, seed=0, epoch=0,
+                sampler=None, drop_remainder=True):
+        yield from self.items
+
+
+def build(kind, spec):
+    """(model, task) of a tiny model in full precision, dropout off."""
+    if kind == "text":
+        model = NlpTextClassifier(BertConfig.tiny(**spec["bert"]),
+                                  policy=FULL,
+                                  num_labels=spec["num_labels"])
+        return model, text_arcface_task(model,
+                                        num_valid=spec.get("num_valid"))
+    if kind == "multilabel":
+        model = NlpMultilabelClassifier(BertConfig.tiny(**spec["bert"]),
+                                        *spec["labels"], policy=FULL)
+        return model, multilabel_arcface_task(
+            model, num_valid=spec.get("num_valid", (None,) * 3))
+    cfg = dataclasses.replace(E.EfficientNetConfig.tiny(),
+                              drop_path_rate=0.0)
+    model = CvImageClassifier(cfg, num_labels=spec["num_labels"],
+                              fc_dim=spec["fc_dim"], policy=FULL)
+    model.dropout.p = 0.0
+    return model, cv_arcface_task(model, spec.get("num_valid"))
+
+
+def _numpy(state):
+    return {k: v.detach().cpu().numpy() for k, v in state.items()}
+
+
+def fit(kind, spec, state_dict, batches, mesh_shape, config, lrs,
+        out_dir, evals=None):
+    """Gradients of the first batch, then ``Trainer.fit`` over the batches
+    for one epoch (and ``evals`` as the eval split), on a ``mesh_shape`` =
+    (data, model) mesh. Rank 0
+    returns the gradients and the final model state (one-card layout);
+    every rank its coordinates and its own head block."""
+    mesh = create_mesh(*mesh_shape)
+    model, task = build(kind, spec)
+    model.load_state_dict({k: torch.from_numpy(v)
+                           for k, v in state_dict.items()})
+    trainer = Trainer(
+        task, lambda m: dual_group_adamw(m, lambda s: lrs[0],
+                                         lambda s: lrs[1]),
+        TrainerConfig(log_every=1, metrics_path=os.path.join(
+            out_dir, "metrics.jsonl"), **config), device="cpu", mesh=mesh)
+    # the gradients of the first batch's loss, reduced as a step reduces
+    # (the BatchNorm statistics this forward moves are put back after)
+    saved = {k: v.clone() for k, v in model.state_dict().items()}
+    model.train()
+    loss, _ = task.train_loss(shard_batch(mesh, _tensors(batches[0])),
+                              trainer.margin)
+    loss.backward()
+    trainer._reduce_gradients()
+    grads = {}
+    for name, p in model.named_parameters():
+        g = p.grad
+        if name in trainer.shards:
+            g = mesh.all_gather(g, MODEL_AXIS).reshape(
+                (trainer.shards[name][1],) + tuple(g.shape[1:]))
+        grads[name] = g.numpy()
+    trainer.optimizer.zero_grad(set_to_none=True)
+    model.load_state_dict(saved)
+    state = trainer.fit(Batches([_numpy_batch(b) for b in batches]), 1,
+                        len(next(iter(batches[0].values()))),
+                        Batches(evals) if evals else None)
+    heads = {name: p.detach().numpy() for name, (p, _) in
+             trainer.shards.items()}
+    out = {"rank": mesh.rank, "coords": (mesh.data_index, mesh.model_index),
+           "heads": heads,
+           "bn_mesh": sum(getattr(m, "stats_mesh", None) is not None
+                          for m in trainer._batch_norms())}
+    if mesh.rank == 0:
+        out.update(grads=grads, state=_numpy(state["model"]))
+    return out
+
+
+def _tensors(batch):
+    return {k: torch.from_numpy(np.asarray(v)) for k, v in batch.items()}
+
+
+def _numpy_batch(batch):
+    return {k: np.asarray(v) for k, v in batch.items()}
+
+
+def mesh_layout(mesh_shape):
+    """Coordinates and the collectives over both axes."""
+    mesh = create_mesh(*mesh_shape)
+    r = float(mesh.rank)
+    out = {"rank": mesh.rank, "coords": (mesh.data_index, mesh.model_index)}
+    for axis in (DATA_AXIS, MODEL_AXIS):
+        out[f"sum_{axis}"] = float(mesh.all_reduce(torch.tensor([r]),
+                                                   axis)[0])
+        out[f"max_{axis}"] = float(mesh.all_reduce(torch.tensor([r]), axis,
+                                                   "max")[0])
+        out[f"gather_{axis}"] = mesh.all_gather(
+            torch.tensor([mesh.rank]), axis)[:, 0].tolist()
+        rows = torch.full((mesh.rank + 1, 2), r)
+        out[f"rows_{axis}"] = mesh.all_gather_rows(rows, axis)[:, 0].tolist()
+    out["object"] = mesh.broadcast_object({"from": mesh.rank})
+    batch = {"x": np.arange(8 * 3).reshape(8, 3), "meta": np.arange(3),
+             "s": np.float32(1.0)}
+    out["batch"] = {k: np.asarray(v) for k, v in
+                    shard_batch(mesh, batch).items()}
+    return out
+
+
+def search(cases, n_data):
+    """``sharded_knn_search`` of every case over an ``n_data``-rank data
+    axis, each rank holding its block of the padded corpus."""
+    mesh = create_mesh(n_data)
+    out = []
+    for corpus, queries, k, metric, true_n in cases:
+        padded, n = pad_corpus(corpus, n_data, metric)
+        block = padded[MeshRules(mesh).corpus_sharded(len(padded))]
+        v, i = sharded_knn_search(
+            mesh, torch.from_numpy(np.ascontiguousarray(block)),
+            torch.from_numpy(queries), k, metric,
+            true_n=n if true_n is None else true_n)
+        out.append((v.numpy(), i.numpy()))
+    return out
+
+
+def similar(table, state_dict, bert, n_data, k, score_th):
+    """The sharded ``nlp_similar_job`` with a tiny tower; rank 0 returns
+    what it wrote."""
+    from multimodalsimilar_tpu_torch.data.tokenizer import TextTokenizer
+    from multimodalsimilar_tpu_torch.pipelines.embedders import TextEmbedder
+    mesh = create_mesh(n_data)
+    model = NlpTextClassifier(BertConfig.tiny(**bert), num_labels=3)
+    model.load_state_dict({k: torch.from_numpy(v)
+                           for k, v in state_dict.items()})
+    tok = TextTokenizer.from_corpus(table["spu_name"])
+    embedder = TextEmbedder(model, tok, max_length=12, batch_size=16,
+                            device="cpu")
+    sink = InMemoryKVSink()
+    n = nlp_similar_job(table, lambda t: embedder(list(t)), sink, k=k,
+                        score_th=score_th, device="cpu", mesh=mesh)
+    items = {key: v for key, (v, _) in sink.data.items()}
+    return {"n": n, "items": items if mesh.rank == 0 else None}
+
+
+def train_cli(argv):
+    """``train nlp`` through the command line on this rank; returns its
+    head block's shape and the checkpoint's whole head."""
+    from multimodalsimilar_tpu_torch import cli
+    from multimodalsimilar_tpu_torch.train.checkpoint import (
+        CheckpointManager)
+    trainer = cli.main(argv, device="cpu")
+    ckpt = CheckpointManager(trainer.config.checkpoint_dir).restore()
+    return {"block": tuple(trainer.model.head.weight.shape),
+            "saved": tuple(ckpt["model"]["head.weight"].shape),
+            "shards": sorted(trainer.shards)}
+
+
+def run(jobs):
+    """Every ``(function name, args)`` of ``jobs`` in turn, on one process
+    group: one spawn serves many cases."""
+    return [globals()[name](*args) for name, args in jobs]
+
+
+# -- on the card (tests/test_torch_cuda.py): ranks on cuda:0 over gloo -------
+
+def _card_inputs(b, c, d, seed):
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.standard_normal((b, d), dtype=np.float32))
+    w = torch.from_numpy(rng.standard_normal((c, d), dtype=np.float32))
+    labels = torch.from_numpy(rng.integers(0, c, b).astype(np.int32))
+    labels[:2] = torch.tensor([c // 2 - 1, c // 2])  # on both blocks' edges
+    return x, w, labels
+
+
+def card_head(b, c, d, seed):
+    """A class-sharded ``ArcFaceHead`` over the ranks' model axis: its
+    margin logits (the kernel on this rank's block), the cross-entropy
+    over the model group and the gradients of x and of the block."""
+    from multimodalsimilar_tpu_torch.models.heads import ArcFaceHead
+    from multimodalsimilar_tpu_torch.ops import arcface as A
+    from multimodalsimilar_tpu_torch.train.tasks import _ce
+    dev = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = create_mesh(1, int(torch.distributed.get_world_size()))
+    x, w, labels = _card_inputs(b, c, d, seed)
+    head = ArcFaceHead(c, d).to(dev)
+    with torch.no_grad():
+        head.weight.copy_(w.to(dev))
+    head.shard(mesh)
+    x = x.to(dev).requires_grad_(True)
+    A.LAUNCHES["arcface"] = 0
+    logits = head(x, labels.to(dev), m=0.4)
+    loss = _ce(logits, labels.to(dev), head)
+    loss.backward()
+    torch.cuda.synchronize()
+    return {"logits": logits.detach().cpu().numpy(), "loss": float(loss),
+            "grad_x": x.grad.cpu().numpy(),
+            "grad_w": head.weight.grad.cpu().numpy(),
+            "launches": A.LAUNCHES["arcface"]}
+
+
+def card_search(corpus, queries, k, metric):
+    """``sharded_knn_search`` over the ranks' data axis on the card."""
+    from multimodalsimilar_tpu_torch.ops import topk as T
+    dev = torch.device("cuda", 0)
+    mesh = create_mesh()
+    padded, n = pad_corpus(corpus, mesh.data, metric)
+    block = padded[MeshRules(mesh).corpus_sharded(len(padded))]
+    T.LAUNCHES["topk"] = T.LAUNCHES["topk_select"] = 0
+    v, i = sharded_knn_search(
+        mesh, torch.from_numpy(np.ascontiguousarray(block)).to(dev),
+        torch.from_numpy(queries).to(dev), k, metric, true_n=n)
+    torch.cuda.synchronize()
+    return {"v": v.cpu().numpy(), "i": i.cpu().numpy(),
+            "launches": T.LAUNCHES["topk"] + T.LAUNCHES["topk_select"]}
