@@ -87,8 +87,8 @@
    buckets 48/64/96, AdamW at 1e-3 with weight decay 0.01 on both groups,
    linear schedule, margin 0.4, s=64, class-balanced sampling, the
    default training policy) on 4,096 synthetic titles with Zipf-like
-   labels, for 2 epochs (64 steps) with eval and checkpoints every 32
-   steps. The ArcFace launch count is set to 0 just before ``fit`` and
+   labels, for 1 epoch (32 steps; 2 before a cut for time) with eval and
+   checkpoints at 32 steps. The ArcFace launch count is set to 0 just before ``fit`` and
    must equal the step count just after. Logged losses must be finite,
    tower and head must have moved, the last checkpoint must restore to
    equal parameters, and on one batch with dropout off the kernel path's
@@ -117,9 +117,9 @@
    statistics, saved as a port checkpoint, loaded and BN-folded by
    ``cli/embedders.py:_load_cv_tower``, bf16 inference policy. It checks
    the folded tower against the unfolded one in full precision on 64
-   images (max abs error <= 1e-4 of the largest output), embeds 8,192
+   images (max abs error <= 1e-4 of the largest output), embeds 4,096
    synthetic uint8 images through ``ImageEmbedder.embed_batch`` (made
-   from the seed 1,024 at a time), stores them with 91,808 seeded unit
+   from the seed 1,024 at a time), stores them with 95,904 seeded unit
    vectors in a packed ``EmbeddingCache`` (a 100,000-key corpus with a
    40-value category column), builds the service through
    ``_build_serve_service(args, table=...)`` with ``--emb_cache`` (no key
@@ -191,7 +191,7 @@
    epochs, ``log_every`` 1, eval and save cadence left long), with the
    ArcFace launch count set to 0 before each and read after: ``train cv``
    at ``configs/train_cv_daodian.yaml`` (B4 at 512 px, batch 24, fc 512,
-   4,181 Zipf classes, 144 synthetic JPEGs written by cv2 and read
+   4,181 Zipf classes, 192 synthetic JPEGs written by cv2 (96 rows) and read
    through ``ImageClassificationSource`` as uint8, AdamW under
    ``cosine_warm_restarts``, class-balanced sampling, margin 0.2 + 0.04
    an epoch: the margin must reach 0.24, launches equal steps and every
@@ -222,14 +222,18 @@
    launches must equal the 32 steps); ``eval`` of that checkpoint with
    its ``vocab.txt`` (finite metrics, the printed line equal to the
    result); ``similar nlp --config configs/similar_nlp.yaml`` over
-   50,000 titles with that checkpoint and vocab (top-k launched; its KV
+   25,000 titles with that checkpoint and vocab (top-k launched; its KV
    writes must equal ``nlp_similar_job`` called directly on the vectors
    the command embedded), and the same command once as a subprocess of
    ``python -m multimodalsimilar_tpu_torch.cli`` over the first 5,000
    titles (``{"written": N}`` equal to the job's on the vectors the
-   in-process command embedded for them); ``similar multimodal`` over
-   4,096 1,280-d ``[x,y,...]`` strings (its writes equal ``multimodal_similar_job`` on
-   the same array); ``train fasttext --config
+   in-process command embedded for them); the text embedder's build from
+   that checkpoint timed through ``_build_text_embedder`` (the tower
+   built on the meta device) and as it was built before (a random init
+   on the host, then the checkpoint's tower), the vectors of 512 titles
+   equal; ``similar multimodal`` over 4,096 1,280-d ``[x,y,...]``
+   strings (its writes equal ``multimodal_similar_job`` on the same
+   array); ``train fasttext --config
    configs/train_fasttext.yaml`` on 20,000 titles, then ``similar
    daodian --config configs/similar_daodian_v2_recent_days.yaml
    --text_only --dt 2026-08-16`` over 2 areas of 8,300 rows with that
@@ -249,22 +253,22 @@
    row; under the full-precision policy that cosine must reach 0.9999).
    (b) ``train cv`` through
    ``cmd_train_cv`` with ``convnext_tiny`` (depths 3/3/9/3, dims 96-768)
-   at ``configs/train_cv_daodian.yaml`` (batch 24, 144 rows) and
-   ``vit_base`` at ``configs/train_cv_timm.yaml`` (batch 96, 288 rows,
+   at ``configs/train_cv_daodian.yaml`` (batch 24, 96 rows) and
+   ``vit_base`` at ``configs/train_cv_timm.yaml`` (batch 96, 192 rows,
    AdamP, ``timm_cosine``), both at 224 px for two epochs: ArcFace
    launches equal the steps, the kernel path's loss and gradients match
    the plain head's on one batch (phase 4's tolerances), the checkpoint
    restores and serves through ``_load_cv_tower`` unchanged, with step
    p50/p95, examples/s, peak memory and a profiled step. (c) ``similar
-   nlp`` at ``configs/similar_nlp.yaml`` over 16,384 titles, bf16 and
+   nlp`` at ``configs/similar_nlp.yaml`` over 8,192 titles, bf16 and
    ``--int8``, through ``cli.main``: both launch the top-k; the int8
    embeddings' cosine to the f32 tower's (2,048 rows, TF32 off) must be
    >= 1 - 1e-3, the JAX package's budget, and the cosine to bf16 and the
    neighbour-list overlap are reported; ``torch._int_mm`` equals the exact
    product (f64 on the card) at the tower's shapes, one row, and K = 3,072
    with every product at 127^2, timed beside the bf16 product; ``serve
-   --tower bert --int8`` at ``configs/serve.yaml`` over phase 5's
-   100,000 titles (the corpus pass through the int8 tower), held as
+   --tower bert --int8`` at ``configs/serve.yaml`` over the first 20,000
+   of phase 5's titles (the corpus pass through the int8 tower), held as
    phase 5's fused path, top-k launches equal to micro-batches,
    the int8 and bf16 towers timed at buckets 1 and 64. The kernels line
    gets the new paths' launch counts.
@@ -275,10 +279,13 @@
    card, one rank per card over NCCL, held against it; then two ranks on
    ``cuda:0`` over gloo, whose CUDA collectives stage through the host
    (two shards meet on the card; their times are not scaling numbers).
-   In each rank: (a) ``train nlp`` at
+   The reference spawn draws the base tower once on the host and saves
+   its state dict, a port checkpoint of it and the titles' vocab in the
+   work directory; every later spawn builds the tower on the meta device
+   and loads them. In each rank: (a) ``train nlp`` at
    ``configs/train_nlp_v2_dist.yaml`` (the base tower with dropout off,
-   a 10,205-class head, global batch 1,024 over 6,144 synthetic titles
-   with Zipf labels, 6 steps, class-balanced sampling) through
+   a 10,205-class head, global batch 1,024 over 4,096 synthetic titles
+   with Zipf labels, 4 steps, class-balanced sampling) through
    ``cli/train.py:_trainer`` over ``_mesh(args)``: f32 data-parallel,
    ``--bf16_grads``, and with two ranks ``--model_parallel 2`` (10,206
    classes, 5,103 a rank, the pad class masked). The loss and the
@@ -292,7 +299,8 @@
    the gathered head. Step p50, examples/s, peak memory and the
    gradient all-reduce's time and share of the step are reported. (b)
    ``similar nlp --config configs/similar_nlp.yaml`` over phase 2's
-   50,000 titles through ``cli.main``: each rank embeds its own rows, the
+   50,000 titles through ``cli.main`` (``--checkpoint`` and
+   ``--tokenizer`` of the saved base tower): each rank embeds its own rows, the
    engine searches its block of the corpus, rank 0 writes; the two-rank
    run's KV items must equal the one-rank run's exactly, top-k launches
    counted per rank; after the job each rank holds the kernel against
@@ -309,6 +317,43 @@
    class block (5,103 x 768 at B = 128 and 1,024, as phase 3's recipe
    heads). ``python3 chip_smoke.py --phases 12`` runs the builds and
    phase 12 alone and prints no kernels or result line.
+
+14. Phase 13 trains ``configs/train_nlp_large_tp.yaml`` at full width
+   (``roberta_wwm_ext_large``: 24 layers, hidden 1,024, 16 heads, MLP
+   4,096, vocab 21,128; the 10,205-class head; global batch 256, titles
+   of at most 46 characters so every batch is in the 48-token bucket,
+   dropout off, the default training policy), seeded weights drawn on
+   the card, 3 steps through ``cli/train.py:_trainer``: (a) one NCCL
+   rank with ``--remat`` and no tensor parallelism, the reference, which
+   saves its weights' per-tensor sums in the work directory; (b) four
+   gloo ranks on ``cuda:0`` (data 1 x model 4: ``--tensor_parallel
+   --sequence_parallel --remat`` and the head padded to 10,208 classes,
+   2,552 a rank, through ``csrc/arcface.cu``), each drawing the same
+   weights from the same seeded generator (checked against those sums),
+   building the model on the meta device and loading them; (c) the
+   reference rank without ``--remat``;
+   and on the reference rank the first batch's gradients in full
+   precision. The first step's gradients (reduced as the step reduces
+   them, gathered to the one-card layout) are captured before the
+   optimizer takes them. (b)'s per-step losses must match (a)'s within
+   2e-3 relative; each of its first gradients must lie within twice (a)'s
+   distance to the full-precision gradients plus 2e-3, as shares of the
+   tensor's largest entry (bf16 products round otherwise split over four
+   ranks; (a)'s own bf16 gradients lie up to 5% of a tensor's largest
+   entry from f32's), and the pad classes have no gradient; (c)'s losses
+   must equal (a)'s within 1e-5 relative and its peak memory exceed
+   (a)'s; ArcFace launches equal the steps on every rank, and each rank
+   holds the kernel against its plain version on its first launch's
+   inputs (its 256 x 2,552 x 1,024 block), as phase 3 does; (b)'s
+   checkpoint must be in the one-card layout with 10,208 head rows. It
+   reports each run's step p50 (steps after the first, each between two
+   synchronizations), examples/s and peak memory, and the share of (b)'s
+   steps spent inside the collectives (each bracketed by
+   ``torch.cuda.synchronize``), and times the kernel on one class block
+   beside its bound, the plain version and SGEMM. With four cards it
+   also runs (b) over NCCL, one card a rank, held the same way. The
+   gloo ranks share one card and stage every collective through the
+   host: their times are not scaling numbers.
 
 Prints the card's name and power limit, one JSON line per phase, the
 ``{"kernels": [...]}`` line, and last ``{"ok": true, "device": ...}``.
@@ -337,6 +382,7 @@ import urllib.request
 import numpy as np
 import torch
 
+from multimodalsimilar_tpu_torch.cli.common import _on_meta
 from multimodalsimilar_tpu_torch.cli.embedders import (_cv_embedder,
                                                        _multimodal_embedder)
 from multimodalsimilar_tpu_torch.cli.serve import (_build_serve_service,
@@ -391,7 +437,8 @@ N_SERVE, N_CATEGORIES = 100_000, 40    # benchmarks/serving_load.py's corpus
 SERVE_LEVELS = (1, 16, 64, 128)
 BACKBONE, CV_SIZE, MM_SIZE = "efficientnet_b4", 512, 380
 CV_DIM, MM_DIM, CV_LABELS, MM_LABELS = 512, 512 + 768, 4_181, 796
-N_CV_IMAGES, CV_CHUNK, N_CV_CORPUS = 8_192, 1_024, 100_000
+# 4,096 corpus images (8,192 before a cut for time)
+N_CV_IMAGES, CV_CHUNK, N_CV_CORPUS = 4_096, 1_024, 100_000
 N_MM = 4_096
 CV_LEVELS, MM_LEVELS = (1, 16, 64), (1, 16, 48)
 FOLD_RTOL = 1e-4
@@ -892,11 +939,12 @@ def zipf_labels(n: int, n_cls: int, rng) -> np.ndarray:
 
 
 def train_args(output: str) -> argparse.Namespace:
-    """configs/train_nlp_v2.yaml written out, with the run cut to 2 epochs
-    and the eval/save cadence to 32 steps."""
+    """configs/train_nlp_v2.yaml written out, with the run cut to 1 epoch
+    (32 steps; 2 before a cut for time) and the eval/save cadence to 32
+    steps."""
     return argparse.Namespace(
         text_col="spu_name", label_col="tag_new_id", bert_preset="base",
-        batch_size=128, max_length=128, epochs=2, tower_lr=1e-3,
+        batch_size=128, max_length=128, epochs=1, tower_lr=1e-3,
         head_lr=1e-3, head_warmup_frac=0.0, tower_warmup_frac=0.0,
         weighted_sampling=True, eval_every=32, save_every=32, log_every=8,
         weight_decay=0.01, head_weight_decay=0.01, seq_buckets="48,64,96",
@@ -2392,9 +2440,13 @@ def phase8(dev) -> dict:
 # -- phase 9: the training recipes -------------------------------------------
 
 RECIPE_EPOCHS = 2
-N_CV_ROWS, N_TIMM_ROWS, TIMM_BATCH, TIMM_ACCUM = 144, 288, 96, 1
-N_ML_ROWS, ML_LABELS = 4_096, (38, 590, 10_205)
-N_MMT_ROWS, N_PAIR_ROWS = 144, 384
+# rows of the image recipes: 4 steps an epoch at train_cv_daodian.yaml's
+# batch 24, 2 at train_cv_timm.yaml's 96 and train_multimodal.yaml's 48
+# (6, 3 and 3 before a cut for time)
+N_CV_ROWS, N_TIMM_ROWS, TIMM_BATCH, TIMM_ACCUM = 96, 192, 96, 1
+# 2,048 multilabel rows (4,096 before a cut for time)
+N_ML_ROWS, ML_LABELS = 2_048, (38, 590, 10_205)
+N_MMT_ROWS, N_PAIR_ROWS = 96, 384
 
 
 def train_flags(output: str, **values) -> argparse.Namespace:
@@ -2541,7 +2593,7 @@ def phase9(dev) -> dict:
         r["margins"] = sorted(set(margins))
         r["profile"] = profile_steps(trainer, ImageClassificationSource(
             cv_table, img_root, "goods_sku", "tag_new_id", CV_SIZE,
-            train_aug=True), 24, n=4)
+            train_aug=True), 24, n=2)
         out["cv_daodian"] = r
         release(trainer)
 
@@ -2568,7 +2620,7 @@ def phase9(dev) -> dict:
                                  f"{r['arcface_launches']} launches")
         r["profile"] = profile_steps(trainer, ImageClassificationSource(
             timm_table, img_root, "goods_sku", "tag_new_id", MM_SIZE,
-            train_aug=True), TIMM_BATCH, n=3)
+            train_aug=True), TIMM_BATCH, n=2)
         out["cv_timm"] = r
         release(trainer)
 
@@ -2642,7 +2694,7 @@ def phase9(dev) -> dict:
             mm_table, TextTokenizer.from_vocab_file(
                 os.path.join(args.output, "vocab.txt")), img_root,
             "spu_name", "spu_sn", "cateid", 128, MM_SIZE, train_aug=True),
-            48, n=4)
+            48, n=2)
         out["multimodal"] = r
         release(trainer)
 
@@ -2681,7 +2733,8 @@ def phase9(dev) -> dict:
     return out
 
 
-N_CLI_TITLES, N_CLI_FT, N_CLI_SUB = 50_000, 20_000, 5_000
+# similar nlp over 25,000 titles (50,000 before a cut for time)
+N_CLI_TITLES, N_CLI_FT, N_CLI_SUB = 25_000, 20_000, 5_000
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
 
@@ -2726,6 +2779,67 @@ def run_cli(argv) -> tuple:
 
 def kv_items(sink) -> dict:
     return {k: v for k, (v, _) in sink.data.items()}
+
+
+def cli_args(argv) -> argparse.Namespace:
+    """``argv`` as the port's command line parses it, ``--config``
+    applied."""
+    from multimodalsimilar_tpu_torch.cli.common import _apply_yaml_config
+    from multimodalsimilar_tpu_torch.cli.parser import (_inject_yaml_argv,
+                                                        build_parser)
+    parser = build_parser()
+    argv = _inject_yaml_argv(list(argv), parser)
+    args = parser.parse_args(argv)
+    _apply_yaml_config(args, argv)
+    return args
+
+
+def embedder_startup(argv, titles, dev) -> dict:
+    """Seconds to build ``similar nlp``'s text embedder from its
+    checkpoint: through ``_build_text_embedder`` (the tower built on the
+    meta device and loaded with ``assign=True``), and as it was built before
+    (the seed-0 tower drawn on the host, then overwritten by the
+    checkpoint's), meta first (it reads the checkpoint from the disk
+    first); both embedders must embed ``titles`` to the same vectors."""
+    from multimodalsimilar_tpu_torch.cli.common import (_bert_config,
+                                                        _restore_required)
+    from multimodalsimilar_tpu_torch.cli.embedders import (
+        _build_text_embedder)
+    args = cli_args(argv)
+    out, vectors = {}, {}
+
+    def random_then_load():
+        from multimodalsimilar_tpu_torch.utils.buckets import parse_buckets
+        model = NlpTextClassifier(_bert_config(args.bert_preset),
+                                  pool=getattr(args, "pool", "cls"),
+                                  policy=DTypePolicy.inference(),
+                                  num_labels=args.num_labels)
+        state = _restore_required(args.checkpoint)
+        model.tower.load_state_dict(
+            {k[len("tower."):]: v for k, v in state["model"].items()
+             if k.startswith("tower.")})
+        return TextEmbedder(
+            model, TextTokenizer.from_vocab_file(args.tokenizer),
+            args.max_length, args.batch_size, length_buckets=parse_buckets(
+                getattr(args, "length_buckets", None)), device=dev)
+
+    for name, build in (("meta_s", lambda: _build_text_embedder(
+            args, device=dev)), ("random_init_then_load_s",
+                                 random_then_load)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        embedder = build()
+        torch.cuda.synchronize()
+        out[name] = time.perf_counter() - t0
+        vectors[name] = np.asarray(embedder(titles))
+        del embedder
+        torch.cuda.empty_cache()
+    if not all(np.array_equal(v, vectors["meta_s"])
+               for v in vectors.values()):
+        raise AssertionError("the meta-built embedder embeds otherwise "
+                             "than the randomly initialized one")
+    out["same_vectors"] = len(titles)
+    return out
 
 
 def phase10(dev) -> dict:
@@ -2774,7 +2888,7 @@ def phase10(dev) -> dict:
             raise AssertionError(f"eval: {line}")
         out["eval"] = line
 
-        # 3. similar nlp at configs/similar_nlp.yaml over 50,000 titles
+        # 3. similar nlp at configs/similar_nlp.yaml over 25,000 titles
         titles = make_titles(N_CLI_TITLES, rng)
         keys = [f"spu{i:06d}" for i in range(N_CLI_TITLES)]
         sim_csv = os.path.join(work, "titles.csv")
@@ -2807,6 +2921,10 @@ def phase10(dev) -> dict:
             raise AssertionError(f"similar nlp: {line}, direct {n}, "
                                  f"{launches['similar_nlp']}")
         out["similar_nlp_written"] = n
+
+        # the text embedder's startup: the earlier way (a random init on the
+        # host, then the checkpoint's tower) against the meta build
+        out["startup"] = embedder_startup(argv, titles[:512], dev)
 
         # 4. the same command as a subprocess, on the card by default, over
         # the first N_CLI_SUB titles; its writes are the job's on the
@@ -2906,8 +3024,13 @@ N_VIT_IMAGES = 4_096
 # HBM3; 0.9999998 under the full-precision policy, which phase 6's
 # precision_witness holds at WITNESS_COS)
 VIT_OWN_SCORE = 0.996
-N_NEW_CV_ROWS, N_NEW_TIMM_ROWS = 144, 288
-N_INT8_TITLES, N_INT8_F32 = 16_384, 2_048
+# 96 and 192 rows (144 and 288 before a cut for time)
+N_NEW_CV_ROWS, N_NEW_TIMM_ROWS = 96, 192
+# 8,192 titles (16,384 before a cut for time)
+N_INT8_TITLES, N_INT8_F32 = 8_192, 2_048
+# the int8 daemon's corpus: phase 5's first 20,000 titles (all 100,000
+# before a cut for time: their corpus pass took 31.2 s of phase 11)
+N_INT8_SERVE = 20_000
 INT8_COS = 1e-3            # JAX's int8 budget against f32 (test_quant.py)
 # (rows, K, N) of int8 products: one row, 16 and 17 rows (the pad to
 # torch._int_mm's floor), a bucket-64 x 80-token request's QKV, and the
@@ -3129,8 +3252,10 @@ def phase11_int8(dev) -> dict:
         torch.cuda.empty_cache()
 
         # serve --tower bert --int8 at configs/serve.yaml
-        cats = [int(c) for c in rng.integers(0, N_CATEGORIES, N_SERVE)]
-        table = {"spu_sn": keys, "spu_name": titles,
+        cats = [int(c) for c in rng.integers(0, N_CATEGORIES,
+                                             N_INT8_SERVE)]
+        table = {"spu_sn": keys[:N_INT8_SERVE],
+                 "spu_name": titles[:N_INT8_SERVE],
                  "first_level_category_id": cats}
         novel = make_titles(256, np.random.default_rng(SEED + 73))
         args = serve_args()
@@ -3183,7 +3308,8 @@ def phase11(dev) -> dict:
 
 # -- phase 12: multi-GPU training and the corpus-sharded search --------------
 
-DIST_BATCH, DIST_STEPS = 1_024, 6       # train_nlp_v2_dist.yaml's batch
+# train_nlp_v2_dist.yaml's batch; 4 steps (6 before a cut for time)
+DIST_BATCH, DIST_STEPS = 1_024, 4
 DIST_TIMEOUT = 600                      # a rank that hangs fails the phase
 # the loss of world 2 against world 1 on the same global batches: the
 # kernel path's loss tolerance of phase 4 (head_paths)
@@ -3219,8 +3345,8 @@ def dist_first_grads(trainer, batch, dev) -> tuple:
     """The loss and the gradients of one global batch on this rank's
     block, reduced as a step reduces them, the class-sharded heads
     gathered; the gradients are then cleared."""
-    from multimodalsimilar_tpu_torch.parallel.mesh import (MODEL_AXIS,
-                                                           shard_batch)
+    from multimodalsimilar_tpu_torch.parallel.mesh import shard_batch
+    from multimodalsimilar_tpu_torch.train.checkpoint import gather_shard
     mesh = trainer.mesh
     trainer.model.train()
     trainer.generator.manual_seed(trainer._mask_seed())
@@ -3233,8 +3359,7 @@ def dist_first_grads(trainer, batch, dev) -> tuple:
     for name, p in trainer.model.named_parameters():
         g = p.grad
         if name in trainer.shards:
-            g = mesh.all_gather(g, MODEL_AXIS).reshape(
-                (trainer.shards[name][1],) + tuple(g.shape[1:]))
+            g = gather_shard(g, trainer.shards[name], mesh)
         grads[name] = g
     trainer.optimizer.zero_grad(set_to_none=True)
     return loss, grads
@@ -3274,10 +3399,25 @@ def dist_train(dev, ref: bool, work: str) -> dict:
                            encoding="utf-8"))
     tok = TextTokenizer.from_corpus(table["spu_name"])
     world, rank = dist.get_world_size(), dist.get_rank()
-    model = NlpTextClassifier(
-        BertConfig.roberta_wwm_ext(hidden_dropout=0.0, attention_dropout=0.0),
-        num_labels=AF_C, arcface=A.ArcFaceParams(m=0.4),
-        generator=torch.Generator().manual_seed(SEED))
+
+    def make():
+        return NlpTextClassifier(
+            BertConfig.roberta_wwm_ext(hidden_dropout=0.0,
+                                       attention_dropout=0.0),
+            num_labels=AF_C, arcface=A.ArcFaceParams(m=0.4),
+            generator=torch.Generator().manual_seed(SEED))
+
+    base = os.path.join(work, "base_state.pt")
+    t0 = time.perf_counter()
+    if ref:
+        # the one random init on the host; every other spawn loads it
+        model = make()
+        save_base(model, base, work)
+    else:
+        model = _on_meta(make)
+        model.load_state_dict(torch.load(base, mmap=True,
+                                         weights_only=True), assign=True)
+    build_s = time.perf_counter() - t0
     init = {k: v.clone() for k, v in model.state_dict().items()}
     configs = ["f32", "bf16"] + (["model_parallel"] if world % 2 == 0
                                  else [])
@@ -3302,7 +3442,7 @@ def dist_train(dev, ref: bool, work: str) -> dict:
         batch = next(src.batches(DIST_BATCH, shuffle=False))
         first_loss, grads = dist_first_grads(trainer, batch, dev)
         ref_path = os.path.join(work, "grads_f32.pt")
-        row = {"first_loss": first_loss,
+        row = {"first_loss": first_loss, "model_build_s": build_s,
                "head_rows_on_rank": trainer.model.head.weight.shape[0]}
         if ref and name == "f32" and rank == 0:
             torch.save({k: v.cpu() for k, v in grads.items()}, ref_path)
@@ -3381,10 +3521,31 @@ def dist_train(dev, ref: bool, work: str) -> dict:
     return out
 
 
+def save_base(model, path: str, work: str) -> None:
+    """The reference spawn's random base tower for every later spawn: its
+    state dict, and a port checkpoint of it with the vocab of phase 12's
+    titles, which ``similar nlp`` loads with ``--checkpoint`` and
+    ``--tokenizer`` (the seed-0 tower and the corpus vocab the command
+    would draw and derive itself)."""
+    torch.save(model.state_dict(), path)
+    CheckpointManager(os.path.join(work, "base_ckpt")).save(
+        0, {"step": 0, "model": model.state_dict()})
+    titles = [row[1] for row in csv_rows(os.path.join(work, "titles.csv"))]
+    TextTokenizer.from_corpus(titles, save_vocab_path=os.path.join(
+        work, "vocab.txt"))
+
+
+def csv_rows(path: str) -> list:
+    import csv
+    with open(path, newline="", encoding="utf-8") as f:
+        return list(csv.reader(f))[1:]
+
+
 def dist_similar(ref: bool, work: str) -> dict:
     """(b): ``similar nlp --config configs/similar_nlp.yaml`` over phase
-    2's 50,000 titles through ``cli.main`` on this rank. The reference
-    world writes its KV items; the other's rank 0 must write the same."""
+    2's 50,000 titles through ``cli.main`` on this rank, the reference
+    spawn's base tower loaded from its checkpoint. The reference world
+    writes its KV items; the other's rank 0 must write the same."""
     import torch.distributed as dist
     from multimodalsimilar_tpu_torch.cli import similar as cli_similar
     sink = InMemoryKVSink()
@@ -3403,7 +3564,9 @@ def dist_similar(ref: bool, work: str) -> dict:
     try:
         _, _, wall, launches = run_cli(
             ["similar", "nlp", "--config", config_path("similar_nlp.yaml"),
-             "--data", os.path.join(work, "titles.csv")])
+             "--data", os.path.join(work, "titles.csv"), "--checkpoint",
+             os.path.join(work, "base_ckpt"), "--tokenizer",
+             os.path.join(work, "vocab.txt")])
     finally:
         cli_similar._kv_sink = saved
         T.topk_cuda = launch
@@ -3576,6 +3739,412 @@ def phase12(dev) -> dict:
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
+# -- phase 13: tensor- and sequence-parallel training of the large tower ------
+
+P13_BATCH, P13_STEPS = 256, 3          # train_nlp_large_tp.yaml's batch
+P13_CHARS = 46                         # + [CLS], [SEP]: the 48 bucket
+P13_CLASSES = -(-AF_C // 4) * 4        # 10,208: the head padded for model 4
+P13_LOSS_RTOL = 2e-3                   # four ranks against one, per step
+P13_REMAT_RTOL = 1e-5                  # remat against none, one rank
+# first gradients: four ranks' distance to one rank's f32 gradients, at
+# most this many times one rank's bf16 distance plus this slack (shares
+# of each tensor's largest entry; see p13_grad_errors)
+P13_F32_FACTOR, P13_F32_SLACK = 2.0, 2e-3
+P13_TIMEOUT = 900
+
+
+def p13_args(output: str, ranks: int, remat: bool) -> argparse.Namespace:
+    """``train nlp --config configs/train_nlp_large_tp.yaml`` as the
+    command line parses it (model 4, ``--tensor_parallel
+    --sequence_parallel --remat``, batch 256, buckets 48/64/96), one epoch
+    logged every step; one rank takes ``--model_parallel 1`` without the
+    two layouts."""
+    args = cli_args(["train", "nlp", "--config",
+                     config_path("train_nlp_large_tp.yaml"), "--data",
+                     "unused", "--output", output, "--epochs", "1",
+                     "--log_every", "1", "--batch_size", str(P13_BATCH)])
+    if ranks == 1:
+        args.model_parallel = 1
+        args.tensor_parallel = args.sequence_parallel = False
+    args.remat = remat
+    return args
+
+
+def p13_state(dev) -> dict:
+    """Seeded weights of the large classifier (roberta-wwm-ext-large with
+    the 10,205-class head), drawn on the card: normal(0, 0.02) weights and
+    tables, zero biases, unit LayerNorm scales (HF's init) and the
+    xavier-uniform head."""
+    model = _on_meta(lambda: NlpTextClassifier(
+        BertConfig.roberta_wwm_ext_large(), num_labels=AF_C))
+    gen = torch.Generator(device=dev).manual_seed(SEED + 130)
+    state = {}
+    for name, p in model.state_dict().items():
+        if name == "head.weight":
+            bound = math.sqrt(6.0 / sum(p.shape))
+            t = torch.empty(p.shape, device=dev).uniform_(
+                -bound, bound, generator=gen)
+        elif "LayerNorm.weight" in name:
+            t = torch.ones(p.shape, device=dev)
+        elif name.endswith("bias"):
+            t = torch.zeros(p.shape, device=dev)
+        else:
+            t = torch.empty(p.shape, device=dev).normal_(0.0, 0.02,
+                                                         generator=gen)
+        state[name] = t
+    return state
+
+
+class CollectiveClock:
+    """Seconds inside the mesh's collectives while on, each outermost call
+    bracketed by ``torch.cuda.synchronize`` (gloo stages CUDA tensors
+    through the host, so a collective's time is the host's; a composed
+    collective calling another counts once)."""
+
+    NAMES = ("all_reduce", "reduce_scatter", "all_gather_dim",
+             "all_gather")
+
+    def __init__(self):
+        from multimodalsimilar_tpu_torch.parallel.mesh import Mesh
+        self.mesh_cls, self.saved = Mesh, {}
+        self.seconds, self.calls, self.depth = 0.0, 0, 0
+
+    def __enter__(self):
+        for name in self.NAMES:
+            fn = self.saved[name] = getattr(self.mesh_cls, name)
+
+            def timed(*a, fn=fn, **kw):
+                if self.depth:
+                    return fn(*a, **kw)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                self.depth += 1
+                try:
+                    out = fn(*a, **kw)
+                finally:
+                    self.depth -= 1
+                torch.cuda.synchronize()
+                self.seconds += time.perf_counter() - t0
+                self.calls += 1
+                return out
+
+            setattr(self.mesh_cls, name, timed)
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.saved.items():
+            setattr(self.mesh_cls, name, fn)
+
+
+def check_arcface_launch(name, x, w, label, m) -> dict:
+    """The ArcFace kernel against its plain version on one launch's
+    inputs, as phase 3 holds it (``af_tolerance``)."""
+    got = A.arcface_logits_cuda(x, w, label, m, 64.0)
+    want = A.arcface_logits(x, w, label, m, 64.0)
+    cos = A.cosine_logits(x, w)
+    torch.cuda.synchronize()
+    err = (got - want).abs()
+    allow, _ = af_tolerance(want, cos, label, m)
+    if not torch.isfinite(got).all() or (err > allow).any():
+        raise AssertionError(f"{name}: {int((err > allow).sum())} logits "
+                             f"beyond tolerance, max abs err "
+                             f"{float(err.max())}")
+    return {"b": x.shape[0], "c": w.shape[0], "d": x.shape[1],
+            "max_abs_err": float(err.max())}
+
+
+def p13_grad_errors(grads: dict, one: dict, f32: dict) -> dict:
+    """Four ranks' first gradients (``grads``) against one rank's in the
+    same bf16 policy (``one``) and both against one rank's in full
+    precision (``f32``), each as a share of the f32 tensor's largest
+    entry (at least 1e-4 of the model's largest f32 gradient). The check:
+    every tensor of the four ranks lies within ``P13_F32_FACTOR`` times
+    one rank's distance to f32, plus ``P13_F32_SLACK`` (the bf16 products
+    round differently split over four ranks, but no farther from the f32
+    gradients than by that); the head's pad rows have no gradient.
+    Returns the worst shares by group and the eight tensors of largest
+    ratio."""
+    top = max(float(v.abs().max()) for v in f32.values())
+    rows, worst = {}, {"head": [0.0, 0.0, 0.0], "tower": [0.0, 0.0, 0.0]}
+    for name, truth in f32.items():
+        got = grads[name]
+        if got.shape[0] > truth.shape[0]:          # the padded head
+            if float(got[truth.shape[0]:].abs().max()) != 0.0:
+                raise AssertionError(f"{name}: a pad class has a gradient")
+            got = got[:truth.shape[0]]
+        truth = truth.to(got.device)
+        scale = max(float(truth.abs().max()), 1e-4 * top)
+        ref = one[name].to(got.device)
+        e = (float((got - ref).abs().max()) / scale,
+             float((got - truth).abs().max()) / scale,
+             float((ref - truth).abs().max()) / scale)
+        rows[name] = e
+        group = worst["head" if name.startswith("head.") else "tower"]
+        for i in range(3):
+            group[i] = max(group[i], e[i])
+    bad = [(n, e) for n, e in rows.items()
+           if e[1] > P13_F32_FACTOR * e[2] + P13_F32_SLACK]
+    if bad:
+        raise AssertionError(f"four ranks' gradients farther from f32 than "
+                             f"one rank's: {bad[:8]}")
+    ranked = sorted(rows.items(), key=lambda kv: -kv[1][1] / max(
+        kv[1][2], 1e-12))[:8]
+    return {"worst": {g: dict(zip(("vs_one_rank", "tp_vs_f32",
+                                   "one_rank_vs_f32"), v))
+                      for g, v in worst.items()},
+            "largest_ratio": [(n, *e) for n, e in ranked]}
+
+
+def p13_run(name, args, state, table, tok, dev, work) -> dict:
+    """One run of (a), (b) or (c) over ``P13_STEPS`` steps, the gradients
+    of the first step (reduced as the step reduces them, gathered to the
+    one-card layout) captured before the optimizer takes them, and the
+    collectives timed inside the steps; ``name="f32"``: only the
+    gradients of that first batch, in full precision."""
+    import torch.distributed as dist
+    from multimodalsimilar_tpu_torch.cli.train import _pad_for_model_parallel
+    from multimodalsimilar_tpu_torch.train.checkpoint import gather_shard
+    rank = dist.get_rank()
+    num_labels, num_valid = _pad_for_model_parallel(AF_C, args)
+    cfg = BertConfig.roberta_wwm_ext_large(
+        hidden_dropout=0.0, attention_dropout=0.0, remat=args.remat,
+        sequence_parallel=args.sequence_parallel)
+    policy = (DTypePolicy.full_precision() if name == "f32"
+              else DTypePolicy())
+    model = _on_meta(lambda: NlpTextClassifier(
+        cfg, policy=policy, num_labels=num_labels,
+        arcface=A.ArcFaceParams(m=args.margin)))
+    sd = {k: v.to(dev, copy=True) for k, v in state.items()}
+    if num_labels != AF_C:           # pad rows: masked, never a target
+        head = sd["head.weight"]
+        sd["head.weight"] = torch.cat([head, head[:num_labels - AF_C]])
+    model.load_state_dict(sd, assign=True)
+    del sd
+    src = TextClassificationSource(
+        table, tok, args.text_col, args.label_col, args.max_length,
+        clean=not args.no_clean, seq_buckets=args.seq_buckets)
+    trainer = _trainer(text_arcface_task(model, num_valid=num_valid),
+                       args, P13_STEPS, device=dev)
+    if name != "tp":
+        trainer.ckpt = None
+    # fit's first batch (shuffled by the seed, no sampler)
+    first_batch = next(src.batches(P13_BATCH, shuffle=True, seed=args.seed,
+                                   epoch=0))
+    if first_batch["input_ids"].shape[1] != 48:
+        raise AssertionError(f"batch of {first_batch['input_ids'].shape[1]}"
+                             f" tokens, want the 48 bucket")
+    first, grads = [], {}
+    launch, reduce = A.arcface_logits_cuda, trainer._reduce_gradients
+
+    def recorded(x, w, label, m, s=64.0, easy_margin=False):
+        if not first:
+            first.append((x.detach().clone(), w.detach().clone(),
+                          label.clone(), m))
+        return launch(x, w, label, m, s, easy_margin)
+
+    def captured():
+        reduce()
+        if not grads:
+            for n, p in trainer.model.named_parameters():
+                g = p.grad
+                grads[n] = (gather_shard(g, trainer.shards[n], trainer.mesh)
+                            if n in trainer.shards else g.clone())
+
+    A.arcface_logits_cuda = recorded
+    trainer._reduce_gradients = captured
+    clock = CollectiveClock()
+    steps = []
+    train_step = trainer.train_step
+
+    def timed_step(batch):
+        torch.cuda.synchronize()
+        t0, c0 = time.perf_counter(), clock.seconds
+        out = train_step(batch)
+        torch.cuda.synchronize()
+        steps.append((time.perf_counter() - t0, clock.seconds - c0))
+        return out
+
+    trainer.train_step = timed_step
+    A.LAUNCHES["arcface"] = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        if name == "f32":
+            dist_first_grads(trainer, first_batch, dev)
+        else:
+            with clock:
+                trainer.fit(src, args.epochs, args.batch_size)
+    finally:
+        A.arcface_logits_cuda = launch
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = A.LAUNCHES["arcface"]
+    row = {"mesh": dict(trainer.mesh.shape),
+           "head_rows_on_rank": trainer.model.head.weight.shape[0],
+           "cut_parameters": len(trainer.shards),
+           "sequence_partial": len(trainer.sequence_partial),
+           "kernel_vs_plain": check_arcface_launch(
+               f"phase 13 {name} rank {rank}", *first[0])}
+    del first
+    path = os.path.join(work, "p13_grads_{}.pt")
+    if name in ("remat", "f32") and rank == 0:
+        torch.save({k: v.cpu() for k, v in grads.items()},
+                   path.format(name))
+    elif name == "tp" and rank == 0:
+        row["grad_errors"] = p13_grad_errors(grads, *(
+            torch.load(path.format(n), weights_only=True, mmap=True)
+            for n in ("remat", "f32")))
+    grads.clear()
+    if name == "f32":
+        release(trainer)
+        return row
+    if trainer.step != P13_STEPS or launches != P13_STEPS:
+        raise AssertionError(f"phase 13 {name}: {trainer.step} steps, "
+                             f"{launches} ArcFace launches on rank {rank}")
+    # steps after the first (which gathers the captured gradients), each
+    # between two synchronizations
+    p50 = float(np.median([t for t, _ in steps[1:]]))
+    step_s = sum(t for t, _ in steps[1:])
+    row.update(steps=trainer.step, arcface_launches=launches, fit_s=fit_s,
+               step_ms_p50=1e3 * p50, examples_per_s=P13_BATCH / p50,
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+               step_s=[t for t, _ in steps],
+               collective_s=[c for _, c in steps],
+               collective_share=sum(c for _, c in steps[1:]) / step_s)
+    if rank == 0:
+        row["losses"] = [
+            ln["train/loss"] for ln in map(json.loads, open(os.path.join(
+                args.output, "metrics.jsonl"), encoding="utf-8"))
+            if "train/loss" in ln]
+    if name == "tp" and rank == 0:      # the model's part, mapped
+        saved = torch.load(trainer.ckpt._path(trainer.ckpt.latest_step()),
+                           mmap=True, weights_only=True)["model"]
+        bad = [k for k, v in state.items() if k != "head.weight"
+               and tuple(saved[k].shape) != tuple(v.shape)]
+        if bad or saved["head.weight"].shape != (
+                P13_CLASSES, state["head.weight"].shape[1]):
+            raise AssertionError(f"the tensor-parallel checkpoint is not "
+                                 f"in the one-card layout: {bad[:4]}, head "
+                                 f"{tuple(saved['head.weight'].shape)}")
+        row["checkpoint_head_rows"] = saved["head.weight"].shape[0]
+        row["checkpoint_tensors"] = len(saved)
+        del saved
+    release(trainer)
+    return row
+
+
+def phase13_rank(kind: str, work: str) -> dict:
+    """(a), (c) and the f32 gradients on the reference rank
+    (``kind="ref"``, which saves its weights' per-tensor sums in
+    ``work``), or (b) on each of the tensor-parallel ranks
+    (``kind="tp"``). Every rank draws the reference's weights from the
+    same seeded CUDA generator (a 1.3 GB state dict is not written to the
+    disk and read four times) and checks them against those sums; the
+    model is built on the meta device and loads them."""
+    import contextlib
+    import io
+
+    import torch.distributed as dist
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", torch.cuda.current_device())
+    table = json.load(open(os.path.join(work, "p13.json"),
+                           encoding="utf-8"))
+    tok = TextTokenizer.from_corpus(table["spu_name"])
+    path = os.path.join(work, "p13_state_sums.json")
+    t0 = time.perf_counter()
+    state = p13_state(dev)
+    sums = {k: float(v.double().sum()) for k, v in state.items()}
+    if kind == "ref":
+        json.dump(sums, open(path, "w"))
+    elif sums != json.load(open(path)):
+        raise AssertionError("phase 13: this rank drew other weights than "
+                             "the reference rank")
+    out = {"rank": dist.get_rank(), "world": dist.get_world_size(),
+           "backend": dist.get_backend(),
+           "weights_s": time.perf_counter() - t0}
+    runs = ([("remat", 1, True), ("f32", 1, True), ("no_remat", 1, False)]
+            if kind == "ref"
+            else [("tp", dist.get_world_size(), True)])
+    with contextlib.redirect_stdout(io.StringIO()):
+        for name, ranks, remat in runs:
+            args = p13_args(os.path.join(work, f"{name}_{out['backend']}"),
+                            ranks, remat)
+            out[name] = p13_run(name, args, state, table, tok, dev, work)
+            torch.cuda.empty_cache()
+    return out
+
+
+def phase13(dev) -> dict:
+    """Tensor- and sequence-parallel training of the large text tower at
+    ``configs/train_nlp_large_tp.yaml`` (see the docstring): (a) and (c)
+    on one NCCL rank, (b) on four gloo ranks on ``cuda:0``, and over NCCL
+    on four cards where the machine has them; each spawn with a time
+    limit."""
+    from multimodalsimilar_tpu_torch.parallel.spawn import spawn
+    torch.cuda.empty_cache()
+    work = tempfile.mkdtemp(prefix="chip_smoke_tp_")
+    try:
+        rng = np.random.default_rng(SEED + 131)
+        n = P13_BATCH * P13_STEPS
+        titles = [t[:P13_CHARS] for t in make_titles(n, rng)]
+        json.dump({"spu_name": titles,
+                   "tag_new_id": [int(v) for v in
+                                  zipf_with_last(n, AF_C, rng)]},
+                  open(os.path.join(work, "p13.json"), "w",
+                       encoding="utf-8"))
+        wall = {}
+
+        def run(name, world, kind, backend):
+            t0 = time.perf_counter()
+            ranks = spawn(phase13_rank, world, (kind, work), device="cuda",
+                          backend=backend, timeout=P13_TIMEOUT,
+                          threads=None)
+            wall[name] = time.perf_counter() - t0
+            return ranks
+
+        ref = run("reference_nccl", 1, "ref", "nccl")[0]
+        a, c = ref["remat"], ref["no_remat"]
+        err = max(abs(x - y) / abs(y) for x, y in zip(c["losses"],
+                                                      a["losses"]))
+        if len(c["losses"]) != len(a["losses"]) or err > P13_REMAT_RTOL \
+                or not a["peak_gb"] < c["peak_gb"]:
+            raise AssertionError(f"remat: losses {a['losses']} vs "
+                                 f"{c['losses']}, peak {a['peak_gb']} vs "
+                                 f"{c['peak_gb']} GB")
+        out = {"reference": ref, "remat_loss_rel_err": err}
+        runs = [("gloo_on_one_card", 4, "gloo")]
+        if torch.cuda.device_count() >= 4:
+            runs.append(("nccl_four_cards", 4, "nccl"))
+        for name, world, backend in runs:
+            ranks = run(name, world, "tp", backend)
+            got = ranks[0]["tp"]
+            err = max(abs(x - y) / abs(y) for x, y in zip(got["losses"],
+                                                          a["losses"]))
+            if len(got["losses"]) != len(a["losses"]) \
+                    or err > P13_LOSS_RTOL:
+                raise AssertionError(f"{name}: losses {got['losses']} vs "
+                                     f"one rank's {a['losses']}")
+            for r in ranks:
+                if r["tp"]["head_rows_on_rank"] != P13_CLASSES // 4:
+                    raise AssertionError(f"{name} rank {r['rank']} holds "
+                                         f"{r['tp']['head_rows_on_rank']} "
+                                         f"classes")
+            out[name] = {"ranks": ranks, "loss_rel_err": err}
+        # the kernel on one rank's class block, alone, beside its bound and
+        # SGEMM of the same product
+        out["arcface_block"] = recipe_head(
+            dev, "tensor-parallel block, B=256", P13_BATCH,
+            P13_CLASSES // 4, 1024, 0.4)
+        out["spawn_wall_s"] = wall
+        out["gloo_times"] = ("four ranks share one card and their "
+                             "collectives stage through the host: not a "
+                             "scaling number")
+        return out
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
 
 def main(argv=None) -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -3640,6 +4209,8 @@ def main(argv=None) -> None:
     print(json.dumps({"phase11": p11}), flush=True)
     p12 = run("phase12", phase12, dev)
     print(json.dumps({"phase12": p12}), flush=True)
+    p13 = run("phase13", phase13, dev)
+    print(json.dumps({"phase13": p13}), flush=True)
     print(json.dumps({"phase_s": phase_s,
                       "total_s": time.perf_counter() - t0_all}), flush=True)
     cli_launches = p10["launches"]
@@ -3771,6 +4342,22 @@ def main(argv=None) -> None:
         "head", "b", "c", "d", "m", "max_abs_err", "ms", "plain_ms",
         "yardstick_ms", "bound_ms", "bound_by")}
         for h in p12["arcface_blocks"]]
+    # phase 13: each tensor-parallel rank's launches on its class block,
+    # the block's check on every rank and the block timed alone
+    tp_runs = [r["tp"] for key in ("gloo_on_one_card", "nccl_four_cards")
+               if key in p13 for r in p13[key]["ranks"]]
+    arcface["launches_tensor_parallel"] = [
+        r["tp"]["arcface_launches"] for r in p13["gloo_on_one_card"]["ranks"]]
+    arcface["launches_large_one_rank"] = \
+        p13["reference"]["remat"]["arcface_launches"]
+    arcface["tensor_parallel_blocks_max_abs_err"] = max(
+        r["kernel_vs_plain"]["max_abs_err"] for r in tp_runs)
+    arcface["max_abs_err"] = max(arcface["max_abs_err"],
+                                 arcface["tensor_parallel_blocks_max_abs_err"])
+    tb = p13["arcface_block"]
+    arcface["tensor_parallel_shape"] = {k: tb[k] for k in (
+        "head", "b", "c", "d", "m", "max_abs_err", "ms", "plain_ms",
+        "yardstick_ms", "bound_ms", "bound_by")}
     print(json.dumps({"kernels": [topk, arcface, topk_select]}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

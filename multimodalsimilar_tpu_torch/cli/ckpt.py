@@ -14,8 +14,8 @@ import json
 import sys
 
 from multimodalsimilar_tpu_torch.cli.common import (
-    _bert_config, _require_tokenizer_with_checkpoint, _restore_required,
-    _seq_buckets, _tokenizer)
+    _bert_config, _on_meta, _require_tokenizer_with_checkpoint,
+    _restore_required, _seq_buckets, _tokenizer)
 from multimodalsimilar_tpu_torch.data.datasets import column
 
 _KINDS = ("nlp", "multilabel", "siamese", "cv", "multimodal")
@@ -88,10 +88,15 @@ def cmd_eval(args, device="cuda"):
                 f"are masked (e.g. --num_labels 10205 for a 10208-padded "
                 f"head); an inferred count would mask real classes.")
         num_labels = head_classes
-    model = NlpTextClassifier(_bert_config(args.bert_preset), pool=args.pool,
-                              num_labels=num_labels)
-    if restored is not None:
-        model.load_state_dict(restored)
+    def make():
+        return NlpTextClassifier(_bert_config(args.bert_preset),
+                                 pool=args.pool, num_labels=num_labels)
+
+    if restored is None:
+        model = make()
+    else:
+        model = _on_meta(make)
+        model.load_state_dict(restored, assign=True)
     trainer = Trainer(text_arcface_task(model, num_valid=num_valid),
                       lambda m: dual_group_adamw(m, lambda s: 0.0,
                                                  lambda s: 0.0),
@@ -178,7 +183,7 @@ def cmd_import_checkpoint(args, device="cuda"):
                 "would have no effect. Drop it (train cv refuses it too).")
         raise NotImplementedError(
             "--pipeline_parallel: the stacked pipeline-parallel layout is "
-            "not ported (ROADMAP A17)")
+            "not ported (ROADMAP A17 part 2 item 5)")
     ref = torch.load(args.state_dict, map_location="cpu", weights_only=True)
     bert = _bert_config(args.bert_preset)
     image = (_image_config(args, "import-checkpoint")

@@ -1,6 +1,8 @@
 """Shared command helpers (counterpart of
 multimodalsimilar_tpu/cli/common.py): ``--config`` preloading, the
-tokenizer, the BERT presets, checkpoint restore, the fastText model
+tokenizer, the BERT presets, checkpoint restore (a text model that a
+checkpoint fills is built on the ``meta`` device, ``_on_meta``, and
+loaded with ``assign=True``: no random init on the host), the fastText model
 (``--fasttext_model``, in the port's own format), the packed embedding
 cache (``--emb_cache``), the KV and table sinks and the search-flag
 check.
@@ -10,7 +12,7 @@ persistent compilation cache, and the port compiles nothing per job
 (its kernels are built once into ``multimodalsimilar_tpu_torch/build``,
 ``ops/_build.py``). ``_mesh`` builds the ``(data, model)`` mesh over the
 ranks ``torchrun`` started (``parallel/mesh.py``); ``_ckpt_has_pp``
-belongs to the pipeline-parallel layout (ROADMAP A17 part 2).
+belongs to the pipeline-parallel layout (ROADMAP A17 part 2 item 5).
 """
 
 from __future__ import annotations
@@ -112,15 +114,42 @@ def _restore_required(checkpoint_dir):
     return state
 
 
-def _bert_config(preset: str):
+def _on_meta(make):
+    """``make()`` built on the ``meta`` device: no weight is drawn, since
+    every tensor is about to come from a checkpoint (fill it with
+    ``load_state_dict(..., assign=True)``, then move it)."""
+    import torch
+    with torch.device("meta"):
+        return make()
+
+
+def _fill_heads(model) -> None:
+    """The ArcFace heads a tower-only load left on the ``meta`` device,
+    drawn on the host from seed 0 (an embedder never runs them)."""
+    import torch
+
+    from multimodalsimilar_tpu_torch.models.heads import ArcFaceHead
+    for m in model.modules():
+        if isinstance(m, ArcFaceHead) and m.weight.is_meta:
+            m.to_empty(device="cpu")
+            m.reset_parameters(torch.Generator().manual_seed(0))
+
+
+def _bert_config(preset: str, remat: bool = False,
+                 sequence_parallel: bool = False,
+                 remat_policy: str = "full", remat_skip: int = 0):
     """BertConfig of a preset: ``tiny``, ``base`` (roberta_wwm_ext) or
-    ``large`` (roberta_wwm_ext_large). Remat and the sequence- and
-    pipeline-parallel layouts are not ported (ROADMAP A17): the train
-    commands refuse their flags."""
+    ``large`` (roberta_wwm_ext_large), with ``--remat*`` and
+    ``--sequence_parallel``. The pipeline-parallel layout is not ported
+    (ROADMAP A17 part 2 item 5): the train commands refuse its flag."""
     from multimodalsimilar_tpu_torch.models.bert import BertConfig
     make = {"tiny": BertConfig.tiny, "base": BertConfig.roberta_wwm_ext,
             "large": BertConfig.roberta_wwm_ext_large}[preset]
-    return make()
+    if (remat_policy != "full" or remat_skip) and not remat:
+        raise SystemExit("--remat_policy/--remat_skip modify --remat; "
+                         "pass --remat too (refusing to silently ignore)")
+    return make(remat=remat, sequence_parallel=sequence_parallel,
+                remat_policy=remat_policy, remat_skip=int(remat_skip or 0))
 
 
 def _emb_cache(args):

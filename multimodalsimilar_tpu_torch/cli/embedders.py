@@ -14,9 +14,15 @@
 
 A checkpoint is the port's own (``train/checkpoint.py``: ``{step, model,
 ...}``); the heads' class counts need not match ``--num_labels``, as the
-embedders never run a head. Pipeline-parallel checkpoints raise
-``NotImplementedError`` (ROADMAP A17), and with ``--int8`` exit with the
-JAX command's message.
+embedders never run a head. A text tower that a checkpoint fills is
+built on the ``meta`` device and loaded with ``assign=True`` (no random
+init on the host); without ``--checkpoint`` the seed-0 draw is the
+weights. The image towers are drawn, then loaded: their inits run
+``normal_``, whose meta kernel imports the compiler stack (seconds, once
+a process), more than an image tower's draw costs.
+Pipeline-parallel checkpoints raise ``NotImplementedError`` (ROADMAP A17
+part 2 item 5), and with ``--int8`` exit with the JAX command's
+message.
 """
 
 from __future__ import annotations
@@ -28,8 +34,8 @@ import sys
 import numpy as np
 
 from multimodalsimilar_tpu_torch.cli.common import (
-    _bert_config, _emb_cache, _require_tokenizer_with_checkpoint,
-    _restore_required, _tokenizer)
+    _bert_config, _emb_cache, _fill_heads, _on_meta,
+    _require_tokenizer_with_checkpoint, _restore_required, _tokenizer)
 from multimodalsimilar_tpu_torch.data.datasets import column
 
 
@@ -60,11 +66,16 @@ def _build_text_embedder(args, df=None, device="cuda"):
     int8 = getattr(args, "int8", False)
     _require_tokenizer_with_checkpoint(args)
     tok = _tokenizer(args, df=df)
-    model = NlpTextClassifier(_bert_config(args.bert_preset),
-                              pool=getattr(args, "pool", "cls"),
-                              policy=DTypePolicy.inference(),
-                              num_labels=args.num_labels)
-    if args.checkpoint:
+
+    def make():
+        return NlpTextClassifier(_bert_config(args.bert_preset),
+                                 pool=getattr(args, "pool", "cls"),
+                                 policy=DTypePolicy.inference(),
+                                 num_labels=args.num_labels)
+
+    if not args.checkpoint:
+        model = make()
+    else:
         if _is_pp_checkpoint(args.checkpoint):
             if int8:
                 raise SystemExit(
@@ -74,13 +85,15 @@ def _build_text_embedder(args, df=None, device="cuda"):
                     "(models.bert.unstack_layer_params) or drop --int8")
             raise NotImplementedError(
                 f"{args.checkpoint}: pipeline-parallel checkpoints are not "
-                "ported (ROADMAP A17)")
+                "ported (ROADMAP A17 part 2 item 5)")
         state = _restore_required(args.checkpoint)
         # the tower only, as the JAX embedder reads only the tower: the
         # head's class count need not match --num_labels
+        model = _on_meta(make)
         model.tower.load_state_dict(
             {k[len("tower."):]: v for k, v in state["model"].items()
-             if k.startswith("tower.")})
+             if k.startswith("tower.")}, assign=True)
+        _fill_heads(model)
     if int8:
         from multimodalsimilar_tpu_torch.models.quant import (
             quantize_text_tower)

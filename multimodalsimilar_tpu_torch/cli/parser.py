@@ -10,10 +10,11 @@ no ``--device`` flag, since the JAX parser has none). Under ``torchrun``
 (``parallel.mesh.init_distributed``: NCCL with one card a rank, gloo on
 the CPU), so ``torchrun --nproc_per_node N -m
 multimodalsimilar_tpu_torch.cli train nlp --config
-configs/train_nlp_v2_dist.yaml ...`` trains data-parallel over N cards.
-Flags whose layouts are not ported parse as in JAX and raise in the
-commands: ``--tensor_parallel``, ``--sequence_parallel``,
-``--pipeline_parallel`` and ``--remat*`` (ROADMAP A17 part 2), and
+configs/train_nlp_v2_dist.yaml ...`` trains data-parallel over N cards,
+and ``train nlp --config configs/train_nlp_large_tp.yaml`` under
+``torchrun --nproc_per_node 4`` tensor- and sequence-parallel with
+remat. Flags whose layouts are not ported parse as in JAX and raise in
+the commands: ``--pipeline_parallel`` (ROADMAP A17 part 2 item 5) and
 ``--pallas_topk`` (the device runs one exact search).
 """
 
@@ -50,7 +51,6 @@ _NOT_PORTED_SEARCH = ("refused: the port has one search, exact on the "
 _APPROX = ("target recall of the JAX package's approximate TPU search, "
            "0 < R <= 1; the search here is exact, as JAX runs it off a "
            "TPU")
-_NOT_PORTED = "not ported (ROADMAP A17 part 2): refused"
 
 
 def _add_common_train_flags(p):
@@ -102,11 +102,17 @@ def _add_common_train_flags(p):
                    choices=["tiny", "base", "large"])
     p.add_argument("--fused_loss", action="store_true",
                    help="stream ArcFace+CE over class tiles (wide heads)")
-    p.add_argument("--remat", action="store_true", help=_NOT_PORTED)
+    p.add_argument("--remat", action="store_true",
+                   help="rematerialize transformer layers in the backward "
+                        "pass (torch.utils.checkpoint per layer)")
     p.add_argument("--remat_policy", default="full",
-                   choices=["full", "dots"], help=_NOT_PORTED)
+                   choices=["full", "dots"],
+                   help="with --remat: 'dots' saves the weight products' "
+                        "outputs and recomputes the rest (the attention's "
+                        "batched products included)")
     p.add_argument("--remat_skip", type=int, default=0, metavar="K",
-                   help=_NOT_PORTED)
+                   help="with --remat: leave every K-th transformer layer "
+                        "un-rematerialized (0 = remat all)")
     p.add_argument("--async_save", action="store_true",
                    help="periodic checkpoint writes overlap the next steps")
     p.add_argument("--resume", action="store_true",
@@ -122,11 +128,19 @@ def _add_common_train_flags(p):
                         "multiple of N and masked); the ranks come from "
                         "torchrun")
     p.add_argument("--tensor_parallel", action="store_true",
-                   help=_NOT_PORTED)
+                   help="Megatron tensor parallelism of the BERT tower over "
+                        "the --model_parallel ranks (column-parallel QKV "
+                        "and MLP-in, row-parallel attention-out and "
+                        "MLP-out, vocab-sharded word table); requires "
+                        "--model_parallel N > 1")
     p.add_argument("--sequence_parallel", action="store_true",
-                   help=_NOT_PORTED)
+                   help="with --tensor_parallel: the tower's residual "
+                        "stream in sequence blocks over the model ranks "
+                        "(reduce-scatter and all-gather in place of the "
+                        "all-reduces)")
     p.add_argument("--pipeline_parallel", type=int, default=0, metavar="M",
-                   help="not ported (ROADMAP A17 part 2): refused unless 0")
+                   help="not ported (ROADMAP A17 part 2 item 5): refused "
+                        "unless 0")
     p.add_argument("--grad_accum", type=int, default=1, metavar="K",
                    help="accumulate grads over K micro-batches before each "
                         "optimizer step")
@@ -503,8 +517,8 @@ def _add_ops_and_checkpoints(sub):
                      help="clear an already-populated --out dir")
     imp.add_argument("--pipeline_parallel", type=int, default=0,
                      metavar="M",
-                     help="not ported (ROADMAP A17 part 2): refused "
-                          "unless 0")
+                     help="not ported (ROADMAP A17 part 2 item 5): "
+                          "refused unless 0")
     imp.set_defaults(fn=cmd_import_checkpoint)
 
     exp = sub.add_parser("export-checkpoint", allow_abbrev=False)

@@ -14,10 +14,11 @@ model). Under ``torchrun`` every rank runs the command over the mesh of
 ``_mesh(args)``: ``--batch_size`` is the global batch, ``--bf16_grads``
 all-reduces the gradients in bfloat16 and ``--model_parallel N`` shards
 the ArcFace heads' classes over N ranks, each head padded to a multiple
-of N with the pad classes masked (``_pad_for_model_parallel``). The
-flags of tensor, sequence and pipeline parallelism raise (ROADMAP A17
-part 2) instead of being ignored, and each command refuses the flags the
-JAX command refuses.
+of N with the pad classes masked (``_pad_for_model_parallel``);
+``--tensor_parallel`` and ``--sequence_parallel`` cut the BERT tower over
+the same ranks and ``--remat*`` rematerialize its layers. The flag of
+pipeline parallelism raises (ROADMAP A17 part 2 item 5) instead of being
+ignored, and each command refuses the flags the JAX command refuses.
 """
 
 from __future__ import annotations
@@ -29,12 +30,6 @@ import torch
 
 from multimodalsimilar_tpu_torch.data.datasets import InputError, column
 
-# flags of layouts not ported (ROADMAP A17 part 2) -> the value that
-# leaves them off
-_NOT_PORTED = {"tensor_parallel": False, "sequence_parallel": False,
-               "pipeline_parallel": 0}
-
-
 def _set_flags(args, flags) -> dict:
     """The ``flags`` (name -> the value that leaves it off) that ``args``
     sets."""
@@ -43,11 +38,18 @@ def _set_flags(args, flags) -> dict:
 
 
 def _check_ported(args) -> None:
-    bad = _set_flags(args, _NOT_PORTED)
-    if bad:
-        raise NotImplementedError(
-            f"flags {bad}: tensor, sequence and pipeline parallelism are "
-            f"not ported to the PyTorch trainer (ROADMAP A17 part 2)")
+    """``--pipeline_parallel`` is not ported; with tensor or sequence
+    parallelism it is the JAX Trainer's refusal."""
+    from multimodalsimilar_tpu_torch.train.trainer import PP_WITH_TP
+    if not getattr(args, "pipeline_parallel", 0):
+        return
+    if getattr(args, "tensor_parallel", False) \
+            or getattr(args, "sequence_parallel", False):
+        raise ValueError(PP_WITH_TP)
+    raise NotImplementedError(
+        f"--pipeline_parallel {args.pipeline_parallel}: the GPipe schedule "
+        f"and its stacked layer layout are not ported (ROADMAP A17 part 2 "
+        f"item 5)")
 
 
 def _pad_for_model_parallel(num_labels, args):
@@ -105,8 +107,8 @@ def _trainer(task, args, steps_per_epoch, device="cuda"):
     group and a head group with their own weight decay) under
     ``--scheduler``, ``--grad_accum`` and ``--profile``, and the Trainer
     of ``args`` over ``_mesh(args)`` (``--model_parallel``,
-    ``--bf16_grads``); checkpoints and ``metrics.jsonl`` go under
-    ``args.output``."""
+    ``--tensor_parallel``, ``--sequence_parallel``, ``--bf16_grads``);
+    checkpoints and ``metrics.jsonl`` go under ``args.output``."""
     from multimodalsimilar_tpu_torch.cli.common import _mesh
     from multimodalsimilar_tpu_torch.train.optim import (AdamP, adamp_views,
                                                          dual_group)
@@ -135,6 +137,8 @@ def _trainer(task, args, steps_per_epoch, device="cuda"):
         metrics_path=os.path.join(args.output, "metrics.jsonl"),
         profile_dir=getattr(args, "profile", None),
         model_parallel_heads=getattr(args, "model_parallel", 1) > 1,
+        tensor_parallel=getattr(args, "tensor_parallel", False),
+        sequence_parallel=getattr(args, "sequence_parallel", False),
         bf16_grad_allreduce=getattr(args, "bf16_grads", False),
         grad_accum=accum,
         overwrite=getattr(args, "overwrite", False),
@@ -173,13 +177,15 @@ def _tables(args, table, eval_table, require=()):
 
 
 def _text_config(args):
+    """The tower's BertConfig: ``--bert_preset`` with ``--remat*`` and
+    ``--sequence_parallel``."""
     from multimodalsimilar_tpu_torch.cli.common import _bert_config
-    if getattr(args, "remat", False) or getattr(args, "remat_skip", 0) \
-            or getattr(args, "remat_policy", "full") != "full":
-        raise NotImplementedError(
-            "--remat/--remat_policy/--remat_skip: activation checkpointing "
-            "is not ported (ROADMAP A17)")
-    return _bert_config(args.bert_preset)
+    return _bert_config(args.bert_preset,
+                        remat=getattr(args, "remat", False),
+                        sequence_parallel=getattr(args, "sequence_parallel",
+                                                  False),
+                        remat_policy=getattr(args, "remat_policy", "full"),
+                        remat_skip=getattr(args, "remat_skip", 0))
 
 
 def _num_labels(table, col) -> int:

@@ -19,14 +19,37 @@ point for point: linear layers run in ``compute_dtype``, LayerNorm in
 ``reduce_dtype``, and the residual stream is kept in ``compute_dtype``.
 Parameter names follow HF ``BertModel``, so
 ``multimodalsimilar_tpu/models/hf_import.py:bert_params_from_torch`` loads
-this module's ``state_dict`` into the JAX model. ``fused_qkv``, remat and
-the sequence and pipeline parallel layouts are not ported.
+this module's ``state_dict`` into the JAX model. The port's layers always
+hold three q/k/v projections: a JAX ``fused_qkv`` tree carries over split
+(``models/convert.py``).
+
+``BertConfig.remat`` rematerializes each layer in the backward
+(``torch.utils.checkpoint``, non-reentrant), as the JAX module's
+per-layer ``nn.remat``: ``remat_policy="full"`` keeps only the layer's
+input, ``"dots"`` (JAX's ``dots_with_no_batch_dims_saveable``) also keeps
+the outputs of the weight products (the ``addmm``/``mm`` behind the
+``nn.Linear``s) and recomputes the rest, the attention's batched products
+included; ``remat_skip=K`` leaves every layer with ``i % K == 0`` out. The
+recompute draws the forward's dropout masks again: the dropout
+generator's state is put back around it.
+
+``parallel/tp.py:tensor_parallel`` cuts a built encoder to this rank's
+blocks and hands each module its ``TensorParallel`` layout (``self.tp``,
+None on one device): the column-parallel products take their input
+through the layout's ``enter``, the row-parallel ones return through its
+``leave`` before their (replicated) bias, the word table looks up its
+block of the vocabulary, and with ``BertConfig.sequence_parallel`` and a
+sequence-parallel layout the residual stream between those points is
+this rank's block of the sequence (``parallel/sp.py``). Each dropout
+then draws the whole tensor's mask and keeps this rank's block, so N
+ranks draw the masks one device draws.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional
+import functools
+from typing import Callable, Dict, Optional
 
 import torch
 import torch.nn.functional as F
@@ -47,6 +70,13 @@ class BertConfig:
     layer_norm_eps: float = 1e-12
     hidden_dropout: float = 0.1
     attention_dropout: float = 0.1
+    # rematerialize each layer in the backward (see the module docstring)
+    remat: bool = False
+    remat_policy: str = "full"        # or "dots"
+    remat_skip: int = 0               # layers i % K == 0 keep everything
+    # the residual stream in sequence blocks under a sequence-parallel
+    # Trainer (a no-op otherwise, as in the JAX module)
+    sequence_parallel: bool = False
 
     @classmethod
     def tiny(cls, **kw) -> "BertConfig":
@@ -104,15 +134,20 @@ class Dropout(nn.Module):
     def mask_shape(self, x: torch.Tensor) -> tuple:
         return x.shape
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, full_shape: Optional[tuple] = None,
+                take: Optional[Callable] = None) -> torch.Tensor:
+        """``full_shape`` and ``take``: draw the mask of the whole tensor
+        (``full_shape``) and keep ``take(mask)``, ``x``'s block of it."""
         if not self.training or self.p == 0.0:
             return x
         if self.generator is None:
             raise RuntimeError("dropout in train() mode needs a generator: "
                                "call set_dropout_generator first")
-        keep = torch.empty(self.mask_shape(x), dtype=torch.float32,
-                           device=x.device)
+        keep = torch.empty(full_shape or self.mask_shape(x),
+                           dtype=torch.float32, device=x.device)
         keep.bernoulli_(1.0 - self.p, generator=self.generator)
+        if take is not None:
+            keep = take(keep)
         return torch.where(keep > 0, x / (1.0 - self.p), 0.0).to(x.dtype)
 
 
@@ -128,8 +163,12 @@ class BertLayer(nn.Module):
     def __init__(self, cfg: BertConfig, policy: DTypePolicy):
         super().__init__()
         H, inter = cfg.hidden_size, cfg.intermediate_size
+        # heads on this rank (all of them unless a tensor-parallel layout
+        # cut the attention), of head_dim each
         self.num_heads = cfg.num_heads
+        self.head_dim = H // cfg.num_heads
         self.policy = policy
+        self.tp = None
         kw = dict(dtype=policy.param_dtype)
         self.attention = _Module()
         self.attention.self = _Module()
@@ -148,32 +187,124 @@ class BertLayer(nn.Module):
         self.attention.output.dropout = Dropout(cfg.hidden_dropout)
         self.output.dropout = Dropout(cfg.hidden_dropout)
 
+    def _enter(self, h: torch.Tensor, sharded: bool, S: int):
+        return h if self.tp is None else self.tp.enter(h, sharded, S)
+
+    def _row(self, x: torch.Tensor, lin: nn.Linear, sharded: bool):
+        """``lin`` on ``x``, back into the residual stream: a row-parallel
+        block's partial product leaves through the layout before the
+        bias."""
+        cd = self.policy.compute_dtype
+        if self.tp is None:
+            return _linear(x, lin, cd)
+        if not sharded:
+            return self.tp.leave(_linear(x, lin, cd), False)
+        y = self.tp.leave(F.linear(x.to(cd), lin.weight.to(cd)), True)
+        return y + lin.bias.to(cd)
+
+    def _hidden_dropout(self, drop: Dropout, x: torch.Tensor, S: int):
+        if self.tp is None or not self.tp.sequence:
+            return drop(x)
+        return drop(x, (x.shape[0], S, x.shape[2]),
+                    functools.partial(self.tp.seq_block, S=S))
+
     def _attention(self, h: torch.Tensor, mask_bias: torch.Tensor):
         cd, rd = self.policy.compute_dtype, self.policy.reduce_dtype
-        B, S, H = h.shape
-        nh = self.num_heads
-        hd = H // nh
+        S = mask_bias.shape[-1]
+        sharded = self.tp is not None and self.tp.attention
+        x = self._enter(h, sharded, S)
+        B = x.shape[0]
+        nh, hd = self.num_heads, self.head_dim
         sa = self.attention.self
 
-        def heads(lin):   # [B, S, H] -> [B, nh, S, hd]
-            return _linear(h, lin, cd).view(B, S, nh, hd).transpose(1, 2)
+        def heads(lin):   # [B, S, nh * hd] -> [B, nh, S, hd]
+            return _linear(x, lin, cd).view(B, S, nh, hd).transpose(1, 2)
 
         q, k, v = heads(sa.query), heads(sa.key), heads(sa.value)
         scores = torch.matmul(q.to(rd), k.to(rd).transpose(-1, -2))
         scores = scores / torch.sqrt(torch.tensor(hd, dtype=rd,
-                                                  device=h.device))
-        probs = sa.dropout(torch.softmax(scores + mask_bias, dim=-1))
+                                                  device=x.device))
+        probs = torch.softmax(scores + mask_bias, dim=-1)
+        if sharded:    # the mask of every head, this rank's heads of it
+            first = self.tp.index * nh
+            probs = sa.dropout(probs, (B, nh * self.tp.n, S, S),
+                               lambda keep: keep[:, first:first + nh])
+        else:
+            probs = sa.dropout(probs)
         ctx = torch.matmul(probs.to(cd).to(rd), v.to(rd))
-        ctx = ctx.transpose(1, 2).reshape(B, S, H)
-        return _linear(ctx.to(cd), self.attention.output.dense, cd)
+        ctx = ctx.transpose(1, 2).reshape(B, S, nh * hd)
+        return self._row(ctx.to(cd), self.attention.output.dense, sharded)
 
     def forward(self, h: torch.Tensor, mask_bias: torch.Tensor):
         cd, rd = self.policy.compute_dtype, self.policy.reduce_dtype
-        attn = self.attention.output.dropout(self._attention(h, mask_bias))
+        S = mask_bias.shape[-1]
+        attn = self._hidden_dropout(self.attention.output.dropout,
+                                    self._attention(h, mask_bias), S)
         h = _layer_norm(h + attn, self.attention.output.LayerNorm, rd).to(cd)
-        mlp = F.gelu(_linear(h, self.intermediate.dense, cd))  # erf form
-        mlp = self.output.dropout(_linear(mlp, self.output.dense, cd))
+        sharded = self.tp is not None and self.tp.mlp
+        mlp = F.gelu(_linear(self._enter(h, sharded, S),
+                             self.intermediate.dense, cd))  # erf form
+        mlp = self._hidden_dropout(
+            self.output.dropout, self._row(mlp, self.output.dense, sharded),
+            S)
         return _layer_norm(h + mlp, self.output.LayerNorm, rd).to(cd)
+
+
+# the products "dots" saves: the weight products behind nn.Linear (addmm
+# with a bias, mm without); the attention's bmm has batch dimensions
+_SAVED_PRODUCTS = frozenset({torch.ops.aten.addmm.default,
+                             torch.ops.aten.mm.default})
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    from torch.utils.checkpoint import CheckpointPolicy
+    return (CheckpointPolicy.MUST_SAVE if op in _SAVED_PRODUCTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def remat(layer: nn.Module, h: torch.Tensor, mask_bias: torch.Tensor,
+          policy: str = "full") -> torch.Tensor:
+    """``layer(h, mask_bias)`` rematerialized in the backward under
+    ``policy`` (``full`` or ``dots``). The recompute runs with the dropout
+    generators' states of the forward and puts back the states it found,
+    so it draws the forward's masks and moves nothing else."""
+    from torch.utils.checkpoint import (checkpoint,
+                                        create_selective_checkpoint_contexts)
+    gens = list({id(m.generator): m.generator for m in layer.modules()
+                 if isinstance(m, Dropout) and m.generator is not None
+                 and m.training and m.p > 0}.values())
+    start = [g.get_state() for g in gens]
+    ran = []
+
+    def run(h, mask_bias):
+        if not ran:
+            ran.append(True)
+            return layer(h, mask_bias)
+        found = [g.get_state() for g in gens]
+        for g, state in zip(gens, start):
+            g.set_state(state)
+        try:
+            return layer(h, mask_bias)
+        finally:
+            for g, state in zip(gens, found):
+                g.set_state(state)
+
+    kw = {}
+    if policy == "dots":
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _dots_policy)
+    # the masks come from the generators above, never the global RNG
+    return checkpoint(run, h, mask_bias, use_reentrant=False,
+                      preserve_rng_state=False, **kw)
+
+
+def _embedding(n: int, dim: int, **kw) -> nn.Embedding:
+    """``nn.Embedding(n, dim)``; built on the ``meta`` device (to be
+    loaded) it skips its own normal init, whose meta kernel imports the
+    compiler stack (seconds, once a process)."""
+    if torch.empty(0).is_meta:
+        return nn.Embedding(n, dim, _weight=torch.empty((n, dim), **kw))
+    return nn.Embedding(n, dim, **kw)
 
 
 class BertEncoderModel(nn.Module):
@@ -187,10 +318,10 @@ class BertEncoderModel(nn.Module):
         kw = dict(dtype=policy.param_dtype)
         H = cfg.hidden_size
         self.embeddings = _Module()
-        self.embeddings.word_embeddings = nn.Embedding(cfg.vocab_size, H, **kw)
-        self.embeddings.position_embeddings = nn.Embedding(
+        self.embeddings.word_embeddings = _embedding(cfg.vocab_size, H, **kw)
+        self.embeddings.position_embeddings = _embedding(
             cfg.max_position_embeddings, H, **kw)
-        self.embeddings.token_type_embeddings = nn.Embedding(
+        self.embeddings.token_type_embeddings = _embedding(
             cfg.type_vocab_size, H, **kw)
         self.embeddings.LayerNorm = nn.LayerNorm(H, eps=cfg.layer_norm_eps,
                                                  **kw)
@@ -200,7 +331,19 @@ class BertEncoderModel(nn.Module):
             BertLayer(cfg, policy) for _ in range(cfg.num_layers))
         self.pooler = _Module()
         self.pooler.dense = nn.Linear(H, H, **kw)
+        if cfg.remat and cfg.remat_policy not in ("full", "dots"):
+            raise ValueError(f"remat_policy must be 'full' or 'dots', "
+                             f"got {cfg.remat_policy!r}")
+        self.tp = None
         self.eval()
+
+    def _layer(self, i: int, layer: BertLayer, h: torch.Tensor,
+               mask_bias: torch.Tensor) -> torch.Tensor:
+        cfg = self.config
+        if not cfg.remat or not torch.is_grad_enabled() or (
+                cfg.remat_skip and i % cfg.remat_skip == 0):
+            return layer(h, mask_bias)
+        return remat(layer, h, mask_bias, cfg.remat_policy)
 
     def forward(self, input_ids: torch.Tensor,
                 attention_mask: Optional[torch.Tensor] = None,
@@ -215,18 +358,31 @@ class BertEncoderModel(nn.Module):
             token_type_ids = torch.zeros((B, S), dtype=torch.int32,
                                          device=dev)
         emb = self.embeddings
-        h = (emb.word_embeddings(input_ids.long())
-             + emb.position_embeddings(torch.arange(S, device=dev))[None]
-             + emb.token_type_embeddings(token_type_ids.long()))
-        h = emb.dropout(_layer_norm(h, emb.LayerNorm, rd)).to(cd)
+        tp = self.tp
+        pos = emb.position_embeddings(torch.arange(S, device=dev))[None]
+        typ = emb.token_type_embeddings(token_type_ids.long())
+        if tp is None:
+            h = emb.word_embeddings(input_ids.long()) + pos + typ
+            h = emb.dropout(_layer_norm(h, emb.LayerNorm, rd)).to(cd)
+        else:
+            h = _layer_norm(tp.embed(emb.word_embeddings, input_ids, pos,
+                                     typ), emb.LayerNorm, rd)
+            if tp.sequence:
+                h = emb.dropout(h, (B, S, h.shape[2]),
+                                functools.partial(tp.seq_block, S=S))
+            else:
+                h = emb.dropout(h)
+            h = h.to(cd)
 
         # additive attention bias: 0 for attended, big-negative for padding
         mask_bias = torch.where(attention_mask[:, None, None, :] > 0,
                                 torch.zeros((), dtype=rd, device=dev),
                                 torch.full((), torch.finfo(rd).min,
                                            dtype=rd, device=dev))
-        for layer in self.encoder.layer:
-            h = layer(h, mask_bias)
+        for i, layer in enumerate(self.encoder.layer):
+            h = self._layer(i, layer, h, mask_bias)
+        if tp is not None:
+            h = tp.gather(h, S)
         pooled = _linear(h[:, 0], self.pooler.dense, cd)
         pooled = torch.tanh(pooled.to(rd))
         return {"last_hidden_state": h, "pooler_output": pooled}
@@ -236,7 +392,10 @@ def init_bert_weights(module: nn.Module, generator: torch.Generator
                       ) -> None:
     """HF BertModel's init (initializer_range 0.02), drawn from
     ``generator``: normal(0, 0.02) weights and embeddings, zero biases,
-    unit LayerNorm scales."""
+    unit LayerNorm scales. A module on the ``meta`` device (built to be
+    loaded) draws nothing."""
+    if any(p.is_meta for p in module.parameters()):
+        return
     with torch.no_grad():
         for m in module.modules():
             if isinstance(m, (nn.Linear, nn.Embedding)):

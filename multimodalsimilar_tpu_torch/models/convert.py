@@ -7,7 +7,8 @@ the tree.
 * ``text_classifier_from_jax``: ``NlpTextClassifier``
   (``params["tower"]["encoder"]``, the layout that
   ``multimodalsimilar_tpu/models/hf_import.py:bert_params_from_torch``
-  writes, read in reverse).
+  writes, read in reverse; a ``fused_qkv`` layer's [H, 3, nh, hd] kernel
+  and [3, nh, hd] bias split into the three projections).
 * ``multilabel_classifier_from_jax`` and ``siamese_pair_from_jax``:
   ``NlpMultilabelClassifier`` (the tower and the three heads) and
   ``SiamesePairModel`` (the tower and the 2-way ``classifier``).
@@ -96,12 +97,15 @@ def text_classifier_from_jax(params: Mapping, config: BertConfig
     for i in range(config.num_layers):
         p = enc[f"layer_{i}"]
         att = p["attention"]
-        if "qkv" in att:
-            raise ValueError("fused_qkv checkpoints are not ported")
         t = f"{e}.encoder.layer.{i}"
-        for n in ("query", "key", "value"):
-            _dense(sd, f"{t}.attention.self.{n}", att[n],
-                   np.asarray(att[n]["kernel"]).reshape(H, H))
+        for j, n in enumerate(("query", "key", "value")):
+            if "qkv" in att:     # fused: [H, 3, nh, hd] and [3, nh, hd]
+                proj = {"kernel": np.asarray(att["qkv"]["kernel"])[:, j],
+                        "bias": np.asarray(att["qkv"]["bias"])[j]}
+            else:
+                proj = att[n]
+            _dense(sd, f"{t}.attention.self.{n}", proj,
+                   np.asarray(proj["kernel"]).reshape(H, H))
         _dense(sd, f"{t}.attention.output.dense", att["out"],
                np.asarray(att["out"]["kernel"]).reshape(H, H))
         _ln(sd, f"{t}.attention.output.LayerNorm", p["attention_norm"])

@@ -13,7 +13,8 @@ model axis (the JAX package's ``class_sharded`` placement,
 of its own classes, the margin kernel unchanged on them (a label on
 another rank's block becomes -1, no target here), and ``train/tasks.py``
 takes the loss and accuracy over the model group. The embedding enters
-through ``copy_to_model_group``, so each rank's tower receives the
+through ``parallel/mesh.py:copy_to_group`` (identity; the backward sums
+the gradient over the model group), so each rank's tower receives the
 gradient of every block.
 """
 
@@ -27,28 +28,8 @@ from torch import nn
 
 from multimodalsimilar_tpu_torch.ops.arcface import (
     ArcFaceParams, arcface_logits_fused, cosine_logits)
-from multimodalsimilar_tpu_torch.parallel.mesh import (MODEL_AXIS,
-                                                       MeshRules)
-
-
-class _CopyToModelGroup(torch.autograd.Function):
-    """Identity forward; backward sums the gradient over the mesh's model
-    group (every rank of a data coordinate runs the same tower on the
-    same batch, and each class block adds its share of the gradient)."""
-
-    @staticmethod
-    def forward(ctx, x, mesh):
-        ctx.mesh = mesh
-        return x.view_as(x)
-
-    @staticmethod
-    def backward(ctx, grad):
-        return ctx.mesh.all_reduce(grad.contiguous().clone(),
-                                   MODEL_AXIS), None
-
-
-def copy_to_model_group(x: torch.Tensor, mesh) -> torch.Tensor:
-    return _CopyToModelGroup.apply(x, mesh)
+from multimodalsimilar_tpu_torch.parallel.mesh import (MeshRules,
+                                                       copy_to_group)
 
 
 class ArcFaceHead(nn.Module):
@@ -90,7 +71,11 @@ class ArcFaceHead(nn.Module):
                            local, torch.full_like(local, -1))
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None):
-        """xavier-uniform: U(-a, a) with a = sqrt(6 / (C + D))."""
+        """xavier-uniform: U(-a, a) with a = sqrt(6 / (C + D)); nothing
+        is drawn for a weight on the ``meta`` device (built to be
+        loaded)."""
+        if self.weight.is_meta:
+            return
         bound = math.sqrt(6.0 / sum(self.weight.shape))
         with torch.no_grad():
             w = torch.empty(self.weight.shape, dtype=torch.float32)
@@ -101,7 +86,7 @@ class ArcFaceHead(nn.Module):
                 m: Optional[float] = None, is_test: bool = False
                 ) -> torch.Tensor:
         if self.mesh is not None:
-            x = copy_to_model_group(x, self.mesh)
+            x = copy_to_group(x, self.mesh)
             if label is not None:
                 label = self.local_labels(label)
         if is_test or label is None:

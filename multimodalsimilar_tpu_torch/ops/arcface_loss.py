@@ -21,6 +21,15 @@ so here it is a ``torch.autograd.Function`` whose per-tile products go to
 Peak memory O(B·D + T·D + B·T) for tile T instead of O(B·C). The margin
 is a float, so it gets no gradient (the JAX ``custom_vjp`` returns one
 for a traced margin).
+
+With a ``mesh`` the weight is this rank's block of classes (a head cut
+over the mesh's model group, ``--model_parallel``) and the label each
+row's column in it (-1 on another block): the forward streams the block,
+then combines its (max, sum of exponentials, target logit) over the
+model group, as ``train/tasks.py:_ShardedCrossEntropy`` does with whole
+logits, and the backward scales the block's softmax by those global
+statistics. The gradient of x is this block's share (the caller sums it
+over the group, ``parallel/mesh.py:copy_to_group``).
 """
 
 from __future__ import annotations
@@ -30,6 +39,7 @@ from typing import Tuple
 import torch
 
 from multimodalsimilar_tpu_torch.ops.topk import f32_products
+from multimodalsimilar_tpu_torch.parallel.mesh import MODEL_AXIS
 
 EPS = 1e-12
 
@@ -82,7 +92,8 @@ def _tiles(weight: torch.Tensor, label: torch.Tensor, tile_c: int):
 
 class ArcFaceCELoss(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, weight, label, m, s, easy_margin, tile_c):
+    def forward(ctx, x, weight, label, m, s, easy_margin, tile_c,
+                mesh=None):
         xn = _norm_rows(x.float())
         b = x.shape[0]
         run_max = torch.full((b,), float("-inf"), device=x.device)
@@ -97,6 +108,12 @@ class ArcFaceCELoss(torch.autograd.Function):
                 logits - new_max[:, None]).sum(1)
             target = target + torch.where(is_target, logits, 0.0).sum(1)
             run_max = new_max
+        if mesh is not None:     # the statistics of every class block
+            top = mesh.all_reduce(run_max.clone(), MODEL_AXIS, "max")
+            run_sum = mesh.all_reduce(run_sum * torch.exp(run_max - top),
+                                      MODEL_AXIS)
+            target = mesh.all_reduce(target, MODEL_AXIS)
+            run_max = top
         ctx.save_for_backward(x, weight, label, run_max, run_sum)
         ctx.margin = (m, s, easy_margin, tile_c)
         return run_max + torch.log(run_sum) - target
@@ -123,16 +140,18 @@ class ArcFaceCELoss(torch.autograd.Function):
             dw[start:start + w_tile.shape[0]] = _norm_rows_vjp(
                 w_tile, f32_products(dcos.T, xn.T))
         dx = _norm_rows_vjp(x32, dxn).to(x.dtype)
-        return dx, dw.to(weight.dtype), None, None, None, None, None
+        return dx, dw.to(weight.dtype), None, None, None, None, None, None
 
 
 def arcface_ce_loss(x: torch.Tensor, weight: torch.Tensor,
                     label: torch.Tensor, m: float, s: float = 64.0,
                     easy_margin: bool = False,
-                    tile_c: int = 1024) -> torch.Tensor:
+                    tile_c: int = 1024, mesh=None) -> torch.Tensor:
     """Per-example ArcFace cross-entropy [B], blockwise over classes:
     x [B, D] (any float type), weight [C, D], label [B] (-1 = no target:
-    the loss is the log-sum-exp alone). Differentiable in x and weight."""
+    the loss is the log-sum-exp alone). Differentiable in x and weight.
+    ``mesh``: ``weight`` is this rank's block of the classes over the
+    mesh's model group (see the module docstring)."""
     if x.dim() != 2 or weight.dim() != 2 or x.shape[1] != weight.shape[1] \
             or label.shape != (x.shape[0],):
         raise ValueError(f"x {tuple(x.shape)}, weight "
@@ -140,15 +159,15 @@ def arcface_ce_loss(x: torch.Tensor, weight: torch.Tensor,
                          f"{tuple(label.shape)} must be [B, D], [C, D] "
                          f"and [B]")
     return ArcFaceCELoss.apply(x, weight, label, float(m), float(s),
-                               bool(easy_margin), int(tile_c))
+                               bool(easy_margin), int(tile_c), mesh)
 
 
 @torch.no_grad()
-def cosine_argmax(x: torch.Tensor, weight: torch.Tensor,
-                  tile_c: int = 1024) -> torch.Tensor:
-    """Blockwise argmax of the cosine logits [B] (int64): the margin-free
-    top-1 prediction without the [B, C] matrix; ties go to the lower
-    class. No gradient (metrics only)."""
+def cosine_max(x: torch.Tensor, weight: torch.Tensor,
+               tile_c: int = 1024) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Blockwise (max, argmax) of the cosine logits [B] (f32, int64): the
+    margin-free top-1 prediction without the [B, C] matrix; ties go to
+    the lower class. No gradient (metrics only)."""
     xn = _norm_rows(x.float())
     b = x.shape[0]
     best_val = torch.full((b,), float("-inf"), device=x.device)
@@ -160,4 +179,10 @@ def cosine_argmax(x: torch.Tensor, weight: torch.Tensor,
         take = tile_val > best_val
         best_val = torch.where(take, tile_val, best_val)
         best_idx = torch.where(take, tile_idx + start, best_idx)
-    return best_idx
+    return best_val, best_idx
+
+
+def cosine_argmax(x: torch.Tensor, weight: torch.Tensor,
+                  tile_c: int = 1024) -> torch.Tensor:
+    """The argmax of ``cosine_max``."""
+    return cosine_max(x, weight, tile_c)[1]

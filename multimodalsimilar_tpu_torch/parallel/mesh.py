@@ -12,7 +12,17 @@ process groups:
 * its **data group** holds the ranks with its model coordinate (the
   gradient all-reduce, the corpus-sharded search, BatchNorm's global
   statistics); its **model group** the ranks with its data coordinate,
-  which see the same batch (the class-sharded ArcFace heads).
+  which see the same batch (the class-sharded ArcFace heads, the tensor-
+  and sequence-parallel tower of ``parallel/tp.py``).
+
+The autograd functions at the end are the collectives a model runs in its
+forward, each with its conjugate in the backward (Megatron's ``f``/``g``
+and the sequence-parallel pair): ``copy_to_group`` (identity, then an
+all-reduce of the gradient), ``reduce_from_group`` (all-reduce, then the
+identity), ``reduce_scatter_along`` / ``gather_along`` (a reduce-scatter
+or an all-gather along one dimension, the other in the backward) and
+``split_along`` (this rank's block of a tensor every rank holds whole,
+gathered in the backward).
 
 Without a process group (a plain one-process run) the mesh is 1 x 1 and
 every collective is the identity. With one, even of one rank, every
@@ -26,7 +36,7 @@ import dataclasses
 import datetime
 import os
 import sys
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -148,6 +158,37 @@ class Mesh:
         parts = self.all_gather(pad, axis)
         return torch.cat([p[:c] for p, c in zip(parts, counts)])
 
+    def reduce_scatter(self, t: torch.Tensor, dim: int,
+                       axis: str = MODEL_AXIS) -> torch.Tensor:
+        """The sum of ``t`` over ``axis``, cut along ``dim`` into as many
+        equal blocks as the axis has ranks: this rank's block (a new
+        tensor; ``t`` is left as it is). NCCL and gloo, on the CPU and on
+        CUDA tensors, both run the tensor-in, tensor-out collective."""
+        group = self.group(axis)
+        if group is None:
+            return t
+        n = self.shape[axis]
+        if t.shape[dim] % n:
+            raise ValueError(f"dim {dim} of {tuple(t.shape)} not divisible "
+                             f"by {n} ranks")
+        x = t.movedim(dim, 0).contiguous()
+        out = x.new_empty((x.shape[0] // n,) + tuple(x.shape[1:]))
+        dist.reduce_scatter_tensor(out, x, group=group)
+        return out.movedim(0, dim)
+
+    def all_gather_dim(self, t: torch.Tensor, dim: int,
+                       axis: str = MODEL_AXIS) -> torch.Tensor:
+        """``t`` of every rank of ``axis`` concatenated along ``dim`` in
+        coordinate order (equal shapes)."""
+        group = self.group(axis)
+        if group is None:
+            return t
+        x = t.movedim(dim, 0).contiguous()
+        out = x.new_empty((x.shape[0] * self.shape[axis],)
+                          + tuple(x.shape[1:]))
+        dist.all_gather_into_tensor(out, x, group=group)
+        return out.movedim(0, dim)
+
     def broadcast_object(self, obj: Any, src: int = 0) -> Any:
         """``obj`` of global rank ``src`` on every rank."""
         if not self.distributed:
@@ -185,6 +226,15 @@ def create_mesh(data: Optional[int] = None, model: int = 1) -> Mesh:
             if rank in ranks:
                 groups[axis] = group
     return Mesh(data, model, rank, groups)
+
+
+class Shard(NamedTuple):
+    """A parameter cut to this rank's block along ``dim`` over the model
+    group (a class-sharded head, a tensor-parallel weight), and the
+    length of that dimension in the one-card layout."""
+    param: torch.nn.Parameter
+    dim: int
+    size: int
 
 
 def _block(n: int, parts: int, index: int) -> slice:
@@ -234,3 +284,106 @@ def shard_batch(mesh: Mesh, batch: Dict[str, Any],
     rows = MeshRules(mesh).batch
     return {k: v[rows(v.shape[0])] if getattr(v, "ndim", 0) >= 1
             and v.shape[0] % n_data == 0 else v for k, v in batch.items()}
+
+
+# -- collectives in the forward, with their conjugates in the backward -------
+
+class _CopyToGroup(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return ctx.mesh.all_reduce(grad.contiguous().clone(),
+                                   ctx.axis), None, None
+
+
+class _ReduceFromGroup(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        return mesh.all_reduce(x.contiguous().clone(), axis)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None, None
+
+
+class _ReduceScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, dim):
+        ctx.mesh, ctx.dim = mesh, dim
+        return mesh.reduce_scatter(x, dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return ctx.mesh.all_gather_dim(grad, ctx.dim), None, None
+
+
+class _Gather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, dim, partial_grads):
+        ctx.mesh, ctx.dim, ctx.partial = mesh, dim, partial_grads
+        return mesh.all_gather_dim(x, dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        mesh, dim = ctx.mesh, ctx.dim
+        if ctx.partial:
+            return mesh.reduce_scatter(grad, dim), None, None, None
+        return _own_block(grad, mesh, dim), None, None, None
+
+
+class _Split(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, dim):
+        ctx.mesh, ctx.dim = mesh, dim
+        return _own_block(x, mesh, dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return ctx.mesh.all_gather_dim(grad.contiguous(), ctx.dim), None, None
+
+
+def _own_block(x: torch.Tensor, mesh: Mesh, dim: int) -> torch.Tensor:
+    size = x.shape[dim] // mesh.model
+    return x.narrow(dim, mesh.model_index * size, size).contiguous()
+
+
+def copy_to_group(x: torch.Tensor, mesh: Mesh,
+                  axis: str = MODEL_AXIS) -> torch.Tensor:
+    """Identity; the backward sums the gradient over ``axis`` (the input
+    of a product whose blocks lie on the ranks: each adds its share)."""
+    return _CopyToGroup.apply(x, mesh, axis)
+
+
+def reduce_from_group(x: torch.Tensor, mesh: Mesh,
+                      axis: str = MODEL_AXIS) -> torch.Tensor:
+    """The sum of every rank's partial ``x`` over ``axis``; the backward
+    passes the (whole, equal on every rank) gradient through."""
+    return _ReduceFromGroup.apply(x, mesh, axis)
+
+
+def reduce_scatter_along(x: torch.Tensor, mesh: Mesh,
+                         dim: int) -> torch.Tensor:
+    """The sum of every rank's partial ``x`` over the model group, this
+    rank's block along ``dim``; the backward all-gathers the blocks'
+    gradients."""
+    return _ReduceScatter.apply(x, mesh, dim)
+
+
+def gather_along(x: torch.Tensor, mesh: Mesh, dim: int,
+                 partial_grads: bool = True) -> torch.Tensor:
+    """Every rank's block of ``x`` along ``dim``, concatenated over the
+    model group. The backward reduce-scatters when each rank's gradient
+    of the whole is partial (the input of a column-parallel product);
+    with ``partial_grads=False`` (the whole used alike on every rank) it
+    keeps this rank's block of it."""
+    return _Gather.apply(x, mesh, dim, partial_grads)
+
+
+def split_along(x: torch.Tensor, mesh: Mesh, dim: int) -> torch.Tensor:
+    """This rank's block along ``dim`` of an ``x`` every rank of the model
+    group holds whole; the backward all-gathers the blocks' gradients."""
+    return _Split.apply(x, mesh, dim)

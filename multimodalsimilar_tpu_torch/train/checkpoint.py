@@ -20,12 +20,14 @@ The async contract is the JAX package's:
   step that was already saved (the end-of-fit save after the epoch-end
   margin update).
 
-A checkpoint is always in the one-card layout. A run whose ArcFace heads
-are class-sharded over the mesh's model axis (``--model_parallel``)
-gathers each head and its optimizer moments before rank 0 writes
+A checkpoint is always in the one-card layout. A run that cuts
+parameters over the mesh's model axis (class-sharded ArcFace heads under
+``--model_parallel``, the tower's blocks under ``--tensor_parallel``)
+gathers each of them, along the dimension it was cut on, with its
+optimizer moments and its gradient so far before rank 0 writes
 (``gather_shards``), and cuts them to each rank's block again on resume
-(``shard_state``): a ``--model_parallel 2`` checkpoint serves, embeds and
-exports on one card unchanged, as an orbax global array does in JAX.
+(``shard_state``): such a checkpoint serves, embeds and exports on one
+card unchanged, as an orbax global array does in JAX.
 """
 
 from __future__ import annotations
@@ -37,7 +39,7 @@ from typing import Any, List, Optional
 
 import torch
 
-from multimodalsimilar_tpu_torch.parallel.mesh import MODEL_AXIS, MeshRules
+from multimodalsimilar_tpu_torch.parallel.mesh import MODEL_AXIS
 
 _NAME = re.compile(r"^step_(\d+)\.pt$")
 
@@ -135,13 +137,13 @@ class CheckpointManager:
 
 def _sharded_entries(state: dict, shards: dict, optimizer):
     """(section, key, parameter name) of every tensor of ``state`` that
-    holds a sharded parameter's rows: its weight, its gradient so far and
-    its optimizer moments (torch numbers a parameter by its position over
-    the optimizer's groups)."""
+    holds a sharded parameter's block: its weight, its gradient so far
+    and its optimizer moments (torch numbers a parameter by its position
+    over the optimizer's groups)."""
     position = {id(p): i for i, p in enumerate(
         p for g in optimizer.param_groups for p in g["params"])}
     out = []
-    for name, (param, _) in shards.items():
+    for name, (param, _, _) in shards.items():
         out.append(("model", name, name))
         if name in state.get("accum_grads", {}):
             out.append(("accum_grads", name, name))
@@ -170,31 +172,36 @@ def _rebuilt(state: dict) -> dict:
     return out
 
 
+def gather_shard(t: torch.Tensor, shard, mesh) -> torch.Tensor:
+    """A tensor of ``shard``'s layout (the parameter, its gradient or a
+    moment) gathered over the model group along the cut dimension."""
+    return mesh.all_gather_dim(t, shard.dim, MODEL_AXIS)
+
+
 def gather_shards(state: dict, shards: dict, optimizer, mesh) -> dict:
-    """``state`` (the Trainer's, with ``shards``: name -> (parameter, whole
-    class count) of its class-sharded heads) in the one-card layout: each
-    sharded tensor all-gathered over the model group. Every rank calls
-    it."""
+    """``state`` (the Trainer's, with ``shards``: name -> ``Shard`` of
+    each parameter cut over the model group) in the one-card layout: each
+    sharded tensor all-gathered over the model group along its cut
+    dimension. Every rank calls it."""
     out = _rebuilt(state)
     for where, key, name in _sharded_entries(out, shards, optimizer):
         sec = _section(out, where)
-        t = sec[key]
-        sec[key] = mesh.all_gather(t, MODEL_AXIS).reshape(
-            (shards[name][1],) + tuple(t.shape[1:]))
+        sec[key] = gather_shard(sec[key], shards[name], mesh)
     return out
 
 
 def shard_state(state: dict, shards: dict, optimizer, mesh) -> dict:
     """A one-card ``state`` cut to this rank's block of each sharded
-    head (``MeshRules.class_sharded``): the mesh shape must be the one
-    the Trainer shards for."""
+    parameter: the mesh shape must be the one the Trainer shards for."""
     out = _rebuilt(state)
     for where, key, name in _sharded_entries(out, shards, optimizer):
         sec = _section(out, where)
-        full = shards[name][1]
-        if sec[key].shape[0] != full:
+        _, dim, full = shards[name]
+        if sec[key].shape[dim] != full:
             raise ValueError(f"{name}: the checkpoint holds "
-                             f"{sec[key].shape[0]} classes, the model "
-                             f"{full}")
-        sec[key] = sec[key][MeshRules(mesh).class_sharded(full)]
+                             f"{sec[key].shape[dim]} rows along dim {dim}, "
+                             f"the model {full}")
+        size = full // mesh.model
+        sec[key] = sec[key].narrow(dim, mesh.model_index * size,
+                                   size).clone()
     return out

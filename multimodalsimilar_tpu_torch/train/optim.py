@@ -13,7 +13,10 @@ multimodalsimilar_tpu/train/optim.py).
   per-epoch LR, the cosine not shifted by the warmup, ``lr_min`` after
   ``t_initial`` epochs.
 * ``AdamP`` — timm ``AdamP`` (Heo et al.) with the JAX package's channel
-  views (``adamp_views``), as a ``torch.optim.Optimizer``.
+  views (``adamp_views``), as a ``torch.optim.Optimizer``; over a mesh
+  (``AdamP.shard``) the sums behind its projection of a parameter cut
+  over the model group are reduced over that group, so every rank
+  projects its block as one device projects the whole.
 * ``dual_group`` / ``dual_group_adamw`` — the reference's two-optimizer
   pattern (tower and head, nlp_classifier_train.py:89-97; dual AdamP,
   cv_classifier_train.py:68-72) as one optimizer with two parameter
@@ -33,6 +36,8 @@ from typing import Callable, Dict, Sequence, Tuple
 import numpy as np
 import torch
 from torch import nn
+
+from multimodalsimilar_tpu_torch.parallel.mesh import MODEL_AXIS
 
 Schedule = Callable[[int], float]
 
@@ -206,25 +211,60 @@ def _channel_rows(x: torch.Tensor, view: View) -> torch.Tensor:
     return x.reshape(shape).movedim(axis, 0).reshape(shape[axis], -1)
 
 
-def _adamp_project(p, g, perturb, view: View, delta, wd_ratio, eps):
+def _view_dim(shape: tuple, view: View, dim: int) -> int:
+    """The dimension of ``view`` whose blocks are the blocks of dimension
+    ``dim`` of a parameter of ``shape`` (the view splits ``dim`` with its
+    leading factor first)."""
+    before = math.prod(shape[:dim])
+    for k in range(len(view[0])):
+        if math.prod(view[0][:k]) == before:
+            return k
+    raise ValueError(f"no dimension of the view {view} starts at dim {dim} "
+                     f"of {shape}")
+
+
+def _adamp_project(p, g, perturb, view: View, delta, wd_ratio, eps,
+                   split=None):
     """AdamP's tangent-space projection, as the JAX package's
     ``_adamp_project`` computes it: candidate channel and layer views,
     selected with ``where`` (no host sync). Returns (perturb, the
-    weight-decay factor as a 0-d tensor)."""
-    def candidate(rows):
+    weight-decay factor as a 0-d tensor).
+
+    ``split`` = (mesh, view dimension): ``p`` is this rank's block of a
+    parameter cut along that dimension over the mesh's model group. Where
+    the blocks split the view's rows (the channel axis), each row is
+    whole here and only the test's max over rows spans the group; where
+    they split the rows' contents, the per-row sums (and the length of
+    a row) span it. Both are reduced over the group, so every rank
+    decides and projects as one device does for the whole."""
+    mesh, vdim = split if split is not None else (None, None)
+
+    def candidate(rows, rows_split):
         pv, gv, nv = rows(p), rows(g), rows(perturb)
-        np_, ng = pv.norm(dim=1), gv.norm(dim=1)
-        cos = ((pv * gv).sum(1) / (np_.clamp_min(eps) * ng.clamp_min(eps))
-               ).abs()
-        cond = cos.max() < delta / math.sqrt(pv.shape[1])
+        sums = torch.stack([(pv * gv).sum(1), (pv * pv).sum(1),
+                            (gv * gv).sum(1)])
+        length = pv.shape[1]
+        content = mesh is not None and not rows_split
+        if content:
+            sums = mesh.all_reduce(sums, MODEL_AXIS)
+            length *= mesh.model
+        dot, np_, ng = sums[0], sums[1].sqrt(), sums[2].sqrt()
+        cos = (dot / (np_.clamp_min(eps) * ng.clamp_min(eps))).abs()
+        top = cos.max()
+        if mesh is not None and rows_split:
+            top = mesh.all_reduce(top.reshape(1), MODEL_AXIS, "max")[0]
+        cond = top < delta / math.sqrt(length)
         pn = pv / (np_[:, None] + eps)
-        return cond, nv - pn * (pn * nv).sum(1, keepdim=True)
+        radial = (pn * nv).sum(1, keepdim=True)
+        if content:
+            radial = mesh.all_reduce(radial, MODEL_AXIS)
+        return cond, nv - pn * radial
 
     shape, axis = view
-    c1, proj1 = candidate(lambda x: _channel_rows(x, view))
+    c1, proj1 = candidate(lambda x: _channel_rows(x, view), vdim == axis)
     moved = (shape[axis],) + shape[:axis] + shape[axis + 1:]
     proj1 = proj1.reshape(moved).movedim(0, axis).reshape(p.shape)
-    c2, proj2 = candidate(lambda x: x.reshape(1, -1))
+    c2, proj2 = candidate(lambda x: x.reshape(1, -1), False)
     out = torch.where(c1, proj1,
                       torch.where(c2, proj2.reshape(p.shape), perturb))
     one = torch.ones((), dtype=p.dtype, device=p.device)
@@ -257,6 +297,15 @@ class AdamP(torch.optim.Optimizer):
                                       delta=delta, wd_ratio=wd_ratio,
                                       nesterov=nesterov))
         self.views = dict(views or {})
+        self.splits: Dict[nn.Parameter, tuple] = {}
+
+    def shard(self, dims: Dict[nn.Parameter, int], mesh) -> None:
+        """The parameters cut over ``mesh``'s model group, with the
+        dimension each was cut on (the Trainer's shards): their
+        projections reduce over the group. Every rank steps together."""
+        for p, dim in dims.items():
+            view = self.views.get(p, (tuple(p.shape), 0))
+            self.splits[p] = (mesh, _view_dim(tuple(p.shape), view, dim))
 
     @torch.no_grad()
     def step(self, closure=None):
@@ -289,7 +338,7 @@ class AdamP(torch.optim.Optimizer):
                 if len(view[0]) > 1:
                     perturb, wd = _adamp_project(
                         p, g, perturb, view, group["delta"],
-                        group["wd_ratio"], eps)
+                        group["wd_ratio"], eps, self.splits.get(p))
                 update = -(lr / bc1) * perturb
                 if group["weight_decay"] > 0:
                     update = update - lr * group["weight_decay"] * wd * p

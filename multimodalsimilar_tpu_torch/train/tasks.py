@@ -17,7 +17,9 @@ module buffers that move in ``train()`` mode, so no task carries them.
 * ``pair_task``               <- nlp_st_train_daodian.py (2-class CE)
 
 ``fused_loss=True`` (text and multilabel) streams ArcFace+CE over class
-tiles (``ops/arcface_loss.py``): the [B, C] logits never exist.
+tiles (``ops/arcface_loss.py``): the [B, C] logits never exist; over a
+class-sharded head each rank streams its block and the statistics are
+combined over the model group.
 
 A head that ``models/heads.py:ArcFaceHead.shard`` cut to this rank's block
 of classes (``--model_parallel``) gives [B, C / model] logits: the
@@ -40,8 +42,9 @@ import torch.nn.functional as F
 from multimodalsimilar_tpu_torch.models.vision import (device_normalize,
                                                        to_nchw)
 from multimodalsimilar_tpu_torch.ops.arcface_loss import (arcface_ce_loss,
-                                                          cosine_argmax)
-from multimodalsimilar_tpu_torch.parallel.mesh import MODEL_AXIS
+                                                          cosine_max)
+from multimodalsimilar_tpu_torch.parallel.mesh import (MODEL_AXIS,
+                                                       copy_to_group)
 
 Batch = Dict[str, torch.Tensor]
 
@@ -54,9 +57,6 @@ class Task:
     # False for tasks whose loss ignores the Trainer's margin; the Trainer
     # refuses a margin curriculum for them
     dynamic_margin: bool = True
-    # True when the loss streams the head weights (``fused_loss``), which
-    # a class-sharded head cannot feed; the Trainer refuses the pair
-    fused_loss: bool = False
 
 
 class _ShardedCrossEntropy(torch.autograd.Function):
@@ -136,14 +136,30 @@ def _text_inputs(batch: Batch) -> dict:
                 token_type_ids=batch.get("token_type_ids"))
 
 
-def _fused_head_loss(emb, weight, labels, margin, af, tile_c):
-    return torch.mean(arcface_ce_loss(emb, weight, labels, margin, af.s,
-                                      af.easy_margin, tile_c))
+def _fused_head_loss(emb, head, labels, margin, af, tile_c):
+    """The mean fused ArcFace+CE of ``head``; a class-sharded head streams
+    this rank's block, the embedding entering as the head's forward takes
+    it (the blocks' gradients summed over the model group)."""
+    if not _sharded(head):
+        return torch.mean(arcface_ce_loss(emb, head.weight, labels, margin,
+                                          af.s, af.easy_margin, tile_c))
+    return torch.mean(arcface_ce_loss(
+        copy_to_group(emb, head.mesh), head.weight,
+        head.local_labels(labels.long()), margin, af.s, af.easy_margin,
+        tile_c, mesh=head.mesh))
 
 
-def _fused_acc(emb, weight, labels, tile_c):
-    return (cosine_argmax(emb, weight, tile_c) == labels.long()
-            ).float().mean()
+def _fused_acc(emb, head, labels, tile_c):
+    """Accuracy of the blockwise cosine argmax; over a class-sharded head
+    the global argmax, ties to the lowest class."""
+    best, col = cosine_max(emb, head.weight, tile_c)
+    if _sharded(head):
+        mesh = head.mesh
+        top = mesh.all_reduce(best.clone(), MODEL_AXIS, "max")
+        col = mesh.all_reduce(torch.where(
+            best == top, col + head.column_offset,
+            torch.full_like(col, head.num_classes)), MODEL_AXIS, "min")
+    return (col == labels.long()).float().mean()
 
 
 def text_arcface_task(model, fused_loss: bool = False,
@@ -157,17 +173,18 @@ def text_arcface_task(model, fused_loss: bool = False,
             and num_valid < model.num_labels:
         raise ValueError(
             "--fused_loss streams class tiles and cannot mask padded "
-            "classes")
+            "classes; drop --fused_loss or pick a --model_parallel that "
+            "divides the class count")
 
     def train_loss(batch: Batch, margin: float):
         labels = batch["labels"]
         if fused_loss:
             emb = model.predict_emb(**_text_inputs(batch))
-            w = model.head.weight
-            loss = _fused_head_loss(emb, w, labels, margin, model.arcface,
-                                    loss_tile_c)
+            loss = _fused_head_loss(emb, model.head, labels, margin,
+                                    model.arcface, loss_tile_c)
             return loss, {"loss": loss.detach(),
-                          "acc": _fused_acc(emb, w, labels, loss_tile_c)}
+                          "acc": _fused_acc(emb, model.head, labels,
+                                            loss_tile_c)}
         head = model.head
         logits = _mask_pad(model(**_text_inputs(batch), label=labels,
                                  m=margin), num_valid, head)
@@ -183,7 +200,7 @@ def text_arcface_task(model, fused_loss: bool = False,
                 "loss": _ce(model.arcface.s * logits, batch["labels"],
                             head)}
 
-    return Task(model, train_loss, eval_metrics, fused_loss=fused_loss)
+    return Task(model, train_loss, eval_metrics)
 
 
 _LEVELS = ("lv1", "lv2", "tag")
@@ -214,9 +231,9 @@ def multilabel_arcface_task(model, weights=(10.0, 5.0, 1.0),
             for w_loss, lv in zip(weights, _LEVELS):
                 af = getattr(model, f"{lv}_arcface")
                 loss = loss + w_loss * _fused_head_loss(
-                    emb, getattr(model, f"{lv}_head").weight,
+                    emb, getattr(model, f"{lv}_head"),
                     batch[f"{lv}_label"], af.m, af, loss_tile_c)
-            acc = _fused_acc(emb, model.tag_head.weight, batch["tag_label"],
+            acc = _fused_acc(emb, model.tag_head, batch["tag_label"],
                              loss_tile_c)
             return loss, {"loss": loss.detach(), "acc": acc}
         hs = heads()
@@ -238,8 +255,7 @@ def multilabel_arcface_task(model, weights=(10.0, 5.0, 1.0),
                 "lv1_acc": _acc(l1, batch["lv1_label"], hs[0]),
                 "lv2_acc": _acc(l2, batch["lv2_label"], hs[1])}
 
-    return Task(model, train_loss, eval_metrics, dynamic_margin=False,
-                fused_loss=fused_loss)
+    return Task(model, train_loss, eval_metrics, dynamic_margin=False)
 
 
 def _images(batch: Batch) -> torch.Tensor:

@@ -1,5 +1,5 @@
 """The Trainer: one loop for the reference training recipes (counterpart of
-multimodalsimilar_tpu/train/trainer.py), on one device.
+multimodalsimilar_tpu/train/trainer.py), on one device or over a mesh.
 
 * dual-LR parameter groups (``train/optim.py``), the per-epoch margin
   curriculum (update_m, cv_classifier_train_daodian.py:292), periodic
@@ -39,18 +39,28 @@ package's pjit step computes on the whole batch:
 * ``model_parallel_heads`` (``--model_parallel``) cuts each ArcFace head
   whose class count divides by the model axis to this rank's block of
   classes, with its optimizer moments (``ArcFaceHead.shard``; the tasks
-  take the loss over the model group); the rest stay whole, and when
-  nothing divides the Trainer raises, as JAX does;
+  take the loss over the model group, the fused loss included); the
+  rest stay whole, and when nothing divides the Trainer raises, as JAX
+  does;
+* ``tensor_parallel`` (``--tensor_parallel``) cuts the BERT towers to
+  Megatron's blocks over the same model group (``parallel/tp.py``), and
+  ``sequence_parallel`` runs their residual stream in sequence blocks
+  (``parallel/sp.py``; the gradients of the parameters that see only
+  this rank's block are summed over the model group before the
+  data-group mean); AdamP reduces its channel sums of every cut
+  parameter over the model group (``AdamP.shard``);
 * dropout masks are drawn from ``(seed, step)`` mixed with the rank's
   data coordinate (the ranks of one data coordinate see one batch and
   draw the same masks);
 * metrics are meaned over the data group where they are logged, eval
   sums over the whole split; rank 0 alone writes metrics and
-  checkpoints, the latter in the one-card layout with the head blocks
-  gathered (``full_state``), and ``load_state`` cuts them again.
+  checkpoints, the latter in the one-card layout with every cut
+  parameter gathered (``full_state``), and ``load_state`` cuts them
+  again.
 
-Tensor, sequence and pipeline parallelism are not ported (ROADMAP A17
-part 2): their ``TrainerConfig`` fields raise when set.
+The JAX Trainer's refusals of the layouts that do not compose are kept
+word for word. Pipeline parallelism is not ported (ROADMAP A17 part 2
+item 5): ``pipeline_parallel`` raises.
 """
 
 from __future__ import annotations
@@ -67,6 +77,7 @@ from multimodalsimilar_tpu_torch.data.prefetch import prefetch_to_device
 from multimodalsimilar_tpu_torch.models.bert import set_dropout_generator
 from multimodalsimilar_tpu_torch.models.efficientnet import set_stats_mesh
 from multimodalsimilar_tpu_torch.parallel.mesh import (DATA_AXIS,
+                                                       MODEL_AXIS, Shard,
                                                        create_mesh,
                                                        shard_batch)
 from multimodalsimilar_tpu_torch.train.checkpoint import (CheckpointManager,
@@ -77,10 +88,10 @@ from multimodalsimilar_tpu_torch.train.tasks import Task
 from multimodalsimilar_tpu_torch.utils.devices import resolve_device
 from multimodalsimilar_tpu_torch.utils.profiling import StepTimer, trace
 
-# TrainerConfig fields of the JAX package's layouts that are not ported
-# (ROADMAP A17 part 2), with the value that leaves them off
-_NOT_PORTED = {"tensor_parallel": False, "sequence_parallel": False,
-               "pipeline_parallel": False}
+# the JAX Trainer's refusal of pipeline with tensor or sequence parallelism
+PP_WITH_TP = ("pipeline_parallel and tensor/sequence_parallel shard the same "
+              "mesh model axis in incompatible layouts (stacked stages vs "
+              "per-layer weight splits) — pick one")
 # gradient elements per all-reduce of _reduce_gradients
 BUCKET_ELEMENTS = 8 * 2**20
 
@@ -118,19 +129,15 @@ class TrainerConfig:
     model_parallel_heads: bool = False
     # all-reduce data-parallel gradients in bfloat16 (per-shard BatchNorm)
     bf16_grad_allreduce: bool = False
-    # not ported (see _NOT_PORTED): raise when set
+    # Megatron tensor parallelism of the BERT towers over the model axis
     tensor_parallel: bool = False
+    # their residual stream in sequence blocks (needs tensor_parallel and
+    # a model built with BertConfig.sequence_parallel)
     sequence_parallel: bool = False
+    # not ported (ROADMAP A17 part 2 item 5): the Trainer raises
     pipeline_parallel: bool = False
 
     def __post_init__(self):
-        bad = [k for k, off in _NOT_PORTED.items()
-               if getattr(self, k) != off]
-        if bad:
-            raise NotImplementedError(
-                f"TrainerConfig {bad}: tensor, sequence and pipeline "
-                f"parallelism are not ported to the PyTorch trainer "
-                f"(ROADMAP A17 part 2)")
         if self.grad_accum < 1:
             raise ValueError(f"grad_accum must be >= 1, got "
                              f"{self.grad_accum}")
@@ -151,29 +158,26 @@ class Trainer:
         self.task = task
         self.config = config
         self.mesh = mesh if mesh is not None else create_mesh()
-        if config.bf16_grad_allreduce and config.model_parallel_heads:
-            raise ValueError(
-                "bf16_grad_allreduce is a pure-DP path (shard_map over the "
-                "data axis with fully replicated params); it cannot compose "
-                "with model_parallel_heads/tensor_parallel/"
-                "pipeline_parallel — pick one")
+        self._check_layouts()
         self.model = task.model.to(self.device)
-        # name -> (parameter, classes of the whole head) of each head cut
-        # to this rank's block
+        # name -> Shard of each parameter cut to this rank's block over
+        # the model group (heads, tensor-parallel tower weights), and the
+        # parameters whose gradients are partial over it (sequence
+        # parallelism)
         self.shards = {}
+        self.sequence_partial = []
         if config.model_parallel_heads and self.mesh.model > 1:
             self.shards = self._shard_heads()
-            if self.shards and task.fused_loss:
-                raise NotImplementedError(
-                    "--fused_loss with --model_parallel: the fused loss "
-                    "streams one device's whole head")
+        if config.tensor_parallel:
+            from multimodalsimilar_tpu_torch.parallel.tp import (
+                tensor_parallel)
+            tp_shards, self.sequence_partial = tensor_parallel(
+                self.model, self.mesh, config.sequence_parallel)
+            self.shards.update(tp_shards)
         self.optimizer, self.schedules = make_optimizer(self.model)
-        if self.shards and not isinstance(self.optimizer,
-                                          torch.optim.AdamW):
-            raise NotImplementedError(
-                f"{type(self.optimizer).__name__} with --model_parallel: "
-                f"AdamP's channel view of a head weight spans every class "
-                f"block (ROADMAP A17 part 2)")
+        if self.shards and hasattr(self.optimizer, "shard"):
+            self.optimizer.shard({s.param: s.dim
+                                  for s in self.shards.values()}, self.mesh)
         if not config.bf16_grad_allreduce \
                 and self.mesh.group(DATA_AXIS) is not None:
             set_stats_mesh(self.model, self.mesh)   # global statistics
@@ -190,6 +194,38 @@ class Trainer:
         self.timer = StepTimer(skip_first=2)
 
     # -- placement ------------------------------------------------------
+
+    def _check_layouts(self) -> None:
+        """The JAX Trainer's refusals of layouts that do not compose, in
+        its order and words; pipeline parallelism is not ported."""
+        cfg, model_n = self.config, self.mesh.model
+        if cfg.bf16_grad_allreduce and (cfg.model_parallel_heads
+                                        or cfg.tensor_parallel
+                                        or cfg.pipeline_parallel):
+            raise ValueError(
+                "bf16_grad_allreduce is a pure-DP path (shard_map over the "
+                "data axis with fully replicated params); it cannot compose "
+                "with model_parallel_heads/tensor_parallel/"
+                "pipeline_parallel — pick one")
+        if cfg.pipeline_parallel:
+            if cfg.tensor_parallel or cfg.sequence_parallel:
+                raise ValueError(PP_WITH_TP)
+            raise NotImplementedError(
+                "pipeline_parallel: the GPipe schedule and its stacked "
+                "layer layout are not ported (ROADMAP A17 part 2 item 5)")
+        if cfg.tensor_parallel and model_n <= 1:
+            raise ValueError(
+                "tensor_parallel requires a mesh model axis > 1 (e.g. "
+                "--model_parallel 2); on this mesh every tower weight "
+                "would silently stay replicated")
+        if cfg.sequence_parallel:
+            if not cfg.tensor_parallel:
+                raise ValueError(
+                    "sequence_parallel shards the residual stream over the "
+                    "tensor-parallel mesh group — it requires "
+                    "tensor_parallel (pass --tensor_parallel too)")
+            from multimodalsimilar_tpu_torch.parallel.sp import check_mesh
+            check_mesh(self.mesh)
 
     def _shard_heads(self) -> dict:
         """Cut each ArcFace head whose class count divides by the model
@@ -208,7 +244,7 @@ class Trainer:
                 skipped.append((f"{name}.weight", classes))
                 continue
             mod.shard(self.mesh)
-            sharded[f"{name}.weight"] = (mod.weight, classes)
+            sharded[f"{name}.weight"] = Shard(mod.weight, 0, classes)
         if skipped and not sharded:
             detail = ", ".join(f"{k} (classes={c}, {c} % {n} != 0)"
                                for k, c in sorted(set(skipped)))
@@ -243,17 +279,17 @@ class Trainer:
                 "margin": self.margin, "accum_grads": grads}
 
     def full_state(self) -> dict:
-        """``state()`` in the one-card layout: the class-sharded heads
-        and their optimizer moments gathered over the model group (a
-        collective: every rank calls it)."""
+        """``state()`` in the one-card layout: every cut parameter, its
+        optimizer moments and its gradient so far gathered over the model
+        group (a collective: every rank calls it)."""
         if not self.shards:
             return self.state()
         return gather_shards(self.state(), self.shards, self.optimizer,
                              self.mesh)
 
     def load_state(self, state: dict) -> None:
-        """Load a ``full_state()`` (the one-card layout), cutting the
-        class-sharded heads to this rank's block."""
+        """Load a ``full_state()`` (the one-card layout), cutting every
+        sharded parameter to this rank's block."""
         if self.shards:
             state = shard_state(state, self.shards, self.optimizer,
                                 self.mesh)
@@ -267,13 +303,14 @@ class Trainer:
             p.grad = (grads[name].to(p.device, p.dtype) if name in grads
                       else None)
 
-    def _save(self, step: int, force: bool = False) -> None:
+    def _save(self, step: int, force: bool = False) -> dict:
         """Rank 0 writes ``full_state()``; every rank meets at a barrier
-        once the copy to the host is made."""
+        once the copy to the host is made. Returns the state written."""
         state = self.full_state()
         if self.mesh.rank == 0:
             self.ckpt.save(step, state, force=force)
         self.mesh.barrier()
+        return state
 
     # -- steps ------------------------------------------------------------
 
@@ -307,16 +344,25 @@ class Trainer:
         return metrics
 
     def _reduce_gradients(self) -> None:
-        """Mean the gradients over the data group: flat buckets of up to
-        ``BUCKET_ELEMENTS``, one all-reduce each, in f32 (or bfloat16 under
-        ``bf16_grad_allreduce``, cast back after the mean, as JAX's
+        """Sum the sequence-partial gradients over the model group, then
+        mean every gradient over the data group: flat buckets of up to
+        ``BUCKET_ELEMENTS``, one all-reduce each, in f32 (or bfloat16
+        under ``bf16_grad_allreduce``, cast back after the mean, as JAX's
         ``pmean(g.astype(bf16))``)."""
+        if self.sequence_partial:
+            params = dict(self.model.named_parameters())
+            self._all_reduce_buckets(
+                [params[n].grad for n in self.sequence_partial
+                 if params[n].grad is not None], MODEL_AXIS, "sum",
+                torch.float32)
         if self.mesh.group(DATA_AXIS) is None:
             return
-        grads = [p.grad for p in self.model.parameters()
-                 if p.grad is not None]
-        dtype = (torch.bfloat16 if self.config.bf16_grad_allreduce
-                 else torch.float32)
+        self._all_reduce_buckets(
+            [p.grad for p in self.model.parameters() if p.grad is not None],
+            DATA_AXIS, "mean", torch.bfloat16
+            if self.config.bf16_grad_allreduce else torch.float32)
+
+    def _all_reduce_buckets(self, grads, axis, op, dtype) -> None:
         bucket, size = [], 0
         for i, g in enumerate(grads):
             bucket.append(g)
@@ -324,7 +370,7 @@ class Trainer:
             if size < BUCKET_ELEMENTS and i + 1 < len(grads):
                 continue
             flat = torch.cat([b.reshape(-1) for b in bucket]).to(dtype)
-            self.mesh.all_reduce(flat, DATA_AXIS, "mean")
+            self.mesh.all_reduce(flat, axis, op)
             for b, part in zip(bucket, flat.split([b.numel()
                                                    for b in bucket])):
                 b.copy_(part.view_as(b))
@@ -515,9 +561,12 @@ class Trainer:
                         self._save(step)
                 if cfg.margin_delta_per_epoch:
                     self.update_margin(cfg.margin_delta_per_epoch)
-        if self.ckpt and trained:
-            self._save(self.step, force=True)
-            if self.mesh.rank == 0:
-                self.ckpt.wait()   # the end-of-run save must be durable
-            self.mesh.barrier()
-        return self.full_state()
+        if not (self.ckpt and trained):
+            return self.full_state()
+        # the end-of-run save must be durable; its state is the result (one
+        # gather over the model group, not two)
+        state = self._save(self.step, force=True)
+        if self.mesh.rank == 0:
+            self.ckpt.wait()
+        self.mesh.barrier()
+        return state

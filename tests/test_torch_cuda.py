@@ -954,3 +954,67 @@ def knn_search_on(dev, corpus, queries, k, metric):
     v, i = knn_search(torch.from_numpy(corpus).to(dev),
                       torch.from_numpy(queries).to(dev), k, metric)
     return v.cpu().numpy(), i.cpu().numpy()
+
+
+def test_sequence_collectives_on_card_over_gloo(dev):
+    """The model group's reduce-scatter and all-gather along a dimension,
+    and the sequence-parallel autograd pair at a length that does not
+    divide, on two ranks on this card over gloo: the values
+    tests/test_torch_parallel.py holds on the CPU. Whether gloo itself
+    runs ``reduce_scatter_tensor``/``all_gather_into_tensor`` on CUDA
+    tensors is printed (the wrappers do not rely on it)."""
+    import torch_parallel_workers as W
+    ranks = _spawn_on_card(W.card_collectives, 2, 2)
+    print("gloo on CUDA tensors:", ranks[0]["native"])
+    n, S, c = 2, 5, 3
+    xs = [np.arange(2 * 4 * 3, dtype=np.float32).reshape(2, 4, 3) + 100 * r
+          for r in range(n)]
+    ys = [np.pad(np.arange(2 * S * 3, dtype=np.float32).reshape(2, S, 3)
+                 + 10 * r, ((0, 0), (0, c * n - S), (0, 0)))
+          for r in range(n)]
+    blocks = [sum(ys)[:, q * c:(q + 1) * c] for q in range(n)]
+    grad = np.broadcast_to((n * (np.arange(S) // c + 1) * np.arange(S)
+                            ).astype(np.float32)[None, :, None], (2, S, 3))
+    for r, got in enumerate(ranks):
+        np.testing.assert_array_equal(got["rs"],
+                                      sum(xs)[:, 2 * r:2 * r + 2])
+        np.testing.assert_array_equal(got["ag"], np.concatenate(xs, 2))
+        np.testing.assert_array_equal(got["block"], blocks[r])
+        np.testing.assert_array_equal(got["grad"], grad)
+
+
+@pytest.mark.parametrize("policy", ["full", "dots"])
+def test_remat_on_card_equals_no_remat_with_dropout(dev, policy):
+    """The base tower with dropout 0.1 in the training policy (bf16
+    products) on ``cuda:0``: with ``--remat`` (and ``remat_skip`` 2 for
+    ``dots``) the loss and every gradient equal no remat bit for bit (the
+    recompute draws the forward's masks from the CUDA generator again)."""
+    from multimodalsimilar_tpu_torch.models.bert import (
+        BertConfig, set_dropout_generator)
+    from multimodalsimilar_tpu_torch.models.classifiers import (
+        NlpTextClassifier)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    kw = dict(remat=True, remat_policy=policy,
+              remat_skip=2 if policy == "dots" else 0)
+    rng = np.random.default_rng(0)
+    ids = torch.from_numpy(rng.integers(5, 21_000, (32, 48))).to(dev)
+    labels = torch.from_numpy(rng.integers(0, 64, 32)).to(dev)
+    out = []
+    for cfg in (BertConfig.roberta_wwm_ext(), BertConfig.roberta_wwm_ext(
+            **kw)):
+        torch.manual_seed(0)
+        model = NlpTextClassifier(cfg, num_labels=64,
+                                  generator=torch.Generator().manual_seed(
+                                      1)).to(dev).train()
+        gen = torch.Generator(device=dev).manual_seed(3)
+        set_dropout_generator(model, gen)
+        loss = torch.nn.functional.cross_entropy(
+            model(ids, label=labels, m=0.4), labels)
+        loss.backward()
+        out.append((float(loss.detach()), {
+            k: p.grad.clone() for k, p in model.named_parameters()}))
+        del model
+    (a, ga), (b, gb) = out
+    assert a == b
+    for k, g in ga.items():
+        assert torch.equal(g, gb[k]), k

@@ -4,10 +4,22 @@ over the same mesh shape on tests/conftest.py's 8 virtual CPU devices.
 The port's ranks are processes (``parallel/spawn.py``, one torch thread
 each, a port the OS picks, a time limit per spawn); what they run is in
 ``tests/torch_parallel_workers.py``, which imports no JAX. Two spawns
-serve every case: a world of 2 (data 2) and one of 4 (data 2 x model 2),
-started in the background while the JAX references compute. Weights go
-JAX -> port through the ``*_from_jax`` converters; models are tiny, in
-full precision, dropout off.
+serve every case: a world of 2 (data 2, or data 1 x model 2) and one of
+4 (data 2 x model 2, or data 1 x model 4), started in the background
+while the JAX references compute. Weights go JAX -> port through the
+``*_from_jax`` converters; models are tiny, in full precision, dropout
+off against JAX.
+
+The cases: data parallelism in f32 and bf16; class-sharded heads, padded
+and heterogeneous; AdamP over class-sharded heads and the fused loss over
+them at both mesh shapes (ROADMAP C3); tensor parallelism, tensor and
+sequence parallelism, with remat, at an odd sequence length (9 over 4
+ranks: padded inside the region) and from a fused-QKV tree, against the
+JAX Trainer with ``tensor_parallel``/``sequence_parallel`` on the same
+mesh. With dropout on, the port's 4 tensor- and sequence-parallel ranks
+are held against the port on one process instead (the packages draw
+their masks from different generators): the same masks, so the same
+losses.
 
 Tolerances: Adam turns float noise in a near-zero gradient into an
 lr-sized step, so fits are compared through their per-step losses (f32:
@@ -47,6 +59,8 @@ from multimodalsimilar_tpu.retrieval.knn import pad_corpus as j_pad
 from multimodalsimilar_tpu.retrieval.knn import (
     sharded_knn_search as j_sharded)
 from multimodalsimilar_tpu.train import tasks as JT
+from multimodalsimilar_tpu.train.optim import adamp as j_adamp
+from multimodalsimilar_tpu.train.optim import dual_group as j_dual_group
 from multimodalsimilar_tpu.train.optim import dual_group_adamw as j_adamw
 from multimodalsimilar_tpu.train.trainer import Trainer as JTrainer
 from multimodalsimilar_tpu.train.trainer import TrainState as JTrainState
@@ -87,12 +101,12 @@ LRS = (1e-3, 1e-2)
 TIMEOUT = 120
 
 
-def _text_batches(n, labels, seed, keys=("labels",)):
+def _text_batches(n, labels, seed, keys=("labels",), s=S):
     rng = np.random.default_rng(seed)
     out = []
     for _ in range(n):
-        ids = rng.integers(5, VOCAB, (B, S)).astype(np.int32)
-        mask = (np.arange(S)[None] < rng.integers(3, S + 1, (B, 1))
+        ids = rng.integers(5, VOCAB, (B, s)).astype(np.int32)
+        mask = (np.arange(s)[None] < rng.integers(3, s + 1, (B, 1))
                 ).astype(np.int32)
         b = {"input_ids": ids * mask, "attention_mask": mask,
              "token_type_ids": np.zeros_like(ids)}
@@ -144,15 +158,39 @@ def _head(c, rng):
     return {"weight": rng.uniform(-bound, bound, (c, d)).astype(np.float32)}
 
 
-def _case_text(num_labels, num_valid, seed):
-    jmodel = JClassifier(JBertConfig.tiny(**BERT), num_labels=num_labels,
-                         policy=JFULL)
-    batches = _text_batches(3, [num_valid or num_labels], seed)
-    params = {"tower": _tower(),
+def _fuse_qkv(tower):
+    """The tower's q/k/v kernels [H, nh, hd] stacked to the fused-QKV
+    layout [H, 3, nh, hd] (biases [3, nh, hd]), as JAX ``fused_qkv``
+    builds it."""
+    enc = dict(tower["encoder"])
+    for key, layer in enc.items():
+        if not key.startswith("layer_"):
+            continue
+        att = layer["attention"]
+        qkv = [att[n] for n in ("query", "key", "value")]
+        enc[key] = dict(layer, attention={
+            "qkv": {"kernel": np.stack([p["kernel"] for p in qkv], 1),
+                    "bias": np.stack([p["bias"] for p in qkv], 0)},
+            "out": att["out"]})
+    return dict(tower, encoder=enc)
+
+
+def _case_text(num_labels, num_valid, seed, fused_loss=False,
+               fused_qkv=False, s=S, **bert):
+    """``bert``: BertConfig fields of both packages (remat,
+    sequence_parallel, dropout)."""
+    bert = dict(BERT, **bert)
+    jmodel = JClassifier(JBertConfig.tiny(**bert, fused_qkv=fused_qkv),
+                         num_labels=num_labels, policy=JFULL)
+    batches = _text_batches(3, [num_valid or num_labels], seed, s=s)
+    tower = _fuse_qkv(_tower()) if fused_qkv else _tower()
+    params = {"tower": tower,
               "head": _head(num_labels, np.random.default_rng(seed))}
-    sd = text_classifier_from_jax(params, BertConfig.tiny(**BERT))
-    spec = {"bert": BERT, "num_labels": num_labels, "num_valid": num_valid}
-    return (JT.text_arcface_task(jmodel, num_valid=num_valid),
+    sd = text_classifier_from_jax(params, BertConfig.tiny(**bert))
+    spec = {"bert": bert, "num_labels": num_labels, "num_valid": num_valid,
+            "fused_loss": fused_loss}
+    return (JT.text_arcface_task(jmodel, num_valid=num_valid,
+                                 fused_loss=fused_loss),
             {"params": params}, spec, sd, batches)
 
 
@@ -171,26 +209,30 @@ def _case_multilabel(labels, seed):
 _CV = {}
 
 
-def _case_cv(seed):
-    """The tiny EfficientNet classifier (one JAX init, shared by the cv
-    cases) and one batch: after one step the running statistics depend
-    only on the init."""
+def _case_cv(seed, num_labels=7):
+    """The tiny EfficientNet classifier (one JAX init per class count,
+    shared by the cv cases) and one batch: after one step the running
+    statistics depend only on the init."""
     jcfg, cfg = _cv_cfgs()
-    jmodel = _NoDropCv(jcfg, num_labels=7, fc_dim=12, policy=JFULL)
+    jmodel = _NoDropCv(jcfg, num_labels=num_labels, fc_dim=12,
+                       policy=JFULL)
     rng = np.random.default_rng(seed)
     batches = [{"images": _images(B, seed),
-                "labels": rng.integers(0, 7, B).astype(np.int32)}]
-    if not _CV:
-        _CV["v"] = jax.device_get(jax.jit(lambda x: jmodel.init(
+                "labels": rng.integers(0, num_labels, B).astype(np.int32)}]
+    if num_labels not in _CV:
+        _CV[num_labels] = jax.device_get(jax.jit(lambda x: jmodel.init(
             {"params": jax.random.key(0)}, x,
             label=jnp.zeros(B, jnp.int32)))(
             jnp.zeros((B, 16, 16, 3), jnp.float32)))
-    v = _CV["v"]
+    v = _CV[num_labels]
     sd = cv_classifier_from_jax(v, cfg)
     return (JT.cv_arcface_task(jmodel), v,
-            {"num_labels": 7, "fc_dim": 12}, sd, batches)
+            {"num_labels": num_labels, "fc_dim": 12}, sd, batches)
 
 
+MP = {"model_parallel_heads": True}
+TP = dict(MP, tensor_parallel=True)
+SP = dict(TP, sequence_parallel=True)
 CASES = {
     # world 2: data 2
     "dp_f32": (lambda: _case_text(11, None, 1), (2, 1), {"eval_every": 3}),
@@ -205,17 +247,51 @@ CASES = {
     # heterogeneous heads (lv1's 5 classes stay whole) and --grad_accum
     "mp_multilabel": (lambda: _case_multilabel((5, 8, 12), 6), (2, 2),
                       {"model_parallel_heads": True, "grad_accum": 2}),
+    # C3: AdamP (a train cv-style head) and the fused loss over class
+    # blocks, at data 1 x model 2 (world 2) and data 2 x model 2
+    "c3_cv_adamp_1x2": (lambda: _case_cv(7, 8), (1, 2), MP, "adamp"),
+    "c3_cv_adamp_2x2": (lambda: _case_cv(8, 8), (2, 2), MP, "adamp"),
+    "c3_fused_1x2": (lambda: _case_text(12, None, 9, fused_loss=True),
+                     (1, 2), MP),
+    "c3_fused_2x2": (lambda: _case_text(12, None, 10, fused_loss=True),
+                     (2, 2), MP),
+    # tensor and sequence parallelism, composed with the class blocks
+    "tp_2x2": (lambda: _case_text(12, None, 11), (2, 2), TP),
+    "tp_sp_2x2": (lambda: _case_text(12, None, 12,
+                                     sequence_parallel=True), (2, 2), SP),
+    # 9 tokens over 4 ranks: padded to 12 inside the region
+    "tp_sp_remat_1x4": (lambda: _case_text(
+        12, None, 13, s=9, sequence_parallel=True, remat=True), (1, 4),
+        SP),
+    "tp_sp_fused_qkv_2x2": (lambda: _case_text(
+        12, None, 14, fused_qkv=True, sequence_parallel=True,
+        remat=True, remat_policy="dots"), (2, 2), SP),
+    # AdamP over the cut tower weights (the JAX CLI builds AdamP for every
+    # recipe and lets it meet --tensor_parallel)
+    "tp_adamp_1x4": (lambda: _case_text(12, None, 16), (1, 4), TP,
+                     "adamp"),
 }
+TP_CASES = [n for n in CASES if n.startswith("tp_")]
+# JAX's jitted gradient of the tiny EfficientNet's depthwise convs on a
+# data 2 x model 2 mesh is twice its gradient on one device (with or
+# without class-sharded heads; 1 x 2 and 2 x 1 agree with one device):
+# that case's first gradients are held against JAX on one device, its
+# losses against the JAX Trainer on the 2 x 2 mesh as every case's
+GRADS_ON_ONE_DEVICE = ("c3_cv_adamp_2x2",)
 
 
 def _jax_run(name, ref, tmp):
     """JAX: the first batch's gradients and the per-step losses of
     ``Trainer.fit`` on the case's mesh, from the case's init."""
-    _, shape, cfg = CASES[name]
+    _, shape, cfg, *opt = CASES[name]
     jtask, variables, spec, sd, batches = ref
     mesh = j_mesh(jax.devices()[:shape[0] * shape[1]], *shape)
     accum = cfg.get("grad_accum", 1)
-    tx = j_adamw(lambda s: LRS[0], lambda s: LRS[1])
+    if opt == ["adamp"]:
+        tx = j_dual_group(j_adamp(lambda s: LRS[0]),
+                          j_adamp(lambda s: LRS[1]))
+    else:
+        tx = j_adamw(lambda s: LRS[0], lambda s: LRS[1])
     if accum > 1:
         tx = optax.MultiSteps(tx, every_k_schedule=accum)
     path = os.path.join(tmp, f"{name}.jax.jsonl")
@@ -236,6 +312,8 @@ def _jax_run(name, ref, tmp):
         grads = jax.tree_util.tree_map(
             lambda a, b: (a + b) / 2,
             *[jax.device_get(grad(state.params, h)) for h in halves])
+    elif name in GRADS_ON_ONE_DEVICE:
+        grads = jax.device_get(grad(variables["params"], batches[0]))
     else:
         grads = jax.device_get(grad(state.params, j_shard(mesh,
                                                           batches[0])))
@@ -306,20 +384,31 @@ def runs(tmp_path_factory):
     Returns {"port": {key: [rank 0's result, ...]}, "jax": {case: ...}}
     with the fit cases keyed by name, the others by (function, world)."""
     tmp = str(tmp_path_factory.mktemp("parallel"))
-    refs = {name: make() for name, (make, _, _) in CASES.items()}
-    jobs = {2: [(("mesh_layout", 2), "mesh_layout", ((2, 1),))],
-            4: [(("mesh_layout", 4), "mesh_layout", ((2, 2),))]}
-    for name, (_, shape, cfg) in CASES.items():
+    refs = {name: case[0]() for name, case in CASES.items()}
+    jobs = {2: [(("mesh_layout", 2), "mesh_layout", ((2, 1),)),
+                (("collectives", 2), "collectives", ((1, 2), 2))],
+            4: [(("mesh_layout", 4), "mesh_layout", ((2, 2),)),
+                (("collectives", 4), "collectives", ((1, 4), 4))]}
+    for name, (_, shape, cfg, *opt) in CASES.items():
         _, _, spec, sd, batches = refs[name]
         out = os.path.join(tmp, name)
         os.makedirs(out)
-        if name == "mp_padded":
+        if name in ("mp_padded", "tp_2x2"):
             cfg = dict(cfg, checkpoint_dir=os.path.join(out, "ckpt"))
         jobs[shape[0] * shape[1]].append((name, "fit", (
             _kind(name), spec, {k: v.numpy() for k, v in sd.items()},
-            batches, shape, cfg, LRS, out, _evals(cfg, batches))))
+            batches, shape, cfg, LRS, out, _evals(cfg, batches),
+            *opt)))
+    dropout = _dropout_case(tmp, "tp_dropout_1x4")
+    jobs[4].append(("tp_dropout_1x4", "fit", dropout))
+    mixed = _mixed_case(tmp, "tp_sp_mixed_1x2")
+    jobs[2].append(("tp_sp_mixed_1x2", "fit", mixed))
     jobs[4].append((("train_cli", 4), "train_cli", (
         _train_argv(tmp),)))
+    jobs[4].append((("train_cli_tp", 4), "train_cli", (
+        _train_argv(tmp, "cli_tp") + [
+            "--model_parallel", "4", "--tensor_parallel",
+            "--sequence_parallel", "--remat"],)))
     bert, weights = _similar_weights()
     jobs[2] += [(("search", 2), "search", (_search_cases(), 2)),
                 (("similar", 2), "similar", (_similar_table(), weights,
@@ -333,10 +422,47 @@ def runs(tmp_path_factory):
     results = {key: [ranks[i] for ranks in port[world]]
                for world, js in jobs.items()
                for i, (key, _, _) in enumerate(js)}
+    # the port-only cases' reference: the port on one process
+    for case, name in ((dropout, "tp_dropout_one"),
+                       (mixed, "tp_sp_mixed_one")):
+        one = case[:4] + ((1, 1), {}) + case[6:7] + (
+            os.path.join(tmp, name),)
+        os.makedirs(one[-1])
+        results[name] = [W.fit(*one)]
     return {"port": results, "jax": jax_out, "tmp": tmp}
 
 
-def _train_argv(tmp):
+def _mixed_case(tmp, name):
+    """Worker ``fit`` args of TP + SP at data 1 x model 2 over a tower
+    whose 3 heads and 97-row vocabulary do not divide by 2 (attention
+    and word table whole, the MLP cut), 9 tokens: the whole blocks'
+    entries and exits into the sequence region."""
+    bert = dict(BERT, vocab_size=97, hidden_size=48, num_heads=3,
+                sequence_parallel=True)
+    model = NlpTextClassifier(BertConfig.tiny(**bert), num_labels=12,
+                              generator=torch.Generator().manual_seed(5))
+    out = os.path.join(tmp, name)
+    os.makedirs(out)
+    return ("text", {"bert": bert, "num_labels": 12},
+            {k: v.numpy() for k, v in model.state_dict().items()},
+            _text_batches(3, [12], 17, s=9), (1, 2), SP, LRS, out)
+
+
+def _dropout_case(tmp, name):
+    """Worker ``fit`` args of TP + SP + remat at data 1 x model 4 with
+    dropout 0.1: the port's ranks against the port on one process."""
+    bert = dict(BERT, num_layers=2, hidden_dropout=0.1,
+                attention_dropout=0.1, sequence_parallel=True, remat=True)
+    model = NlpTextClassifier(BertConfig.tiny(**bert), num_labels=12,
+                              generator=torch.Generator().manual_seed(4))
+    out = os.path.join(tmp, name)
+    os.makedirs(out)
+    return ("text", {"bert": bert, "num_labels": 12},
+            {k: v.numpy() for k, v in model.state_dict().items()},
+            _text_batches(3, [12], 15, s=9), (1, 4), SP, LRS, out)
+
+
+def _train_argv(tmp, out="cli"):
     """``train nlp --model_parallel 2`` over 37 classes of titles."""
     rng = np.random.default_rng(13)
     path = os.path.join(tmp, "train.csv")
@@ -346,13 +472,13 @@ def _train_argv(tmp):
             f.write(f"{'甲乙丙丁戊'[i % 5] * 2}{rng.integers(0, 999)},"
                     f"{i % 37}\n")
     return ["train", "nlp", "--data", path, "--output",
-            os.path.join(tmp, "cli"), "--batch_size", "16", "--epochs", "1",
+            os.path.join(tmp, out), "--batch_size", "16", "--epochs", "1",
             "--max_length", "12", "--eval_every", "1000", "--save_every",
             "1000", "--log_every", "2", "--model_parallel", "2"]
 
 
 def _kind(name):
-    return ("cv" if name.startswith("cv") else
+    return ("cv" if name.startswith("cv") or "_cv_" in name else
             "multilabel" if "multilabel" in name else "text")
 
 
@@ -497,8 +623,9 @@ def test_eval_matches_jax(runs, name):
 @pytest.mark.parametrize("name", list(CASES))
 def test_first_gradients_match_jax(runs, name):
     """The first batch's gradients, meaned over the data group (bf16 under
-    ``--bf16_grads``) and, for class-sharded heads, gathered over the
-    model group, against JAX's gradients of the global batch."""
+    ``--bf16_grads``) and, for class-sharded heads and tensor-parallel
+    blocks, gathered over the model group, against JAX's gradients of the
+    global batch (on one device for ``GRADS_ON_ONE_DEVICE``)."""
     ref = runs["jax"][name]
     got = runs["port"][name][0]["grads"]
     tol = 2e-2 if "bf16" in name else 1e-4
@@ -535,6 +662,23 @@ def test_train_nlp_command_pads_and_shards_the_head(runs):
         assert got["shards"] == ["head.weight"]
         assert got["block"] == (19, BERT_HIDDEN)
         assert got["saved"] == (38, BERT_HIDDEN)
+
+
+def test_train_nlp_command_runs_tensor_and_sequence_parallel(runs):
+    """``train nlp --model_parallel 4 --tensor_parallel
+    --sequence_parallel --remat`` through the command line on 4 ranks
+    (data 1 x model 4): 37 classes padded to 40, 10 rows a rank; the
+    tower's heads, MLP and word table (the corpus's char vocabulary, 4
+    divides it or it stays whole) cut; the checkpoint in the one-card
+    layout."""
+    for got in runs["port"][("train_cli_tp", 4)]:
+        assert got["block"] == (10, BERT_HIDDEN)
+        assert got["saved"] == (40, BERT_HIDDEN)
+        layer = "tower.encoder.encoder.layer.0."
+        assert {f"{layer}attention.self.query.weight",
+                f"{layer}intermediate.dense.weight",
+                f"{layer}output.dense.weight"} <= set(got["shards"])
+        assert got["remat"] and got["sequence_partial"]
 
 
 def test_batch_norm_statistics_match_jax(runs):
@@ -582,38 +726,250 @@ def test_model_parallel_checkpoint_restores_on_one_rank(runs):
     assert np.isfinite(float(metrics["loss"]))
 
 
-def test_refusals_match_jax():
-    """``--bf16_grads`` with class-sharded heads (JAX's ValueError, word
-    for word); a model axis that divides no head; the fused loss and
-    AdamP with class-sharded heads (not ported)."""
+def _j_trainer_error(cfg, shape=(1, 2), bert=None):
+    """The JAX Trainer's ValueError for ``cfg`` on a mesh of ``shape``."""
+    jmodel = JClassifier(JBertConfig.tiny(**(bert or BERT)), num_labels=4)
+    with pytest.raises(ValueError) as want:
+        JTrainer(JT.text_arcface_task(jmodel), optax.adamw(1e-3),
+                 j_mesh(jax.devices()[:shape[0] * shape[1]], *shape),
+                 JTrainerConfig(**cfg))
+    return str(want.value)
+
+
+def test_refusals_match_jax(capsys):
+    """The JAX Trainer's refusals, word for word: ``--bf16_grads`` with
+    class-sharded heads or with tensor parallelism, pipeline parallelism
+    with tensor or sequence parallelism, tensor parallelism at model 1,
+    sequence parallelism without tensor parallelism or at model 1, a
+    model axis that divides no head, a model no tensor-parallel rule
+    cuts, and a sequence-parallel Trainer over a model not built for it.
+    Pipeline parallelism alone is not ported (ROADMAP A17 part 2 item 5).
+    The fused loss and AdamP over class blocks (C3) and tensor
+    parallelism with an indivisible block (a notice) now build."""
     model = NlpTextClassifier(BertConfig.tiny(**BERT), num_labels=37)
     opt = lambda m: dual_group_adamw(m, lambda s: 1e-3,  # noqa: E731
                                      lambda s: 1e-3)
-    with pytest.raises(ValueError) as got:
+    for cfg, shape in (
+            (dict(bf16_grad_allreduce=True, model_parallel_heads=True),
+             (1, 2)),
+            (dict(bf16_grad_allreduce=True, tensor_parallel=True), (1, 2)),
+            (dict(pipeline_parallel=True, tensor_parallel=True), (1, 2)),
+            (dict(pipeline_parallel=True, sequence_parallel=True), (1, 2)),
+            (dict(tensor_parallel=True), (2, 1)),
+            (dict(sequence_parallel=True), (1, 2)),
+            (dict(sequence_parallel=True, tensor_parallel=True), (2, 1))):
+        with pytest.raises(ValueError) as got:
+            Trainer(text_arcface_task(model), opt, TrainerConfig(**cfg),
+                    device="cpu", mesh=Mesh(*shape))
+        assert str(got.value) == _j_trainer_error(cfg, shape), cfg
+    with pytest.raises(NotImplementedError, match="A17 part 2 item 5"):
         Trainer(text_arcface_task(model), opt,
-                TrainerConfig(bf16_grad_allreduce=True,
-                              model_parallel_heads=True), device="cpu")
-    jmodel = JClassifier(JBertConfig.tiny(**BERT), num_labels=37)
-    with pytest.raises(ValueError) as want:
-        JTrainer(JT.text_arcface_task(jmodel), optax.adamw(1e-3),
-                 j_mesh(jax.devices()[:2], 1, 2),
-                 JTrainerConfig(bf16_grad_allreduce=True,
-                                model_parallel_heads=True))
-    assert str(got.value) == str(want.value)
+                TrainerConfig(pipeline_parallel=True), device="cpu",
+                mesh=Mesh(1, 2))
     mesh = Mesh(1, 2)          # placement only: no collective runs
     with pytest.raises(ValueError, match="cannot shard any head"):
         Trainer(text_arcface_task(model), opt,
                 TrainerConfig(model_parallel_heads=True), device="cpu",
                 mesh=mesh)
+    # a model with no BERT tower: JAX's _diagnose_tp message
+    cv, cv_task = W.build("cv", {"num_labels": 8, "fc_dim": 12})
+    with pytest.raises(ValueError) as got:
+        Trainer(cv_task, opt, TrainerConfig(tensor_parallel=True),
+                device="cpu", mesh=mesh)
+    jtrainer = JTrainer(JT.cv_arcface_task(_NoDropCv(
+        _cv_cfgs()[0], num_labels=8, fc_dim=12)), optax.adamw(1e-3),
+        j_mesh(jax.devices()[:2], 1, 2), JTrainerConfig())
+    with pytest.raises(ValueError) as want:
+        jtrainer._diagnose_tp(_case_cv(3, 8)[1], 2)
+    assert str(got.value) == str(want.value)
+    # sequence parallelism over a model built without it: JAX raises at
+    # its first step, the port when it cuts the model
+    with pytest.raises(ValueError) as got:
+        Trainer(text_arcface_task(NlpTextClassifier(
+            BertConfig.tiny(**BERT), num_labels=4)), opt,
+            TrainerConfig(tensor_parallel=True, sequence_parallel=True),
+            device="cpu", mesh=mesh)
+    ref = _case_text(4, None, 3)
+    jtrainer = JTrainer(ref[0], optax.adamw(1e-3),
+                        j_mesh(jax.devices()[:2], 1, 2),
+                        JTrainerConfig(tensor_parallel=True,
+                                       sequence_parallel=True))
+    with pytest.raises(ValueError) as want:
+        jtrainer.fit(W.Batches(ref[4][:1]), 1, B)
+    assert str(got.value) == str(want.value)
+    # these build: the fused loss and AdamP over class blocks, and a tower
+    # whose heads (3) do not divide by 2 (attention stays whole, notice)
     for task, make in ((text_arcface_task(NlpTextClassifier(
             BertConfig.tiny(**BERT), num_labels=4), fused_loss=True), opt),
             (text_arcface_task(NlpTextClassifier(
                 BertConfig.tiny(**BERT), num_labels=4)),
              lambda m: dual_group(m, AdamP, lambda s: 1e-3,
                                   lambda s: 1e-3))):
-        with pytest.raises(NotImplementedError, match="model_parallel"):
-            Trainer(task, make, TrainerConfig(model_parallel_heads=True),
-                    device="cpu", mesh=Mesh(1, 2))
+        trainer = Trainer(task, make, TrainerConfig(
+            model_parallel_heads=True), device="cpu", mesh=Mesh(1, 2))
+        assert list(trainer.shards) == ["head.weight"]
+    capsys.readouterr()
+    trainer = Trainer(text_arcface_task(NlpTextClassifier(
+        BertConfig.tiny(**dict(BERT, num_heads=1, hidden_size=48)),
+        num_labels=4)), opt, TrainerConfig(tensor_parallel=True),
+        device="cpu", mesh=mesh)
+    assert "replicating indivisible tower leaves " \
+        "tower.encoder.attention" in capsys.readouterr().out
+    assert not any("attention" in k for k in trainer.shards)
+
+
+# -- tensor and sequence parallelism -----------------------------------------
+
+@pytest.mark.parametrize("name", TP_CASES)
+def test_tensor_parallel_blocks(runs, name):
+    """Each rank holds its blocks of Megatron's layout (the JAX package's
+    ``tp_partition_spec``) and of the head, with the dimension and whole
+    size the checkpoints gather along; the row-parallel biases, the
+    LayerNorms and the position table stay whole. Under sequence
+    parallelism the LayerNorms and the row-parallel biases are the
+    parameters whose gradients the Trainer sums over the model group."""
+    _, (_, n), cfg, *_ = CASES[name]
+    H, inter, t = BERT_HIDDEN, 128, "tower.encoder."
+    layer = t + "encoder.layer.0."
+    want = {t + "embeddings.word_embeddings.weight": ((VOCAB // n, H), 0,
+                                                      VOCAB),
+            layer + "attention.output.dense.weight": ((H, H // n), 1, H),
+            layer + "intermediate.dense.weight": ((inter // n, H), 0,
+                                                  inter),
+            layer + "intermediate.dense.bias": ((inter // n,), 0, inter),
+            layer + "output.dense.weight": ((H, inter // n), 1, inter),
+            "head.weight": ((12 // n, H), 0, 12)}
+    for proj in ("query", "key", "value"):
+        want[f"{layer}attention.self.{proj}.weight"] = ((H // n, H), 0, H)
+        want[f"{layer}attention.self.{proj}.bias"] = ((H // n,), 0, H)
+    partial = set()
+    if cfg.get("sequence_parallel"):
+        partial = {f"{t}embeddings.LayerNorm.{w}" for w in ("weight",
+                                                            "bias")}
+        partial |= {f"{layer}{ln}.{w}" for ln in (
+            "attention.output.LayerNorm", "output.LayerNorm")
+            for w in ("weight", "bias")}
+        partial |= {f"{layer}attention.output.dense.bias",
+                    f"{layer}output.dense.bias"}
+    for got in runs["port"][name]:
+        assert got["cut"] == want
+        assert set(got["sequence_partial"]) == partial
+
+
+def test_tensor_parallel_checkpoint_reloads_and_exports(runs, monkeypatch,
+                                                       tmp_path, capsys):
+    """A checkpoint written at data 2 x model 2 with tensor parallelism is
+    in the one-card layout: one process restores it into the whole model
+    (the optimizer moments of the cut weights gathered too), evaluates,
+    and ``export-checkpoint`` writes the reference layout of the gathered
+    state."""
+    from multimodalsimilar_tpu_torch.cli import ckpt as CK
+    from multimodalsimilar_tpu_torch.models import reference_export as pre
+    ref = runs["jax"]["tp_2x2"]
+    path = os.path.join(runs["tmp"], "tp_2x2", "ckpt")
+    state = CheckpointManager(path).restore()
+    final = runs["port"]["tp_2x2"][0]["state"]
+    for k, v in final.items():
+        np.testing.assert_array_equal(state["model"][k].numpy(), v,
+                                      err_msg=k)
+    model, task = W.build("text", ref["spec"])
+    trainer = Trainer(task, lambda m: dual_group_adamw(m, lambda s: LRS[0],
+                                                       lambda s: LRS[1]),
+                      TrainerConfig(), device="cpu")
+    trainer.load_state(state)
+    layer = model.tower.encoder.encoder.layer[0]
+    for p in (layer.attention.self.query.weight,
+              layer.output.dense.weight,
+              model.tower.encoder.embeddings.word_embeddings.weight):
+        assert trainer.optimizer.state[p]["exp_avg"].shape == p.shape
+    metrics = trainer.eval_step({k: torch.from_numpy(v) for k, v in
+                                 ref["batches"][0].items()})
+    assert np.isfinite(float(metrics["loss"]))
+    monkeypatch.setattr(CK, "_bert_config",
+                        lambda preset, **kw: BertConfig.tiny(**BERT))
+    out = str(tmp_path / "ref.pt")
+    cli.main(["export-checkpoint", "--kind", "nlp", "--bert_preset", "tiny",
+              "--checkpoint", path, "--out", out], device="cpu")
+    capsys.readouterr()
+    got = torch.load(out, weights_only=True)
+    want = pre.nlp_classifier_to_reference(
+        {k: torch.from_numpy(v) for k, v in final.items()},
+        BertConfig.tiny(**BERT))
+    assert set(got) == set(want)
+    for k, v in want.items():
+        assert torch.equal(got[k], v), k
+
+
+def test_tensor_sequence_parallel_dropout_matches_one_process(runs):
+    """With dropout on (0.1), TP + SP + remat over 4 ranks (data 1 x model
+    4, 9 tokens: padded in the region) against the port on one process
+    from the same weights: every rank draws the whole tensor's masks and
+    keeps its block, so the masks are one process's and the per-step
+    losses and first gradients agree as the f32 cases do."""
+    got = _losses(os.path.join(runs["tmp"], "tp_dropout_1x4",
+                               "metrics.jsonl"))
+    want = _losses(os.path.join(runs["tmp"], "tp_dropout_one",
+                                "metrics.jsonl"))
+    assert [s for s, _ in got] == [s for s, _ in want] == [1, 2, 3]
+    np.testing.assert_allclose([v for _, v in got], [v for _, v in want],
+                               rtol=1e-5)
+    _assert_grads(runs["port"]["tp_dropout_1x4"][0]["grads"],
+                  runs["port"]["tp_dropout_one"][0]["grads"], 1e-4)
+
+
+def test_sequence_parallel_with_whole_blocks_matches_one_process(runs):
+    """TP + SP over 2 ranks where only the MLP divides (3 heads, a
+    97-row vocabulary: whole on every rank, with the notice): the
+    attention's and the word table's whole outputs enter the sequence
+    region split, their inputs gathered, and the per-step losses and
+    first gradients equal the port's on one process as the f32 cases do;
+    only the MLP weights are cut."""
+    got = _losses(os.path.join(runs["tmp"], "tp_sp_mixed_1x2",
+                               "metrics.jsonl"))
+    want = _losses(os.path.join(runs["tmp"], "tp_sp_mixed_one",
+                                "metrics.jsonl"))
+    assert [s for s, _ in got] == [s for s, _ in want] == [1, 2, 3]
+    np.testing.assert_allclose([v for _, v in got], [v for _, v in want],
+                               rtol=1e-5)
+    rank0 = runs["port"]["tp_sp_mixed_1x2"][0]
+    _assert_grads(rank0["grads"], runs["port"]["tp_sp_mixed_one"][0][
+        "grads"], 1e-4)
+    assert sorted(rank0["cut"]) == ["head.weight"] + [
+        f"tower.encoder.encoder.layer.0.{n}" for n in (
+            "intermediate.dense.bias", "intermediate.dense.weight",
+            "output.dense.weight")]
+
+
+@pytest.mark.parametrize("world", [2, 4])
+def test_reduce_scatter_and_gather_along_a_dimension(runs, world):
+    """``Mesh.reduce_scatter`` / ``all_gather_dim`` over the model group
+    (data 1 x model N), and the sequence-parallel pair of autograd
+    functions at a length that does not divide by N: the forward sums
+    and concatenates in coordinate order, and the backward of gather
+    after reduce-scatter gives every rank the sum of all ranks'
+    gradients of the gathered whole."""
+    n = world
+    xs = [np.arange(2 * 2 * n * 3, dtype=np.float32).reshape(2, 2 * n, 3)
+          + 100 * r for r in range(n)]
+    S = 2 * n + 1
+    c = -(-S // n)                           # block rows after padding
+    ys = [np.pad(np.arange(2 * S * 3, dtype=np.float32).reshape(2, S, 3)
+                 + 10 * r, ((0, 0), (0, c * n - S), (0, 0)))
+          for r in range(n)]
+    blocks = [sum(ys)[:, q * c:(q + 1) * c] for q in range(n)]
+    back = np.concatenate([b * (q + 1) for q, b in enumerate(blocks)],
+                          axis=1)[:, :S]
+    grad = np.broadcast_to((n * (np.arange(S) // c + 1) * np.arange(S)
+                            ).astype(np.float32)[None, :, None],
+                           (2, S, 3))
+    for r, got in enumerate(runs["port"][("collectives", world)]):
+        assert got["coords"] == (0, r)
+        np.testing.assert_array_equal(got["rs"],
+                                      sum(xs)[:, 2 * r:2 * r + 2])
+        np.testing.assert_array_equal(got["ag"], np.concatenate(xs, 2))
+        np.testing.assert_array_equal(got["block"], blocks[r])
+        np.testing.assert_array_equal(got["back"], back)
+        np.testing.assert_array_equal(got["grad"], grad)
 
 
 # -- retrieval ---------------------------------------------------------------

@@ -540,34 +540,57 @@ def test_async_failure_reraises_and_a_retry_writes(tmp_path, monkeypatch):
 
 
 def test_unported_options_raise(tmp_path):
-    """Only tensor, sequence and pipeline parallelism (ROADMAP A17 part 2)
-    stay unported: their TrainerConfig fields and command flags raise;
-    accumulation, profiling, AdamP, the cosine schedules, the fused loss,
-    class-sharded heads and the bf16 gradient all-reduce build (the last
-    two run in tests/test_torch_parallel.py). ``--model_parallel 2`` on
-    one process fails as the JAX package's ``create_mesh`` does on one
-    device."""
-    for field in ("tensor_parallel", "sequence_parallel",
-                  "pipeline_parallel"):
-        with pytest.raises(NotImplementedError, match="A17"):
-            TrainerConfig(**{field: True})
-    for field in ("model_parallel_heads", "bf16_grad_allreduce"):
+    """Only pipeline parallelism (ROADMAP A17 part 2 item 5) stays
+    unported: its TrainerConfig field and its command flag raise, and with
+    tensor or sequence parallelism it is the JAX Trainer's refusal.
+    Tensor and sequence parallelism refuse a mesh without a model axis
+    (the JAX messages: tests/test_torch_parallel.py holds them word for
+    word). Accumulation, profiling, AdamP, the cosine schedules, the fused
+    loss, remat, class-sharded heads and the bf16 gradient all-reduce
+    build (the layouts over ranks run in tests/test_torch_parallel.py).
+    ``--model_parallel 2`` on one process fails as the JAX package's
+    ``create_mesh`` does on one device."""
+    model = NlpTextClassifier(BertConfig.tiny(), num_labels=3)
+    opt = lambda m: dual_group_adamw(m, lambda s: 0.0,  # noqa: E731
+                                     lambda s: 0.0)
+    with pytest.raises(NotImplementedError, match="A17 part 2 item 5"):
+        Trainer(text_arcface_task(model), opt,
+                TrainerConfig(pipeline_parallel=True), device="cpu")
+    for cfg, match in ((dict(pipeline_parallel=True, tensor_parallel=True),
+                        "incompatible layouts"),
+                       (dict(tensor_parallel=True), "model axis > 1"),
+                       (dict(sequence_parallel=True),
+                        "requires tensor_parallel"),
+                       (dict(tensor_parallel=True, sequence_parallel=True),
+                        "model axis > 1"),
+                       (dict(bf16_grad_allreduce=True, tensor_parallel=True),
+                        "pure-DP path")):
+        with pytest.raises(ValueError, match=match):
+            Trainer(text_arcface_task(model), opt, TrainerConfig(**cfg),
+                    device="cpu")
+    for field in ("model_parallel_heads", "bf16_grad_allreduce",
+                  "tensor_parallel", "sequence_parallel"):
         assert getattr(TrainerConfig(**{field: True}), field)
     assert TrainerConfig(grad_accum=2, profile_dir="/nowhere").grad_accum == 2
     with pytest.raises(ValueError, match="grad_accum"):
         TrainerConfig(grad_accum=0)
-    model = NlpTextClassifier(BertConfig.tiny(), num_labels=3)
     text_arcface_task(model, fused_loss=True)
     base = dict(tower_lr=1e-3, head_lr=1e-3, head_warmup_frac=0.0,
                 weight_decay=0.0, head_weight_decay=0.0, eval_every=1,
                 save_every=1, log_every=1, margin=0.4,
                 margin_delta_per_epoch=0.0, output="unused", seed=0,
                 epochs=1)
-    for flag, value in (("tensor_parallel", True),
-                        ("sequence_parallel", True),
-                        ("pipeline_parallel", 2)):
-        args = argparse.Namespace(**base, **{flag: value})
-        with pytest.raises(NotImplementedError, match=flag):
+    args = argparse.Namespace(**base, pipeline_parallel=2)
+    with pytest.raises(NotImplementedError, match="pipeline_parallel"):
+        _trainer(text_arcface_task(model), args, 4, device="cpu")
+    args = argparse.Namespace(**base, pipeline_parallel=2,
+                              tensor_parallel=True)
+    with pytest.raises(ValueError, match="incompatible layouts"):
+        _trainer(text_arcface_task(model), args, 4, device="cpu")
+    for flag in ("tensor_parallel", "sequence_parallel"):
+        args = argparse.Namespace(**{**base, "output": str(tmp_path)},
+                                  **{flag: True})
+        with pytest.raises(ValueError, match="tensor_parallel"):
             _trainer(text_arcface_task(model), args, 4, device="cpu")
     args = argparse.Namespace(**base, model_parallel=2)
     with pytest.raises(ValueError, match="not divisible by model=2"):
@@ -576,6 +599,12 @@ def test_unported_options_raise(tmp_path):
                               bf16_grads=True)
     trainer = _trainer(text_arcface_task(model), args, 4, device="cpu")
     assert trainer.config.bf16_grad_allreduce
+    remat = NlpTextClassifier(BertConfig.tiny(remat=True,
+                                              remat_policy="dots"),
+                              num_labels=3)
+    trainer = _trainer(text_arcface_task(remat), argparse.Namespace(
+        **{**base, "output": str(tmp_path / "remat")}), 4, device="cpu")
+    assert trainer.model.tower.encoder.config.remat
 
 
 def test_cli_trainer_builds_the_v2_recipe(tmp_path):

@@ -800,13 +800,17 @@ def test_train_commands_run_two_epochs(tmp_path):
 
 def test_train_commands_refuse_what_jax_refuses(tmp_path):
     """The JAX commands' refusals (SystemExit) of flags that do not apply,
-    and the port's own of the layouts it has not ported (tensor and
-    pipeline parallelism, remat: NotImplementedError, ROADMAP A17 part
-    2), before any work. ``--model_parallel`` and ``--bf16_grads`` run
-    (tests/test_torch_parallel.py)."""
+    ``--remat_policy``/``--remat_skip`` without ``--remat`` (JAX
+    ``_bert_config``'s SystemExit), the JAX Trainer's ValueErrors of
+    layouts that need a model axis or do not compose, and the port's own
+    of pipeline parallelism (NotImplementedError, ROADMAP A17 part 2
+    item 5), before any training. ``--remat`` builds; ``--model_parallel``,
+    ``--tensor_parallel``, ``--sequence_parallel`` and ``--bf16_grads``
+    run over ranks (tests/test_torch_parallel.py)."""
     argv = ["--data", "unused.csv", "--img_root", "unused"]
     for cmd, fn, flag in (("cv", CT.cmd_train_cv, ["--fused_loss"]),
                           ("cv", CT.cmd_train_cv, ["--remat"]),
+                          ("cv", CT.cmd_train_cv, ["--tensor_parallel"]),
                           ("pair", CT.cmd_train_pair, ["--fused_loss"]),
                           ("multimodal", CT.cmd_train_multimodal,
                            ["--fused_loss"])):
@@ -814,15 +818,33 @@ def test_train_commands_refuse_what_jax_refuses(tmp_path):
         with pytest.raises(SystemExit, match=f"train {cmd}"):
             fn(_cmd_args(["train", cmd] + extra + flag, tmp_path),
                device="cpu")
+    table = {"spu_name": ["a"], "labels": [0], "title": ["a"],
+             "tag_id": [0], "lv2_category_id": [0], "lv1_category_id": [0],
+             "tag_new_id": [0]}
     for cmd, fn in (("nlp", CT.cmd_train_nlp),
                     ("multilabel", CT.cmd_train_multilabel),
                     ("pair", CT.cmd_train_pair)):
-        for flag in (["--tensor_parallel"], ["--pipeline_parallel", "2"],
-                     ["--remat"]):
-            with pytest.raises(NotImplementedError, match="A17"):
+        for flag, error, match in (
+                (["--pipeline_parallel", "2"], NotImplementedError,
+                 "A17 part 2 item 5"),
+                (["--pipeline_parallel", "2", "--tensor_parallel"],
+                 ValueError, "incompatible layouts"),
+                (["--tensor_parallel"], ValueError, "model axis > 1"),
+                (["--tensor_parallel", "--sequence_parallel"], ValueError,
+                 "model axis > 1"),
+                (["--sequence_parallel"], ValueError,
+                 "requires tensor_parallel"),
+                (["--remat_policy", "dots"], SystemExit,
+                 "pass --remat too"),
+                (["--remat_skip", "2"], SystemExit, "pass --remat too")):
+            with pytest.raises(error, match=match):
                 fn(_cmd_args(["train", cmd, "--data", str(tmp_path / "x")]
-                             + flag, tmp_path), table={
-                    "spu_name": ["a"], "labels": [0], "title": ["a"],
-                    "tag_id": [0], "lv2_category_id": [0],
-                    "lv1_category_id": [0], "tag_new_id": [0]},
+                             + flag, tmp_path / cmd), table=table,
                    device="cpu")
+        trainer = fn(_cmd_args(["train", cmd, "--data", str(tmp_path / "x"),
+                                "--remat", "--remat_policy", "dots",
+                                "--remat_skip", "2", "--overwrite"],
+                               tmp_path / cmd), table=table, device="cpu")
+        cfg = trainer.model.tower.encoder.config
+        assert (cfg.remat, cfg.remat_policy, cfg.remat_skip) == (
+            True, "dots", 2)

@@ -27,7 +27,10 @@ from multimodalsimilar_tpu_torch.pipelines.similar import nlp_similar_job
 from multimodalsimilar_tpu_torch.pipelines.sinks import InMemoryKVSink
 from multimodalsimilar_tpu_torch.retrieval.knn import (pad_corpus,
                                                        sharded_knn_search)
-from multimodalsimilar_tpu_torch.train.optim import dual_group_adamw
+from multimodalsimilar_tpu_torch.train.checkpoint import gather_shard
+from multimodalsimilar_tpu_torch.train.optim import (AdamP, adamp_views,
+                                                     dual_group,
+                                                     dual_group_adamw)
 from multimodalsimilar_tpu_torch.train.tasks import (cv_arcface_task,
                                                      multilabel_arcface_task,
                                                      text_arcface_task)
@@ -54,13 +57,15 @@ class Batches:
 
 
 def build(kind, spec):
-    """(model, task) of a tiny model in full precision, dropout off."""
+    """(model, task) of a tiny model in full precision (dropout as
+    ``spec["bert"]`` sets it, off in the image model)."""
     if kind == "text":
         model = NlpTextClassifier(BertConfig.tiny(**spec["bert"]),
                                   policy=FULL,
                                   num_labels=spec["num_labels"])
-        return model, text_arcface_task(model,
-                                        num_valid=spec.get("num_valid"))
+        return model, text_arcface_task(
+            model, num_valid=spec.get("num_valid"),
+            fused_loss=spec.get("fused_loss", False))
     if kind == "multilabel":
         model = NlpMultilabelClassifier(BertConfig.tiny(**spec["bert"]),
                                         *spec["labels"], policy=FULL)
@@ -78,20 +83,28 @@ def _numpy(state):
     return {k: v.detach().cpu().numpy() for k, v in state.items()}
 
 
+def _optimizer(name, lrs):
+    if name == "adamw":
+        return lambda m: dual_group_adamw(m, lambda s: lrs[0],
+                                          lambda s: lrs[1])
+    return lambda m: dual_group(m, AdamP, lambda s: lrs[0],
+                                lambda s: lrs[1], views=adamp_views(m))
+
+
 def fit(kind, spec, state_dict, batches, mesh_shape, config, lrs,
-        out_dir, evals=None):
+        out_dir, evals=None, optimizer="adamw"):
     """Gradients of the first batch, then ``Trainer.fit`` over the batches
     for one epoch (and ``evals`` as the eval split), on a ``mesh_shape`` =
-    (data, model) mesh. Rank 0
+    (data, model) mesh, with AdamW or AdamP (``optimizer``). Rank 0
     returns the gradients and the final model state (one-card layout);
-    every rank its coordinates and its own head block."""
+    every rank its coordinates, its own head blocks and the shapes of
+    its cut parameters."""
     mesh = create_mesh(*mesh_shape)
     model, task = build(kind, spec)
     model.load_state_dict({k: torch.from_numpy(v)
                            for k, v in state_dict.items()})
     trainer = Trainer(
-        task, lambda m: dual_group_adamw(m, lambda s: lrs[0],
-                                         lambda s: lrs[1]),
+        task, _optimizer(optimizer, lrs),
         TrainerConfig(log_every=1, metrics_path=os.path.join(
             out_dir, "metrics.jsonl"), **config), device="cpu", mesh=mesh)
     # the gradients of the first batch's loss, reduced as a step reduces
@@ -106,18 +119,20 @@ def fit(kind, spec, state_dict, batches, mesh_shape, config, lrs,
     for name, p in model.named_parameters():
         g = p.grad
         if name in trainer.shards:
-            g = mesh.all_gather(g, MODEL_AXIS).reshape(
-                (trainer.shards[name][1],) + tuple(g.shape[1:]))
+            g = gather_shard(g, trainer.shards[name], mesh)
         grads[name] = g.numpy()
     trainer.optimizer.zero_grad(set_to_none=True)
     model.load_state_dict(saved)
     state = trainer.fit(Batches([_numpy_batch(b) for b in batches]), 1,
                         len(next(iter(batches[0].values()))),
                         Batches(evals) if evals else None)
-    heads = {name: p.detach().numpy() for name, (p, _) in
-             trainer.shards.items()}
+    heads = {name: s.param.detach().numpy() for name, s in
+             trainer.shards.items() if "head" in name}
     out = {"rank": mesh.rank, "coords": (mesh.data_index, mesh.model_index),
            "heads": heads,
+           "cut": {name: (tuple(sh.param.shape), sh.dim, sh.size)
+                   for name, sh in trainer.shards.items()},
+           "sequence_partial": list(trainer.sequence_partial),
            "bn_mesh": sum(getattr(m, "stats_mesh", None) is not None
                           for m in trainer._batch_norms())}
     if mesh.rank == 0:
@@ -192,7 +207,8 @@ def similar(table, state_dict, bert, n_data, k, score_th):
 
 def train_cli(argv):
     """``train nlp`` through the command line on this rank; returns its
-    head block's shape and the checkpoint's whole head."""
+    head block's shape, the checkpoint's whole head, the names of the cut
+    parameters and the layouts it runs."""
     from multimodalsimilar_tpu_torch import cli
     from multimodalsimilar_tpu_torch.train.checkpoint import (
         CheckpointManager)
@@ -200,7 +216,9 @@ def train_cli(argv):
     ckpt = CheckpointManager(trainer.config.checkpoint_dir).restore()
     return {"block": tuple(trainer.model.head.weight.shape),
             "saved": tuple(ckpt["model"]["head.weight"].shape),
-            "shards": sorted(trainer.shards)}
+            "shards": sorted(trainer.shards),
+            "remat": trainer.model.tower.encoder.config.remat,
+            "sequence_partial": len(trainer.sequence_partial)}
 
 
 def run(jobs):
@@ -261,3 +279,54 @@ def card_search(corpus, queries, k, metric):
     torch.cuda.synchronize()
     return {"v": v.cpu().numpy(), "i": i.cpu().numpy(),
             "launches": T.LAUNCHES["topk"] + T.LAUNCHES["topk_select"]}
+
+
+def collectives(shape, n_model):
+    """The model group's reduce-scatter and all-gather along a dimension
+    and the sequence-parallel autograd functions, forward and backward,
+    on [2, 2 * n_model + 1, 3] tensors that differ by rank."""
+    from multimodalsimilar_tpu_torch.parallel import sp
+    mesh = create_mesh(*shape)
+    r = mesh.rank
+    x = torch.arange(2 * (2 * n_model) * 3, dtype=torch.float32).reshape(
+        2, 2 * n_model, 3) + 100 * r
+    out = {"rank": r, "coords": (mesh.data_index, mesh.model_index),
+           "rs": mesh.reduce_scatter(x, 1).cpu().numpy(),
+           "ag": mesh.all_gather_dim(x, 2).cpu().numpy()}
+    S = 2 * n_model + 1                      # not divisible: padded
+    y = (torch.arange(2 * S * 3, dtype=torch.float32).reshape(2, S, 3)
+         + 10 * r).requires_grad_(True)
+    block = sp.to_sequence(y, mesh, partial=True)
+    back = sp.from_sequence(block * (r + 1), mesh, True, S)
+    (back * torch.arange(S, dtype=torch.float32)[None, :, None]).sum(
+        ).backward()
+    out.update(block=block.detach().cpu().numpy(),
+               back=back.detach().cpu().numpy(), grad=y.grad.cpu().numpy())
+    return out
+
+
+def card_collectives(n_model):
+    """``collectives`` on ``cuda:0`` over gloo, and whether gloo runs the
+    tensor-in, tensor-out reduce-scatter and all-gather on CUDA tensors
+    itself (the wrappers compose them from the all-reduce and the list
+    all-gather on gloo either way)."""
+    import torch.distributed as dist
+    torch.cuda.set_device(0)
+    native = {}
+    x = torch.ones(2 * dist.get_world_size(), device="cuda")
+    for name, call in (
+            ("reduce_scatter_tensor", lambda: dist.reduce_scatter_tensor(
+                torch.empty(2, device="cuda"), x)),
+            ("all_gather_into_tensor", lambda: dist.all_gather_into_tensor(
+                torch.empty(2 * x.numel(), device="cuda"), x))):
+        try:
+            call()
+            torch.cuda.synchronize()
+            native[name] = True
+        except (RuntimeError, NotImplementedError, ValueError) as e:
+            native[name] = f"{type(e).__name__}: {str(e)[:160]}"
+    dist.barrier()
+    with torch.device("cuda"):
+        out = collectives((1, n_model), n_model)
+    out["native"] = native
+    return out
