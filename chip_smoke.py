@@ -351,9 +351,25 @@
    steps spent inside the collectives (each bracketed by
    ``torch.cuda.synchronize``), and times the kernel on one class block
    beside its bound, the plain version and SGEMM. With four cards it
-   also runs (b) over NCCL, one card a rank, held the same way. The
-   gloo ranks share one card and stage every collective through the
-   host: their times are not scaling numbers.
+   also runs (b) over NCCL, one card a rank, held the same way. (d) runs
+   ``configs/train_nlp_large_pp.yaml`` on two gloo ranks on ``cuda:0``
+   (data 1 x model 2, ``--pipeline_parallel 2 --remat``: two
+   microbatches of 128 titles, each rank the 12 layers of its stage and
+   their moments, the head padded to 10,206 classes, 5,103 a rank, one
+   masked pad class), the same weights (each rank copies only its
+   stage's tensors to the card): its per-step losses must match (a)'s
+   within 2e-3 relative (masked pad classes leave the loss as it is),
+   each rank must hold 12 x 16 encoder-layer tensors of layers [12 s,
+   12 s + 12) and peak below (a), ArcFace launches equal the steps on
+   both ranks and each holds the kernel against its plain version on
+   its 256 x 5,103 x 1,024 block, and rank 0's checkpoint must be the
+   one-card layout (392 tensors, 10,206 head rows), which the one-rank
+   model loads. It reports (d)'s step p50, examples/s, peak memory, the
+   stage hand-offs' bytes and their share of the step, and times the
+   kernel on one of its class blocks. With two cards it also runs (d)
+   over NCCL, one card a rank. The gloo ranks share one card and stage
+   every collective through the host: their times are not scaling
+   numbers.
 
 Prints the card's name and power limit, one JSON line per phase, the
 ``{"kernels": [...]}`` line, and last ``{"ok": true, "device": ...}``.
@@ -3751,21 +3767,26 @@ P13_REMAT_RTOL = 1e-5                  # remat against none, one rank
 # of each tensor's largest entry; see p13_grad_errors)
 P13_F32_FACTOR, P13_F32_SLACK = 2.0, 2e-3
 P13_TIMEOUT = 900
+P13_PP_CLASSES = -(-AF_C // 2) * 2     # 10,206: the head padded for model 2
+P13_PP_TIMEOUT = 300                   # (d)'s spawn
 
 
-def p13_args(output: str, ranks: int, remat: bool) -> argparse.Namespace:
+def p13_args(output: str, ranks: int, remat: bool,
+             config: str = "train_nlp_large_tp.yaml") -> argparse.Namespace:
     """``train nlp --config configs/train_nlp_large_tp.yaml`` as the
     command line parses it (model 4, ``--tensor_parallel
-    --sequence_parallel --remat``, batch 256, buckets 48/64/96), one epoch
-    logged every step; one rank takes ``--model_parallel 1`` without the
-    two layouts."""
+    --sequence_parallel --remat``, batch 256, buckets 48/64/96), or
+    ``train_nlp_large_pp.yaml`` (model 2, ``--pipeline_parallel 2
+    --remat``), one epoch logged every step; one rank takes
+    ``--model_parallel 1`` without the layouts."""
     args = cli_args(["train", "nlp", "--config",
-                     config_path("train_nlp_large_tp.yaml"), "--data",
+                     config_path(config), "--data",
                      "unused", "--output", output, "--epochs", "1",
                      "--log_every", "1", "--batch_size", str(P13_BATCH)])
     if ranks == 1:
         args.model_parallel = 1
         args.tensor_parallel = args.sequence_parallel = False
+        args.pipeline_parallel = 0
     args.remat = remat
     return args
 
@@ -3802,18 +3823,20 @@ class CollectiveClock:
     collective calling another counts once)."""
 
     NAMES = ("all_reduce", "reduce_scatter", "all_gather_dim",
-             "all_gather")
+             "all_gather", "shift", "broadcast")
 
     def __init__(self):
         from multimodalsimilar_tpu_torch.parallel.mesh import Mesh
         self.mesh_cls, self.saved = Mesh, {}
         self.seconds, self.calls, self.depth = 0.0, 0, 0
+        # the pipeline's stage hand-offs: seconds and bytes handed on
+        self.shift_s, self.shift_bytes = 0.0, 0
 
     def __enter__(self):
         for name in self.NAMES:
             fn = self.saved[name] = getattr(self.mesh_cls, name)
 
-            def timed(*a, fn=fn, **kw):
+            def timed(*a, fn=fn, name=name, **kw):
                 if self.depth:
                     return fn(*a, **kw)
                 torch.cuda.synchronize()
@@ -3824,8 +3847,12 @@ class CollectiveClock:
                 finally:
                     self.depth -= 1
                 torch.cuda.synchronize()
-                self.seconds += time.perf_counter() - t0
+                dt = time.perf_counter() - t0
+                self.seconds += dt
                 self.calls += 1
+                if name == "shift":
+                    self.shift_s += dt
+                    self.shift_bytes += a[1].numel() * a[1].element_size()
                 return out
 
             setattr(self.mesh_cls, name, timed)
@@ -3902,19 +3929,24 @@ def p13_run(name, args, state, table, tok, dev, work) -> dict:
     collectives timed inside the steps; ``name="f32"``: only the
     gradients of that first batch, in full precision."""
     import torch.distributed as dist
-    from multimodalsimilar_tpu_torch.cli.train import _pad_for_model_parallel
+    from multimodalsimilar_tpu_torch.cli.train import (_layout,
+                                                       _pad_for_model_parallel)
     from multimodalsimilar_tpu_torch.train.checkpoint import gather_shard
     rank = dist.get_rank()
     num_labels, num_valid = _pad_for_model_parallel(AF_C, args)
     cfg = BertConfig.roberta_wwm_ext_large(
         hidden_dropout=0.0, attention_dropout=0.0, remat=args.remat,
-        sequence_parallel=args.sequence_parallel)
+        sequence_parallel=args.sequence_parallel,
+        pipeline_parallel=args.pipeline_parallel > 0,
+        pp_microbatches=max(args.pipeline_parallel, 1))
     policy = (DTypePolicy.full_precision() if name == "f32"
               else DTypePolicy())
-    model = _on_meta(lambda: NlpTextClassifier(
-        cfg, policy=policy, num_labels=num_labels,
-        arcface=A.ArcFaceParams(m=args.margin)))
-    sd = {k: v.to(dev, copy=True) for k, v in state.items()}
+    mesh, scope = _layout(args)
+    with scope:                      # a pipeline rank builds its stage
+        model = _on_meta(lambda: NlpTextClassifier(
+            cfg, policy=policy, num_labels=num_labels,
+            arcface=A.ArcFaceParams(m=args.margin)))
+    sd = {k: state[k].to(dev, copy=True) for k in model.state_dict()}
     if num_labels != AF_C:           # pad rows: masked, never a target
         head = sd["head.weight"]
         sd["head.weight"] = torch.cat([head, head[:num_labels - AF_C]])
@@ -3924,8 +3956,8 @@ def p13_run(name, args, state, table, tok, dev, work) -> dict:
         table, tok, args.text_col, args.label_col, args.max_length,
         clean=not args.no_clean, seq_buckets=args.seq_buckets)
     trainer = _trainer(text_arcface_task(model, num_valid=num_valid),
-                       args, P13_STEPS, device=dev)
-    if name != "tp":
+                       args, P13_STEPS, device=dev, mesh=mesh)
+    if name not in ("tp", "pp"):
         trainer.ckpt = None
     # fit's first batch (shuffled by the seed, no sampler)
     first_batch = next(src.batches(P13_BATCH, shuffle=True, seed=args.seed,
@@ -3944,7 +3976,7 @@ def p13_run(name, args, state, table, tok, dev, work) -> dict:
 
     def captured():
         reduce()
-        if not grads:
+        if not grads and name != "pp":
             for n, p in trainer.model.named_parameters():
                 g = p.grad
                 grads[n] = (gather_shard(g, trainer.shards[n], trainer.mesh)
@@ -3953,15 +3985,16 @@ def p13_run(name, args, state, table, tok, dev, work) -> dict:
     A.arcface_logits_cuda = recorded
     trainer._reduce_gradients = captured
     clock = CollectiveClock()
-    steps = []
+    steps, handoffs = [], []
     train_step = trainer.train_step
 
     def timed_step(batch):
         torch.cuda.synchronize()
-        t0, c0 = time.perf_counter(), clock.seconds
+        t0, c0, h0 = time.perf_counter(), clock.seconds, clock.shift_s
         out = train_step(batch)
         torch.cuda.synchronize()
         steps.append((time.perf_counter() - t0, clock.seconds - c0))
+        handoffs.append(clock.shift_s - h0)
         return out
 
     trainer.train_step = timed_step
@@ -3980,10 +4013,15 @@ def p13_run(name, args, state, table, tok, dev, work) -> dict:
     torch.cuda.synchronize()
     fit_s = time.perf_counter() - t0
     launches = A.LAUNCHES["arcface"]
+    layer_tensors = [n for n, _ in trainer.model.named_parameters()
+                     if ".encoder.layer." in n]
     row = {"mesh": dict(trainer.mesh.shape),
            "head_rows_on_rank": trainer.model.head.weight.shape[0],
            "cut_parameters": len(trainer.shards),
            "sequence_partial": len(trainer.sequence_partial),
+           "layer_tensors": len(layer_tensors),
+           "layers": sorted({int(n.split(".encoder.layer.")[1]
+                                 .split(".")[0]) for n in layer_tensors}),
            "kernel_vs_plain": check_arcface_launch(
                f"phase 13 {name} rank {rank}", *first[0])}
     del first
@@ -4012,21 +4050,31 @@ def p13_run(name, args, state, table, tok, dev, work) -> dict:
                step_s=[t for t, _ in steps],
                collective_s=[c for _, c in steps],
                collective_share=sum(c for _, c in steps[1:]) / step_s)
+    if name == "pp":   # the stage hand-offs (waits for the peer included)
+        row.update(handoff_s=handoffs,
+                   handoff_mb_per_step=clock.shift_bytes / P13_STEPS / 1e6,
+                   handoff_share=sum(handoffs[1:]) / step_s)
     if rank == 0:
         row["losses"] = [
             ln["train/loss"] for ln in map(json.loads, open(os.path.join(
                 args.output, "metrics.jsonl"), encoding="utf-8"))
             if "train/loss" in ln]
-    if name == "tp" and rank == 0:      # the model's part, mapped
+    if name in ("tp", "pp") and rank == 0:   # the model's part, mapped
         saved = torch.load(trainer.ckpt._path(trainer.ckpt.latest_step()),
                            mmap=True, weights_only=True)["model"]
         bad = [k for k, v in state.items() if k != "head.weight"
                and tuple(saved[k].shape) != tuple(v.shape)]
-        if bad or saved["head.weight"].shape != (
-                P13_CLASSES, state["head.weight"].shape[1]):
-            raise AssertionError(f"the tensor-parallel checkpoint is not "
-                                 f"in the one-card layout: {bad[:4]}, head "
+        if bad or len(saved) != len(state) or saved["head.weight"].shape != (
+                num_labels, state["head.weight"].shape[1]):
+            raise AssertionError(f"the {name} checkpoint is not in the "
+                                 f"one-card layout: {bad[:4]}, "
+                                 f"{len(saved)} tensors, head "
                                  f"{tuple(saved['head.weight'].shape)}")
+        if name == "pp":             # the one-rank model loads it
+            one = _on_meta(lambda: NlpTextClassifier(
+                BertConfig.roberta_wwm_ext_large(), num_labels=num_labels))
+            one.load_state_dict(saved, assign=True)
+            del one
         row["checkpoint_head_rows"] = saved["head.weight"].shape[0]
         row["checkpoint_tensors"] = len(saved)
         del saved
@@ -4037,8 +4085,8 @@ def p13_run(name, args, state, table, tok, dev, work) -> dict:
 def phase13_rank(kind: str, work: str) -> dict:
     """(a), (c) and the f32 gradients on the reference rank
     (``kind="ref"``, which saves its weights' per-tensor sums in
-    ``work``), or (b) on each of the tensor-parallel ranks
-    (``kind="tp"``). Every rank draws the reference's weights from the
+    ``work``), (b) on each of the tensor-parallel ranks (``kind="tp"``)
+    or (d) on each of the pipeline ranks (``kind="pp"``). Every rank draws the reference's weights from the
     same seeded CUDA generator (a 1.3 GB state dict is not written to the
     disk and read four times) and checks them against those sums; the
     model is built on the meta device and loads them."""
@@ -4066,11 +4114,13 @@ def phase13_rank(kind: str, work: str) -> dict:
            "weights_s": time.perf_counter() - t0}
     runs = ([("remat", 1, True), ("f32", 1, True), ("no_remat", 1, False)]
             if kind == "ref"
-            else [("tp", dist.get_world_size(), True)])
+            else [(kind, dist.get_world_size(), True)])
     with contextlib.redirect_stdout(io.StringIO()):
         for name, ranks, remat in runs:
             args = p13_args(os.path.join(work, f"{name}_{out['backend']}"),
-                            ranks, remat)
+                            ranks, remat, f"train_nlp_large_{name}.yaml"
+                            if name in ("tp", "pp") else
+                            "train_nlp_large_tp.yaml")
             out[name] = p13_run(name, args, state, table, tok, dev, work)
             torch.cuda.empty_cache()
     return out
@@ -4078,10 +4128,12 @@ def phase13_rank(kind: str, work: str) -> dict:
 
 def phase13(dev) -> dict:
     """Tensor- and sequence-parallel training of the large text tower at
-    ``configs/train_nlp_large_tp.yaml`` (see the docstring): (a) and (c)
-    on one NCCL rank, (b) on four gloo ranks on ``cuda:0``, and over NCCL
-    on four cards where the machine has them; each spawn with a time
-    limit."""
+    ``configs/train_nlp_large_tp.yaml`` and pipeline-parallel training
+    at ``configs/train_nlp_large_pp.yaml`` (see the docstring): (a) and
+    (c) on one NCCL rank, (b) on four gloo ranks on ``cuda:0`` (and over
+    NCCL on four cards where the machine has them), (d) on two gloo ranks
+    on ``cuda:0`` (and over NCCL on two cards where the machine has
+    them); each spawn with a time limit."""
     from multimodalsimilar_tpu_torch.parallel.spawn import spawn
     torch.cuda.empty_cache()
     work = tempfile.mkdtemp(prefix="chip_smoke_tp_")
@@ -4099,8 +4151,8 @@ def phase13(dev) -> dict:
         def run(name, world, kind, backend):
             t0 = time.perf_counter()
             ranks = spawn(phase13_rank, world, (kind, work), device="cuda",
-                          backend=backend, timeout=P13_TIMEOUT,
-                          threads=None)
+                          backend=backend, timeout=P13_PP_TIMEOUT
+                          if kind == "pp" else P13_TIMEOUT, threads=None)
             wall[name] = time.perf_counter() - t0
             return ranks
 
@@ -4132,13 +4184,42 @@ def phase13(dev) -> dict:
                                          f"{r['tp']['head_rows_on_rank']} "
                                          f"classes")
             out[name] = {"ranks": ranks, "loss_rel_err": err}
+        runs = [("pp_gloo_on_one_card", 2, "gloo")]
+        if torch.cuda.device_count() >= 2:
+            runs.append(("pp_nccl_two_cards", 2, "nccl"))
+        for name, world, backend in runs:
+            ranks = run(name, world, "pp", backend)
+            got = ranks[0]["pp"]
+            err = max(abs(x - y) / abs(y) for x, y in zip(got["losses"],
+                                                          a["losses"]))
+            if len(got["losses"]) != len(a["losses"]) \
+                    or err > P13_LOSS_RTOL:
+                raise AssertionError(f"{name}: losses {got['losses']} vs "
+                                     f"one rank's {a['losses']}")
+            half = BertConfig.roberta_wwm_ext_large().num_layers // 2
+            for r in ranks:
+                s, held = r["rank"], r["pp"]
+                if held["layers"] != list(range(half * s, half * s + half)) \
+                        or held["layer_tensors"] != half * 16 \
+                        or held["head_rows_on_rank"] != P13_PP_CLASSES // 2 \
+                        or not held["peak_gb"] < a["peak_gb"]:
+                    raise AssertionError(
+                        f"{name} rank {s}: layers {held['layers']}, "
+                        f"{held['layer_tensors']} layer tensors, "
+                        f"{held['head_rows_on_rank']} classes, peak "
+                        f"{held['peak_gb']} GB against one rank's "
+                        f"{a['peak_gb']}")
+            out[name] = {"ranks": ranks, "loss_rel_err": err}
         # the kernel on one rank's class block, alone, beside its bound and
         # SGEMM of the same product
         out["arcface_block"] = recipe_head(
             dev, "tensor-parallel block, B=256", P13_BATCH,
             P13_CLASSES // 4, 1024, 0.4)
+        out["arcface_block_pp"] = recipe_head(
+            dev, "pipeline-parallel block, B=256", P13_BATCH,
+            P13_PP_CLASSES // 2, 1024, 0.4)
         out["spawn_wall_s"] = wall
-        out["gloo_times"] = ("four ranks share one card and their "
+        out["gloo_times"] = ("the gloo ranks share one card and their "
                              "collectives stage through the host: not a "
                              "scaling number")
         return out
@@ -4346,18 +4427,29 @@ def main(argv=None) -> None:
     # the block's check on every rank and the block timed alone
     tp_runs = [r["tp"] for key in ("gloo_on_one_card", "nccl_four_cards")
                if key in p13 for r in p13[key]["ranks"]]
+    pp_runs = [r["pp"] for key in ("pp_gloo_on_one_card",
+                                   "pp_nccl_two_cards")
+               if key in p13 for r in p13[key]["ranks"]]
     arcface["launches_tensor_parallel"] = [
         r["tp"]["arcface_launches"] for r in p13["gloo_on_one_card"]["ranks"]]
     arcface["launches_large_one_rank"] = \
         p13["reference"]["remat"]["arcface_launches"]
     arcface["tensor_parallel_blocks_max_abs_err"] = max(
         r["kernel_vs_plain"]["max_abs_err"] for r in tp_runs)
-    arcface["max_abs_err"] = max(arcface["max_abs_err"],
-                                 arcface["tensor_parallel_blocks_max_abs_err"])
-    tb = p13["arcface_block"]
-    arcface["tensor_parallel_shape"] = {k: tb[k] for k in (
-        "head", "b", "c", "d", "m", "max_abs_err", "ms", "plain_ms",
-        "yardstick_ms", "bound_ms", "bound_by")}
+    arcface["launches_pipeline_parallel"] = [
+        r["pp"]["arcface_launches"]
+        for r in p13["pp_gloo_on_one_card"]["ranks"]]
+    arcface["pipeline_parallel_blocks_max_abs_err"] = max(
+        r["kernel_vs_plain"]["max_abs_err"] for r in pp_runs)
+    arcface["max_abs_err"] = max(
+        arcface["max_abs_err"], arcface["tensor_parallel_blocks_max_abs_err"],
+        arcface["pipeline_parallel_blocks_max_abs_err"])
+    for key, block in (("tensor_parallel_shape", "arcface_block"),
+                       ("pipeline_parallel_shape", "arcface_block_pp")):
+        tb = p13[block]
+        arcface[key] = {k: tb[k] for k in (
+            "head", "b", "c", "d", "m", "max_abs_err", "ms", "plain_ms",
+            "yardstick_ms", "bound_ms", "bound_by")}
     print(json.dumps({"kernels": [topk, arcface, topk_select]}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -175,15 +175,14 @@ def cmd_import_checkpoint(args, device="cuda"):
     del device       # a checkpoint is written from host tensors
     if args.kind not in _KINDS:
         raise SystemExit(f"unknown kind {args.kind}")
-    if getattr(args, "pipeline_parallel", 0):
-        if args.kind == "cv":
-            raise SystemExit(
-                "import-checkpoint: --pipeline_parallel shards the BERT "
-                "layer stack; --kind cv has no text tower, so the flag "
-                "would have no effect. Drop it (train cv refuses it too).")
-        raise NotImplementedError(
-            "--pipeline_parallel: the stacked pipeline-parallel layout is "
-            "not ported (ROADMAP A17 part 2 item 5)")
+    if getattr(args, "pipeline_parallel", 0) and args.kind == "cv":
+        # --pipeline_parallel is accepted for the text kinds: the port's
+        # checkpoints are in the one-card layout, which a pipeline-parallel
+        # run loads as it is (each rank keeps its stage)
+        raise SystemExit(
+            "import-checkpoint: --pipeline_parallel shards the BERT "
+            "layer stack; --kind cv has no text tower, so the flag "
+            "would have no effect. Drop it (train cv refuses it too).")
     ref = torch.load(args.state_dict, map_location="cpu", weights_only=True)
     bert = _bert_config(args.bert_preset)
     image = (_image_config(args, "import-checkpoint")

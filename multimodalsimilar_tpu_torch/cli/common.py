@@ -11,8 +11,10 @@ check.
 persistent compilation cache, and the port compiles nothing per job
 (its kernels are built once into ``multimodalsimilar_tpu_torch/build``,
 ``ops/_build.py``). ``_mesh`` builds the ``(data, model)`` mesh over the
-ranks ``torchrun`` started (``parallel/mesh.py``); ``_ckpt_has_pp``
-belongs to the pipeline-parallel layout (ROADMAP A17 part 2 item 5).
+ranks ``torchrun`` started (``parallel/mesh.py``). ``_ckpt_has_pp`` has
+no counterpart: it finds the JAX package's stacked ``pp_layers`` tree in
+an orbax directory, and the port reads its own checkpoints, always in
+the one-card layout (a pipeline-parallel run gathers its stages).
 """
 
 from __future__ import annotations
@@ -137,11 +139,13 @@ def _fill_heads(model) -> None:
 
 def _bert_config(preset: str, remat: bool = False,
                  sequence_parallel: bool = False,
+                 pipeline_parallel: int = 0,
                  remat_policy: str = "full", remat_skip: int = 0):
     """BertConfig of a preset: ``tiny``, ``base`` (roberta_wwm_ext) or
-    ``large`` (roberta_wwm_ext_large), with ``--remat*`` and
-    ``--sequence_parallel``. The pipeline-parallel layout is not ported
-    (ROADMAP A17 part 2 item 5): the train commands refuse its flag."""
+    ``large`` (roberta_wwm_ext_large), with ``--remat*``,
+    ``--sequence_parallel`` and ``--pipeline_parallel``: the GPipe
+    microbatch count M (0 = off); the stage count comes from the mesh's
+    model axis when the model is built (``parallel/pp.py:building``)."""
     from multimodalsimilar_tpu_torch.models.bert import BertConfig
     make = {"tiny": BertConfig.tiny, "base": BertConfig.roberta_wwm_ext,
             "large": BertConfig.roberta_wwm_ext_large}[preset]
@@ -149,6 +153,8 @@ def _bert_config(preset: str, remat: bool = False,
         raise SystemExit("--remat_policy/--remat_skip modify --remat; "
                          "pass --remat too (refusing to silently ignore)")
     return make(remat=remat, sequence_parallel=sequence_parallel,
+                pipeline_parallel=pipeline_parallel > 0,
+                pp_microbatches=max(int(pipeline_parallel), 1),
                 remat_policy=remat_policy, remat_skip=int(remat_skip or 0))
 
 

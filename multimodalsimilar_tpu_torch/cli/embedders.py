@@ -20,9 +20,11 @@ init on the host); without ``--checkpoint`` the seed-0 draw is the
 weights. The image towers are drawn, then loaded: their inits run
 ``normal_``, whose meta kernel imports the compiler stack (seconds, once
 a process), more than an image tower's draw costs.
-Pipeline-parallel checkpoints raise ``NotImplementedError`` (ROADMAP A17
-part 2 item 5), and with ``--int8`` exit with the JAX command's
-message.
+The port's checkpoints are in the one-card layout whatever layout
+trained them. The JAX package's pipeline-parallel orbax directory (its
+stacked ``pp_layers`` tree) is no port checkpoint: with ``--int8`` it
+exits with the JAX command's message, without it with the port's "no
+checkpoint" error.
 """
 
 from __future__ import annotations
@@ -76,16 +78,12 @@ def _build_text_embedder(args, df=None, device="cuda"):
     if not args.checkpoint:
         model = make()
     else:
-        if _is_pp_checkpoint(args.checkpoint):
-            if int8:
-                raise SystemExit(
-                    "--int8: the int8 PTQ tower does not support the "
-                    "pipeline-parallel stacked layout; export the "
-                    "checkpoint to the sequential layout first "
-                    "(models.bert.unstack_layer_params) or drop --int8")
-            raise NotImplementedError(
-                f"{args.checkpoint}: pipeline-parallel checkpoints are not "
-                "ported (ROADMAP A17 part 2 item 5)")
+        if int8 and _is_pp_checkpoint(args.checkpoint):
+            raise SystemExit(
+                "--int8: the int8 PTQ tower does not support the "
+                "pipeline-parallel stacked layout; export the "
+                "checkpoint to the sequential layout first "
+                "(models.bert.unstack_layer_params) or drop --int8")
         state = _restore_required(args.checkpoint)
         # the tower only, as the JAX embedder reads only the tower: the
         # head's class count need not match --num_labels

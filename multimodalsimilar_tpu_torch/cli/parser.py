@@ -13,9 +13,9 @@ multimodalsimilar_tpu_torch.cli train nlp --config
 configs/train_nlp_v2_dist.yaml ...`` trains data-parallel over N cards,
 and ``train nlp --config configs/train_nlp_large_tp.yaml`` under
 ``torchrun --nproc_per_node 4`` tensor- and sequence-parallel with
-remat. Flags whose layouts are not ported parse as in JAX and raise in
-the commands: ``--pipeline_parallel`` (ROADMAP A17 part 2 item 5) and
-``--pallas_topk`` (the device runs one exact search).
+remat, ``configs/train_nlp_large_pp.yaml`` under ``torchrun
+--nproc_per_node 2`` pipeline-parallel. ``--pallas_topk`` parses as in
+JAX and raises in the commands (the device runs one exact search).
 """
 
 from __future__ import annotations
@@ -139,8 +139,15 @@ def _add_common_train_flags(p):
                         "(reduce-scatter and all-gather in place of the "
                         "all-reduces)")
     p.add_argument("--pipeline_parallel", type=int, default=0, metavar="M",
-                   help="not ported (ROADMAP A17 part 2 item 5): refused "
-                        "unless 0")
+                   help="GPipe pipeline parallelism of the BERT tower over "
+                        "the --model_parallel axis with M microbatches per "
+                        "step (bubble (P-1)/(M+P-1)): each rank builds and "
+                        "holds num_layers/N layers' params + Adam moments. "
+                        "Alternative to --tensor_parallel (mutually "
+                        "exclusive); requires --model_parallel N > 1 "
+                        "dividing num_layers; the per-chip batch must "
+                        "divide by M. Checkpoints are in the one-card "
+                        "layout")
     p.add_argument("--grad_accum", type=int, default=1, metavar="K",
                    help="accumulate grads over K micro-batches before each "
                         "optimizer step")
@@ -517,8 +524,11 @@ def _add_ops_and_checkpoints(sub):
                      help="clear an already-populated --out dir")
     imp.add_argument("--pipeline_parallel", type=int, default=0,
                      metavar="M",
-                     help="not ported (ROADMAP A17 part 2 item 5): "
-                          "refused unless 0")
+                     help="accepted for the text kinds for symmetry with "
+                          "the JAX command: the checkpoint is in the "
+                          "one-card layout, which `train ... "
+                          "--pipeline_parallel` runs load as it is (any "
+                          "value > 0)")
     imp.set_defaults(fn=cmd_import_checkpoint)
 
     exp = sub.add_parser("export-checkpoint", allow_abbrev=False)

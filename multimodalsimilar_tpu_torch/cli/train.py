@@ -16,13 +16,16 @@ all-reduces the gradients in bfloat16 and ``--model_parallel N`` shards
 the ArcFace heads' classes over N ranks, each head padded to a multiple
 of N with the pad classes masked (``_pad_for_model_parallel``);
 ``--tensor_parallel`` and ``--sequence_parallel`` cut the BERT tower over
-the same ranks and ``--remat*`` rematerialize its layers. The flag of
-pipeline parallelism raises (ROADMAP A17 part 2 item 5) instead of being
-ignored, and each command refuses the flags the JAX command refuses.
+the same ranks, ``--pipeline_parallel M`` builds each rank's stage of its
+layers and trains them in the GPipe schedule with M microbatches
+(``parallel/pp.py``; ``train nlp|multilabel|multimodal|pair``) and
+``--remat*`` rematerialize its layers. Each command refuses the flags the
+JAX command refuses.
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 import sys
 
@@ -37,19 +40,25 @@ def _set_flags(args, flags) -> dict:
             if getattr(args, k, off) != off}
 
 
-def _check_ported(args) -> None:
-    """``--pipeline_parallel`` is not ported; with tensor or sequence
-    parallelism it is the JAX Trainer's refusal."""
-    from multimodalsimilar_tpu_torch.train.trainer import PP_WITH_TP
+def _layout(args):
+    """(mesh, the scope to build the model in) of ``args``: under
+    ``--pipeline_parallel`` the model is built as this rank's stage
+    (``parallel/pp.py:building``), after the Trainer's refusals of the
+    layouts that do not compose."""
+    from multimodalsimilar_tpu_torch.cli.common import _mesh
+    mesh = _mesh(args)
     if not getattr(args, "pipeline_parallel", 0):
-        return
-    if getattr(args, "tensor_parallel", False) \
-            or getattr(args, "sequence_parallel", False):
-        raise ValueError(PP_WITH_TP)
-    raise NotImplementedError(
-        f"--pipeline_parallel {args.pipeline_parallel}: the GPipe schedule "
-        f"and its stacked layer layout are not ported (ROADMAP A17 part 2 "
-        f"item 5)")
+        return mesh, contextlib.nullcontext()
+    from multimodalsimilar_tpu_torch.parallel import pp
+    from multimodalsimilar_tpu_torch.train.trainer import (TrainerConfig,
+                                                           check_layouts)
+    check_layouts(TrainerConfig(
+        model_parallel_heads=getattr(args, "model_parallel", 1) > 1,
+        tensor_parallel=getattr(args, "tensor_parallel", False),
+        sequence_parallel=getattr(args, "sequence_parallel", False),
+        bf16_grad_allreduce=getattr(args, "bf16_grads", False),
+        pipeline_parallel=True), mesh)
+    return mesh, pp.building(mesh)
 
 
 def _pad_for_model_parallel(num_labels, args):
@@ -102,19 +111,19 @@ def _schedules(args, steps_per_epoch):
                 args.head_lr, args.head_warmup_frac * total, total))
 
 
-def _trainer(task, args, steps_per_epoch, device="cuda"):
+def _trainer(task, args, steps_per_epoch, device="cuda", mesh=None):
     """``--optimizer`` (AdamW or AdamP, each as one optimizer with a tower
     group and a head group with their own weight decay) under
     ``--scheduler``, ``--grad_accum`` and ``--profile``, and the Trainer
-    of ``args`` over ``_mesh(args)`` (``--model_parallel``,
-    ``--tensor_parallel``, ``--sequence_parallel``, ``--bf16_grads``);
-    checkpoints and ``metrics.jsonl`` go under ``args.output``."""
+    of ``args`` over ``mesh`` (default ``_mesh(args)``:
+    ``--model_parallel``, ``--tensor_parallel``, ``--sequence_parallel``,
+    ``--pipeline_parallel``, ``--bf16_grads``); checkpoints and
+    ``metrics.jsonl`` go under ``args.output``."""
     from multimodalsimilar_tpu_torch.cli.common import _mesh
     from multimodalsimilar_tpu_torch.train.optim import (AdamP, adamp_views,
                                                          dual_group)
     from multimodalsimilar_tpu_torch.train.trainer import (Trainer,
                                                            TrainerConfig)
-    _check_ported(args)
     accum = _opt_step_units(args, steps_per_epoch)[0]
     tower_sched, head_sched = _schedules(args, steps_per_epoch)
     optimizer = getattr(args, "optimizer", "adamw")
@@ -139,6 +148,7 @@ def _trainer(task, args, steps_per_epoch, device="cuda"):
         model_parallel_heads=getattr(args, "model_parallel", 1) > 1,
         tensor_parallel=getattr(args, "tensor_parallel", False),
         sequence_parallel=getattr(args, "sequence_parallel", False),
+        pipeline_parallel=getattr(args, "pipeline_parallel", 0) > 0,
         bf16_grad_allreduce=getattr(args, "bf16_grads", False),
         grad_accum=accum,
         overwrite=getattr(args, "overwrite", False),
@@ -146,7 +156,7 @@ def _trainer(task, args, steps_per_epoch, device="cuda"):
         seed=args.seed)
     os.makedirs(args.output, exist_ok=True)
     return Trainer(task, make_optimizer, cfg, device=device,
-                   mesh=_mesh(args))
+                   mesh=mesh if mesh is not None else _mesh(args))
 
 
 def _sampler_fn(args, table, label_col):
@@ -177,13 +187,15 @@ def _tables(args, table, eval_table, require=()):
 
 
 def _text_config(args):
-    """The tower's BertConfig: ``--bert_preset`` with ``--remat*`` and
-    ``--sequence_parallel``."""
+    """The tower's BertConfig: ``--bert_preset`` with ``--remat*``,
+    ``--sequence_parallel`` and ``--pipeline_parallel``."""
     from multimodalsimilar_tpu_torch.cli.common import _bert_config
     return _bert_config(args.bert_preset,
                         remat=getattr(args, "remat", False),
                         sequence_parallel=getattr(args, "sequence_parallel",
                                                   False),
+                        pipeline_parallel=getattr(args, "pipeline_parallel",
+                                                  0),
                         remat_policy=getattr(args, "remat_policy", "full"),
                         remat_skip=getattr(args, "remat_skip", 0))
 
@@ -222,7 +234,6 @@ def cmd_train_nlp(args, table=None, eval_table=None, device="cuda"):
         NlpTextClassifier)
     from multimodalsimilar_tpu_torch.ops.arcface import ArcFaceParams
     from multimodalsimilar_tpu_torch.train.tasks import text_arcface_task
-    _check_ported(args)
     config = _text_config(args)
     table, eval_table = _tables(args, table, eval_table,
                                 [args.text_col, args.label_col])
@@ -237,13 +248,16 @@ def cmd_train_nlp(args, table=None, eval_table=None, device="cuda"):
     src = source(table)
     num_labels, num_valid = _pad_for_model_parallel(
         _num_labels(table, args.label_col), args)
-    model = NlpTextClassifier(
-        config, pool=getattr(args, "pool", "cls"),
-        generator=_generator(args), num_labels=num_labels,
-        arcface=ArcFaceParams(m=args.margin))
+    mesh, scope = _layout(args)
+    with scope:
+        model = NlpTextClassifier(
+            config, pool=getattr(args, "pool", "cls"),
+            generator=_generator(args), num_labels=num_labels,
+            arcface=ArcFaceParams(m=args.margin))
     trainer = _trainer(text_arcface_task(model, fused_loss=args.fused_loss,
                                          num_valid=num_valid),
-                       args, max(len(src) // args.batch_size, 1), device)
+                       args, max(len(src) // args.batch_size, 1), device,
+                       mesh)
     return _fit(trainer, args, src,
                 source(eval_table) if eval_table is not None else None,
                 _sampler_fn(args, table, args.label_col))
@@ -276,7 +290,6 @@ def cmd_train_multilabel(args, table=None, eval_table=None, device="cuda"):
         NlpMultilabelClassifier)
     from multimodalsimilar_tpu_torch.train.tasks import (
         multilabel_arcface_task)
-    _check_ported(args)
     config = _text_config(args)
     cols = [args.lv1_col, args.lv2_col, args.tag_col]
     table, eval_table = _tables(args, table, eval_table,
@@ -292,13 +305,15 @@ def cmd_train_multilabel(args, table=None, eval_table=None, device="cuda"):
     src = source(table)
     sizes, valid = zip(*(_pad_for_model_parallel(_num_labels(table, c),
                                                  args) for c in cols))
-    model = NlpMultilabelClassifier(config, *sizes,
-                                    generator=_generator(args))
+    mesh, scope = _layout(args)
+    with scope:
+        model = NlpMultilabelClassifier(config, *sizes,
+                                        generator=_generator(args))
     task = multilabel_arcface_task(
         model, weights=(args.lv1_weight, args.lv2_weight, args.tag_weight),
         fused_loss=args.fused_loss, num_valid=valid)
     trainer = _trainer(task, args, max(len(src) // args.batch_size, 1),
-                       device)
+                       device, mesh)
     return _fit(trainer, args, src,
                 source(eval_table) if eval_table is not None else None,
                 _sampler_fn(args, table, args.lv2_col))
@@ -321,8 +336,12 @@ def cmd_train_cv(args, table=None, eval_table=None, device="cuda"):
         CvImageClassifier, backbone_config)
     from multimodalsimilar_tpu_torch.ops.arcface import ArcFaceParams
     from multimodalsimilar_tpu_torch.train.tasks import cv_arcface_task
-    _refuse(args, "cv", _TEXT_ONLY, "apply to the BERT-tower text recipes")
-    _check_ported(args)
+    if _set_flags(args, _TEXT_ONLY):
+        raise SystemExit(
+            "train cv: --fused_loss/--remat/--remat_policy/--remat_skip/"
+            "--tensor_parallel/--sequence_parallel/--pipeline_parallel "
+            "apply to the BERT-tower text recipes; the cv task has none "
+            "of them — refusing to silently ignore them")
     table, eval_table = _tables(args, table, eval_table,
                                 [args.key_col, args.label_col])
     steps_per_epoch = max(len(column(table, args.label_col))
@@ -361,7 +380,6 @@ def cmd_train_pair(args, table=None, eval_table=None, device="cuda"):
     from multimodalsimilar_tpu_torch.train.tasks import pair_task
     _refuse(args, "pair", {"fused_loss": False}, "needs an ArcFace head; "
             "the pair loss is 2-class CE")
-    _check_ported(args)
     config = _text_config(args)
     table, eval_table = _tables(args, table, eval_table)
     tok = _tokenizer(args, df=table, save_dir=args.output, text_col="title")
@@ -372,9 +390,11 @@ def cmd_train_pair(args, table=None, eval_table=None, device="cuda"):
                                                   None))
 
     src = source(table)
-    model = SiamesePairModel(config, generator=_generator(args))
+    mesh, scope = _layout(args)
+    with scope:
+        model = SiamesePairModel(config, generator=_generator(args))
     trainer = _trainer(pair_task(model), args,
-                       max(len(src) // args.batch_size, 1), device)
+                       max(len(src) // args.batch_size, 1), device, mesh)
     # the reference class-balances anchors by inverse tag frequency
     # (nlp_st_train_daodian.py:102-116,131-132)
     return _fit(trainer, args, src,
@@ -395,7 +415,6 @@ def cmd_train_multimodal(args, table=None, eval_table=None,
         multimodal_arcface_task)
     _refuse(args, "multimodal", {"fused_loss": False},
             "is not wired for the fused-tower task")
-    _check_ported(args)
     config = _text_config(args)
     table, eval_table = _tables(args, table, eval_table,
                                 [args.text_col, args.key_col,
@@ -413,13 +432,16 @@ def cmd_train_multimodal(args, table=None, eval_table=None,
     src = source(table, True)
     num_labels, num_valid = _pad_for_model_parallel(
         _num_labels(table, args.label_col), args)
-    model = MultimodalClassifier(
-        config, backbone_config(args.backbone, image_size=args.image_size),
-        num_labels=num_labels, fc_dim=args.fc_dim,
-        generator=_generator(args))
+    mesh, scope = _layout(args)
+    with scope:
+        model = MultimodalClassifier(
+            config, backbone_config(args.backbone,
+                                    image_size=args.image_size),
+            num_labels=num_labels, fc_dim=args.fc_dim,
+            generator=_generator(args))
     model = model.to(memory_format=torch.channels_last)
     trainer = _trainer(multimodal_arcface_task(model, num_valid), args,
-                       max(len(src) // args.batch_size, 1), device)
+                       max(len(src) // args.batch_size, 1), device, mesh)
     return _fit(trainer, args, src,
                 source(eval_table, False) if eval_table is not None
                 else None, _sampler_fn(args, table, args.label_col))

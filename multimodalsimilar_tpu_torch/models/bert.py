@@ -43,6 +43,19 @@ sequence-parallel layout the residual stream between those points is
 this rank's block of the sequence (``parallel/sp.py``). Each dropout
 then draws the whole tensor's mask and keeps this rank's block, so N
 ranks draw the masks one device draws.
+
+``BertConfig.pipeline_parallel`` (with ``pp_microbatches`` = M): an
+encoder built inside ``parallel/pp.py:building(mesh)`` holds only its
+stage's layers, ``encoder.layer.{i}`` for its global indices i (so a
+checkpoint gathers them by name), and runs them through the GPipe
+schedule (``pp.gpipe``); built outside a scope it holds every layer and
+runs them in turn, as the JAX module's mesh-less scan. Its init draws,
+for each layer another stage holds, that layer's weights and drops
+them, so every stage's layers get the weights one process draws. Its
+dropout draws each layer's mask for the whole local batch and keeps the
+microbatch's rows; a stage first draws (and drops) the masks of the
+layers before it and, after the schedule, those after it, so the
+generator moves as in one process and the masks are one process's.
 """
 
 from __future__ import annotations
@@ -77,6 +90,10 @@ class BertConfig:
     # the residual stream in sequence blocks under a sequence-parallel
     # Trainer (a no-op otherwise, as in the JAX module)
     sequence_parallel: bool = False
+    # GPipe stages over the model group when built under pp.building,
+    # with this many microbatches (see the module docstring)
+    pipeline_parallel: bool = False
+    pp_microbatches: int = 1
 
     @classmethod
     def tiny(cls, **kw) -> "BertConfig":
@@ -143,12 +160,27 @@ class Dropout(nn.Module):
         if self.generator is None:
             raise RuntimeError("dropout in train() mode needs a generator: "
                                "call set_dropout_generator first")
-        keep = torch.empty(full_shape or self.mask_shape(x),
-                           dtype=torch.float32, device=x.device)
-        keep.bernoulli_(1.0 - self.p, generator=self.generator)
+        keep = self._keep(full_shape or self.mask_shape(x), x.device)
         if take is not None:
             keep = take(keep)
         return torch.where(keep > 0, x / (1.0 - self.p), 0.0).to(x.dtype)
+
+    def _keep(self, shape: tuple, device) -> torch.Tensor:
+        keep = torch.empty(shape, dtype=torch.float32, device=device)
+        return keep.bernoulli_(1.0 - self.p, generator=self.generator)
+
+    def skip(self, shape: tuple, device) -> None:
+        """Draw and drop the mask of a tensor of ``shape``: the generator
+        moves as ``forward`` moves it."""
+        if self.training and self.p > 0.0:
+            self._keep(shape, device)
+
+
+def _drawing_generators(module: nn.Module) -> list:
+    """The generators the dropouts under ``module`` draw masks from."""
+    return list({id(m.generator): m.generator for m in module.modules()
+                 if isinstance(m, Dropout) and m.generator is not None
+                 and m.training and m.p > 0}.values())
 
 
 def set_dropout_generator(module: nn.Module,
@@ -202,13 +234,17 @@ class BertLayer(nn.Module):
         y = self.tp.leave(F.linear(x.to(cd), lin.weight.to(cd)), True)
         return y + lin.bias.to(cd)
 
-    def _hidden_dropout(self, drop: Dropout, x: torch.Tensor, S: int):
+    def _hidden_dropout(self, drop: Dropout, x: torch.Tensor, S: int,
+                        rows=None):
+        if rows is not None:       # a microbatch: its rows of the batch's
+            return drop(x, (rows[0],) + tuple(x.shape[1:]),
+                        lambda keep: keep[rows[1]])
         if self.tp is None or not self.tp.sequence:
             return drop(x)
         return drop(x, (x.shape[0], S, x.shape[2]),
                     functools.partial(self.tp.seq_block, S=S))
 
-    def _attention(self, h: torch.Tensor, mask_bias: torch.Tensor):
+    def _attention(self, h: torch.Tensor, mask_bias: torch.Tensor, rows):
         cd, rd = self.policy.compute_dtype, self.policy.reduce_dtype
         S = mask_bias.shape[-1]
         sharded = self.tp is not None and self.tp.attention
@@ -229,25 +265,40 @@ class BertLayer(nn.Module):
             first = self.tp.index * nh
             probs = sa.dropout(probs, (B, nh * self.tp.n, S, S),
                                lambda keep: keep[:, first:first + nh])
+        elif rows is not None:
+            probs = sa.dropout(probs, (rows[0], nh, S, S),
+                               lambda keep: keep[rows[1]])
         else:
             probs = sa.dropout(probs)
         ctx = torch.matmul(probs.to(cd).to(rd), v.to(rd))
         ctx = ctx.transpose(1, 2).reshape(B, S, nh * hd)
         return self._row(ctx.to(cd), self.attention.output.dense, sharded)
 
-    def forward(self, h: torch.Tensor, mask_bias: torch.Tensor):
+    def forward(self, h: torch.Tensor, mask_bias: torch.Tensor,
+                rows: Optional[tuple] = None):
+        """``rows`` = (B, slice): ``h`` is those rows of a batch of B, whose
+        dropout masks are drawn whole (a pipeline microbatch)."""
         cd, rd = self.policy.compute_dtype, self.policy.reduce_dtype
         S = mask_bias.shape[-1]
         attn = self._hidden_dropout(self.attention.output.dropout,
-                                    self._attention(h, mask_bias), S)
+                                    self._attention(h, mask_bias, rows), S,
+                                    rows)
         h = _layer_norm(h + attn, self.attention.output.LayerNorm, rd).to(cd)
         sharded = self.tp is not None and self.tp.mlp
         mlp = F.gelu(_linear(self._enter(h, sharded, S),
                              self.intermediate.dense, cd))  # erf form
         mlp = self._hidden_dropout(
             self.output.dropout, self._row(mlp, self.output.dense, sharded),
-            S)
+            S, rows)
         return _layer_norm(h + mlp, self.output.LayerNorm, rd).to(cd)
+
+    def skip_masks(self, B: int, S: int, device) -> None:
+        """Draw and drop the masks ``forward`` draws for B rows of S
+        tokens (a layer another pipeline stage holds)."""
+        H = self.output.dense.out_features
+        self.attention.self.dropout.skip((B, self.num_heads, S, S), device)
+        self.attention.output.dropout.skip((B, S, H), device)
+        self.output.dropout.skip((B, S, H), device)
 
 
 # the products "dots" saves: the weight products behind nn.Linear (addmm
@@ -263,28 +314,27 @@ def _dots_policy(ctx, op, *args, **kwargs):
 
 
 def remat(layer: nn.Module, h: torch.Tensor, mask_bias: torch.Tensor,
-          policy: str = "full") -> torch.Tensor:
-    """``layer(h, mask_bias)`` rematerialized in the backward under
+          policy: str = "full", rows: Optional[tuple] = None
+          ) -> torch.Tensor:
+    """``layer(h, mask_bias, rows)`` rematerialized in the backward under
     ``policy`` (``full`` or ``dots``). The recompute runs with the dropout
     generators' states of the forward and puts back the states it found,
     so it draws the forward's masks and moves nothing else."""
     from torch.utils.checkpoint import (checkpoint,
                                         create_selective_checkpoint_contexts)
-    gens = list({id(m.generator): m.generator for m in layer.modules()
-                 if isinstance(m, Dropout) and m.generator is not None
-                 and m.training and m.p > 0}.values())
+    gens = _drawing_generators(layer)
     start = [g.get_state() for g in gens]
     ran = []
 
     def run(h, mask_bias):
         if not ran:
             ran.append(True)
-            return layer(h, mask_bias)
+            return layer(h, mask_bias, rows)
         found = [g.get_state() for g in gens]
         for g, state in zip(gens, start):
             g.set_state(state)
         try:
-            return layer(h, mask_bias)
+            return layer(h, mask_bias, rows)
         finally:
             for g, state in zip(gens, found):
                 g.set_state(state)
@@ -327,8 +377,25 @@ class BertEncoderModel(nn.Module):
                                                  **kw)
         self.embeddings.dropout = Dropout(cfg.hidden_dropout)
         self.encoder = _Module()
-        self.encoder.layer = nn.ModuleList(
-            BertLayer(cfg, policy) for _ in range(cfg.num_layers))
+        self.pp = None
+        if cfg.pipeline_parallel:
+            if cfg.remat_skip:
+                raise ValueError(
+                    "remat_skip requires the standard encoder: the pipeline-"
+                    "parallel stack runs one uniform scan body per layer, so "
+                    "per-layer remat choices cannot apply (use remat_policy "
+                    "or drop --pipeline_parallel)")
+            from multimodalsimilar_tpu_torch.parallel import pp
+            mesh = pp.building_mesh()
+            if mesh is not None:
+                self.pp = pp.stage_of(cfg.num_layers, mesh)
+        if self.pp is None:
+            self.encoder.layer = nn.ModuleList(
+                BertLayer(cfg, policy) for _ in range(cfg.num_layers))
+        else:
+            self.encoder.layer = StageLayers(
+                {str(i): BertLayer(cfg, policy) for i in self.pp.layers},
+                cfg.num_layers)
         self.pooler = _Module()
         self.pooler.dense = nn.Linear(H, H, **kw)
         if cfg.remat and cfg.remat_policy not in ("full", "dots"):
@@ -337,13 +404,48 @@ class BertEncoderModel(nn.Module):
         self.tp = None
         self.eval()
 
+    def layers(self) -> list:
+        """(global index, layer) of every layer this encoder holds."""
+        if self.pp is None:
+            return list(enumerate(self.encoder.layer))
+        return [(int(i), layer) for i, layer in self.encoder.layer.items()]
+
     def _layer(self, i: int, layer: BertLayer, h: torch.Tensor,
-               mask_bias: torch.Tensor) -> torch.Tensor:
+               mask_bias: torch.Tensor, rows=None) -> torch.Tensor:
         cfg = self.config
         if not cfg.remat or not torch.is_grad_enabled() or (
                 cfg.remat_skip and i % cfg.remat_skip == 0):
-            return layer(h, mask_bias)
-        return remat(layer, h, mask_bias, cfg.remat_policy)
+            return layer(h, mask_bias, rows)
+        return remat(layer, h, mask_bias, cfg.remat_policy, rows)
+
+    def _pipeline(self, h: torch.Tensor, mask_bias: torch.Tensor
+                  ) -> torch.Tensor:
+        """This stage's layers in the GPipe schedule, the dropout
+        generator moved past the other stages' layers (module
+        docstring)."""
+        from multimodalsimilar_tpu_torch.parallel import pp
+        held = self.layers()
+        B, S = h.shape[0], mask_bias.shape[-1]
+        gens = _drawing_generators(self.encoder.layer)
+
+        def skip(n):
+            for _ in range(n):
+                held[0][1].skip_masks(B, S, h.device)
+
+        skip(self.pp.layers.start)
+        start = [g.get_state() for g in gens]
+
+        def run(x, mb, rows):
+            for g, state in zip(gens, start):
+                g.set_state(state)
+            for i, layer in held:
+                x = self._layer(i, layer, x, mb, (B, rows))
+            return x
+
+        out = pp.gpipe(run, h, mask_bias, self.pp.mesh,
+                       self.config.pp_microbatches)
+        skip(self.config.num_layers - self.pp.layers.stop)
+        return out
 
     def forward(self, input_ids: torch.Tensor,
                 attention_mask: Optional[torch.Tensor] = None,
@@ -379,8 +481,11 @@ class BertEncoderModel(nn.Module):
                                 torch.zeros((), dtype=rd, device=dev),
                                 torch.full((), torch.finfo(rd).min,
                                            dtype=rd, device=dev))
-        for i, layer in enumerate(self.encoder.layer):
-            h = self._layer(i, layer, h, mask_bias)
+        if self.pp is not None:
+            h = self._pipeline(h, mask_bias)
+        else:
+            for i, layer in self.layers():
+                h = self._layer(i, layer, h, mask_bias)
         if tp is not None:
             h = tp.gather(h, S)
         pooled = _linear(h[:, 0], self.pooler.dense, cd)
@@ -388,23 +493,52 @@ class BertEncoderModel(nn.Module):
         return {"last_hidden_state": h, "pooler_output": pooled}
 
 
+class StageLayers(nn.ModuleDict):
+    """A pipeline stage's layers keyed by their global index, of an
+    encoder of ``num_layers``."""
+
+    def __init__(self, layers: Dict[str, nn.Module], num_layers: int):
+        super().__init__(layers)
+        self.num_layers = num_layers
+
+
+def _draw_order(module: nn.Module, keep: bool = True):
+    """(module, keep) in ``module.modules()`` order; a stage's layers
+    stand in the order of the whole encoder, each layer the stage does
+    not hold as a held layer with ``keep=False``."""
+    if not isinstance(module, StageLayers):
+        yield module, keep
+        for child in module.children():
+            yield from _draw_order(child, keep)
+        return
+    yield module, keep
+    held = dict(module.items())
+    template = next(iter(held.values()))
+    for i in range(module.num_layers):
+        yield from _draw_order(held.get(str(i), template),
+                               keep and str(i) in held)
+
+
 def init_bert_weights(module: nn.Module, generator: torch.Generator
                       ) -> None:
     """HF BertModel's init (initializer_range 0.02), drawn from
     ``generator``: normal(0, 0.02) weights and embeddings, zero biases,
-    unit LayerNorm scales. A module on the ``meta`` device (built to be
-    loaded) draws nothing."""
+    unit LayerNorm scales. A pipeline stage draws, and drops, the weights
+    of the layers it does not hold. A module on the ``meta`` device
+    (built to be loaded) draws nothing."""
     if any(p.is_meta for p in module.parameters()):
         return
     with torch.no_grad():
-        for m in module.modules():
+        for m, keep in _draw_order(module):
             if isinstance(m, (nn.Linear, nn.Embedding)):
                 w = torch.empty(m.weight.shape, dtype=torch.float32)
                 w.normal_(0.0, 0.02, generator=generator)
+                if not keep:
+                    continue
                 m.weight.copy_(w)
                 if isinstance(m, nn.Linear) and m.bias is not None:
                     m.bias.zero_()
-            elif isinstance(m, nn.LayerNorm):
+            elif isinstance(m, nn.LayerNorm) and keep:
                 m.weight.fill_(1.0)
                 m.bias.zero_()
 

@@ -8,7 +8,10 @@ the tree.
   (``params["tower"]["encoder"]``, the layout that
   ``multimodalsimilar_tpu/models/hf_import.py:bert_params_from_torch``
   writes, read in reverse; a ``fused_qkv`` layer's [H, 3, nh, hd] kernel
-  and [3, nh, hd] bias split into the three projections).
+  and [3, nh, hd] bias split into the three projections; a pipeline-
+  parallel tree's stacked ``pp_layers/stack`` unstacked first, by
+  ``unstack_layer_params``, this module's numpy copy of the JAX
+  function of that name). The other text converters go through it.
 * ``multilabel_classifier_from_jax`` and ``siamese_pair_from_jax``:
   ``NlpMultilabelClassifier`` (the tower and the three heads) and
   ``SiamesePairModel`` (the tower and the 2-way ``classifier``).
@@ -75,6 +78,29 @@ def _conv(sd: Dict[str, torch.Tensor], name: str, p: Mapping) -> None:
         sd[f"{name}.bias"] = _t(p["bias"])
 
 
+def unstack_layer_params(encoder: Mapping) -> dict:
+    """A JAX encoder tree in the pipeline-parallel layout (``pp_layers``:
+    ``{"stack": tree with a leading [L] axis}``) in the sequential one
+    (``layer_0`` .. ``layer_{L-1}``); any other tree as it is (JAX
+    ``models/bert.py:unstack_layer_params``)."""
+    if "pp_layers" not in encoder:
+        return dict(encoder)
+    out = {k: v for k, v in encoder.items() if k != "pp_layers"}
+    stack = encoder["pp_layers"]["stack"]
+
+    def take(tree, i):
+        if isinstance(tree, Mapping):
+            return {k: take(v, i) for k, v in tree.items()}
+        return np.asarray(tree)[i]
+
+    first = stack
+    while isinstance(first, Mapping):
+        first = next(iter(first.values()))
+    for i in range(np.asarray(first).shape[0]):
+        out[f"layer_{i}"] = take(stack, i)
+    return out
+
+
 def text_classifier_from_jax(params: Mapping, config: BertConfig
                              ) -> Dict[str, torch.Tensor]:
     """JAX ``NlpTextClassifier`` params (``variables["params"]``) -> the
@@ -85,7 +111,7 @@ def text_classifier_from_jax(params: Mapping, config: BertConfig
     [heads, head_dim, out] flatten back to [H, H]. The ArcFace head's
     ``params["head"]["weight"]`` is [C, D] in both packages and carries
     over as it is, when the tree has it."""
-    enc = params["tower"]["encoder"]
+    enc = unstack_layer_params(params["tower"]["encoder"])
     H = config.hidden_size
     sd: Dict[str, torch.Tensor] = {}
     e = "tower.encoder"

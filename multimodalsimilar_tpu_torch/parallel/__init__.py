@@ -1,10 +1,9 @@
 """Multi-GPU layouts of the port (counterpart of
 multimodalsimilar_tpu/parallel): the ``(data, model)`` mesh, its process
-groups and its collectives (``mesh.py``), tensor and sequence
-parallelism of the BERT tower (``tp.py``, ``sp.py``) and the launcher
-the tests and ``chip_smoke.py`` use in place of ``torchrun``
-(``spawn.py``). Pipeline parallelism (the JAX package's ``pp.py``) is
-not ported yet (ROADMAP A17 part 2 item 5)."""
+groups and its collectives (``mesh.py``), tensor, sequence and pipeline
+parallelism of the BERT tower (``tp.py``, ``sp.py``, ``pp.py``) and the
+launcher the tests and ``chip_smoke.py`` use in place of ``torchrun``
+(``spawn.py``)."""
 
 from multimodalsimilar_tpu_torch.parallel.mesh import (DATA_AXIS, MODEL_AXIS,
                                                        Mesh, MeshRules,

@@ -20,9 +20,13 @@ forward, each with its conjugate in the backward (Megatron's ``f``/``g``
 and the sequence-parallel pair): ``copy_to_group`` (identity, then an
 all-reduce of the gradient), ``reduce_from_group`` (all-reduce, then the
 identity), ``reduce_scatter_along`` / ``gather_along`` (a reduce-scatter
-or an all-gather along one dimension, the other in the backward) and
+or an all-gather along one dimension, the other in the backward),
 ``split_along`` (this rank's block of a tensor every rank holds whole,
-gathered in the backward).
+gathered in the backward) and ``broadcast_from`` (one rank's tensor on
+every rank of the group, the pipeline's last stage's result). The
+pipeline's stage hand-off, ``Mesh.shift`` (JAX's ``ppermute`` over the
+pairs (i, i + 1)), is called by the schedule itself in both directions
+(``parallel/pp.py`` drives its own backward).
 
 Without a process group (a plain one-process run) the mesh is 1 x 1 and
 every collective is the identity. With one, even of one rank, every
@@ -189,6 +193,57 @@ class Mesh:
         dist.all_gather_into_tensor(out, x, group=group)
         return out.movedim(0, dim)
 
+    def _peer(self, index: int, axis: str) -> int:
+        """The global rank at coordinate ``index`` of this rank's ``axis``
+        group."""
+        if axis == MODEL_AXIS:
+            return self.data_index * self.model + index
+        return index * self.model + self.model_index
+
+    def _index(self, axis: str) -> int:
+        return self.model_index if axis == MODEL_AXIS else self.data_index
+
+    def shift(self, t: torch.Tensor, reverse: bool = False,
+              axis: str = MODEL_AXIS) -> torch.Tensor:
+        """JAX's ``ppermute`` over the pairs (i, i + 1) of ``axis`` (the
+        pairs (i + 1, i) when ``reverse``): ``t`` goes to the next rank of
+        the group and the previous rank's ``t`` comes back; the first rank
+        (the last when ``reverse``) has no previous one and gets zeros.
+        Every rank of the group calls it with a tensor of one shape and
+        dtype. The backend is chosen, not tried: NCCL moves the tensors
+        between the cards, gloo moves host tensors, so a CUDA tensor goes
+        through a host copy each way."""
+        out = torch.zeros_like(t)
+        group, n = self.group(axis), self.shape[axis]
+        if group is None or n == 1:
+            return out
+        step = -1 if reverse else 1
+        dst, src = self._index(axis) + step, self._index(axis) - step
+        host = t.is_cuda and dist.get_backend(group) == "gloo"
+        send = t.detach().to("cpu" if host else t.device).contiguous()
+        recv = torch.empty_like(send)
+        ops = []
+        if 0 <= src < n:
+            ops.append(dist.P2POp(dist.irecv, recv, self._peer(src, axis),
+                                  group))
+        if 0 <= dst < n:
+            ops.append(dist.P2POp(dist.isend, send, self._peer(dst, axis),
+                                  group))
+        for work in dist.batch_isend_irecv(ops):
+            work.wait()
+        if 0 <= src < n:
+            out.copy_(recv)
+        return out
+
+    def broadcast(self, t: torch.Tensor, index: int,
+                  axis: str = MODEL_AXIS) -> torch.Tensor:
+        """``t`` of the rank at coordinate ``index`` of ``axis``, in place
+        on every rank of the group; returns ``t``."""
+        group = self.group(axis)
+        if group is not None:
+            dist.broadcast(t, src=self._peer(index, axis), group=group)
+        return t
+
     def broadcast_object(self, obj: Any, src: int = 0) -> Any:
         """``obj`` of global rank ``src`` on every rank."""
         if not self.distributed:
@@ -346,6 +401,17 @@ class _Split(torch.autograd.Function):
         return ctx.mesh.all_gather_dim(grad.contiguous(), ctx.dim), None, None
 
 
+class _BroadcastFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, index):
+        ctx.source = mesh.model_index == index
+        return mesh.broadcast(x.detach().contiguous().clone(), index)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return (grad if ctx.source else torch.zeros_like(grad)), None, None
+
+
 def _own_block(x: torch.Tensor, mesh: Mesh, dim: int) -> torch.Tensor:
     size = x.shape[dim] // mesh.model
     return x.narrow(dim, mesh.model_index * size, size).contiguous()
@@ -387,3 +453,13 @@ def split_along(x: torch.Tensor, mesh: Mesh, dim: int) -> torch.Tensor:
     """This rank's block along ``dim`` of an ``x`` every rank of the model
     group holds whole; the backward all-gathers the blocks' gradients."""
     return _Split.apply(x, mesh, dim)
+
+
+def broadcast_from(x: torch.Tensor, mesh: Mesh, index: int) -> torch.Tensor:
+    """``x`` of the rank at model coordinate ``index`` on every rank of the
+    model group (what the others pass only gives the shape). The result
+    is used alike on every rank, past the model group's sum of the
+    partial gradients (a class-sharded head's ``copy_to_group``), so every
+    rank's gradient of it is the whole: the backward keeps the source's
+    and gives the others zeros."""
+    return _BroadcastFrom.apply(x, mesh, index)

@@ -27,7 +27,13 @@ gathers each of them, along the dimension it was cut on, with its
 optimizer moments and its gradient so far before rank 0 writes
 (``gather_shards``), and cuts them to each rank's block again on resume
 (``shard_state``): such a checkpoint serves, embeds and exports on one
-card unchanged, as an orbax global array does in JAX.
+card unchanged, as an orbax global array does in JAX. Under pipeline
+parallelism each rank holds its stage's layers (``parallel/pp.py``): the
+layers of every stage, their optimizer moments and their gradients so
+far are gathered by name before rank 0 writes (``gather_stages``; the
+optimizer state renumbered to the one-card parameter order), and on
+resume each rank keeps its own (``stage_state``). The port never writes
+the JAX package's stacked ``pp_layers`` tree.
 """
 
 from __future__ import annotations
@@ -204,4 +210,149 @@ def shard_state(state: dict, shards: dict, optimizer, mesh) -> dict:
         size = full // mesh.model
         sec[key] = sec[key].narrow(dim, mesh.model_index * size,
                                    size).clone()
+    return out
+
+
+# -- pipeline stages ----------------------------------------------------------
+
+def _stage_blocks(stages: dict) -> list:
+    """(name prefix of the layers, held global indices, layer count) of
+    each pipeline-parallel encoder; ``stages``: module name -> encoder."""
+    return [(f"{name}.encoder.layer." if name else "encoder.layer.",
+             enc.pp.layers, enc.config.num_layers)
+            for name, enc in stages.items()]
+
+
+def _one_card_order(names: list, blocks: list) -> list:
+    """``names`` (this stage's, in order) with each encoder's held layers
+    replaced, where the first of them stands, by every layer's names in
+    the one-card order."""
+    out, done = [], set()
+    for n in names:
+        block = next((b for b in blocks if n.startswith(b[0])), None)
+        if block is None:
+            out.append(n)
+            continue
+        prefix, held, total = block
+        if prefix in done:
+            continue
+        done.add(prefix)
+        suffixes = [m[len(prefix):].split(".", 1)[1] for m in names
+                    if m.startswith(f"{prefix}{held.start}.")]
+        out += [f"{prefix}{i}.{sfx}" for i in range(total)
+                for sfx in suffixes]
+    return out
+
+
+def _layer_suffixes(names, prefix: str, first: int) -> list:
+    return [n[len(prefix):].split(".", 1)[1] for n in names
+            if n.startswith(f"{prefix}{first}.")]
+
+
+def _gather_layers(local: torch.Tensor, mesh) -> torch.Tensor:
+    """[every stage's layers, ...] from this stage's stacked ``local``, on
+    the host: one tensor at a time reaches the card, so the whole stack
+    never stands on any rank's device (the memory a stage saves)."""
+    return mesh.all_gather_dim(local, 0, MODEL_AXIS).cpu()
+
+
+def gather_stage_tensors(tensors: dict, stages: dict, mesh) -> dict:
+    """A name -> tensor dict of this stage (parameters, gradients) in the
+    one-card layout: every stage's layers all-gathered over the model
+    group, on the host. Every rank calls it."""
+    blocks = _stage_blocks(stages)
+    out = dict(tensors)
+    for prefix, held, total in blocks:
+        for sfx in _layer_suffixes(list(tensors), prefix, held.start):
+            local = torch.stack([tensors[f"{prefix}{i}.{sfx}"]
+                                 for i in held])
+            every = _gather_layers(local, mesh)
+            out.update({f"{prefix}{i}.{sfx}": every[i]
+                        for i in range(total)})
+    return {n: out[n] for n in _one_card_order(list(tensors), blocks)}
+
+
+def _renumbered(param_groups: list, groups: list) -> list:
+    """``param_groups`` numbering the parameters of ``groups`` (name lists)
+    in order."""
+    out, start = [], 0
+    for pg, names in zip(param_groups, groups):
+        out.append(dict(pg, params=list(range(start, start + len(names)))))
+        start += len(names)
+    return out
+
+
+def _optimizer_names(optimizer, model) -> list:
+    """The parameter names in the optimizer's numbering."""
+    names = {id(p): n for n, p in model.named_parameters()}
+    return [[names[id(p)] for p in g["params"]]
+            for g in optimizer.param_groups]
+
+
+def gather_stages(state: dict, stages: dict, model, optimizer,
+                  mesh) -> dict:
+    """``state`` (the Trainer's, its class blocks already gathered) in the
+    one-card layout: the model's and the accumulated gradients' layers
+    gathered by name, and the optimizer's moments of every layer
+    gathered and renumbered to the one-card parameter order (a
+    non-tensor or scalar entry, the step count, is this stage's first
+    layer's for every layer: the stages step together). Every rank
+    calls it."""
+    out = _rebuilt(state)
+    out["model"] = gather_stage_tensors(state["model"], stages, mesh)
+    if out["accum_grads"]:
+        out["accum_grads"] = gather_stage_tensors(out["accum_grads"],
+                                                  stages, mesh)
+    groups = _optimizer_names(optimizer, model)
+    stage_names = [n for g in groups for n in g]
+    opt = out["optimizer"]
+    by_name = {n: opt["state"][i] for i, n in enumerate(stage_names)
+               if i in opt["state"]}
+    blocks = _stage_blocks(stages)
+    for prefix, held, total in blocks:
+        first = f"{prefix}{held.start}."
+        for sfx in _layer_suffixes(stage_names, prefix, held.start):
+            entry = by_name.get(first + sfx, {})
+            merged = [dict(entry) for _ in range(total)]
+            for key, v in entry.items():
+                if not torch.is_tensor(v) or v.dim() == 0:
+                    continue
+                local = torch.stack([by_name[f"{prefix}{i}.{sfx}"][key]
+                                     for i in held])
+                every = _gather_layers(local, mesh)
+                for i in range(total):
+                    merged[i][key] = every[i]
+            by_name.update({f"{prefix}{i}.{sfx}": merged[i]
+                            for i in range(total) if merged[i]})
+    order = [_one_card_order(g, blocks) for g in groups]
+    flat = [n for g in order for n in g]
+    opt["state"] = {i: by_name[n] for i, n in enumerate(flat)
+                    if n in by_name}
+    opt["param_groups"] = _renumbered(opt["param_groups"], order)
+    return out
+
+
+def stage_state(state: dict, stages: dict, model, optimizer) -> dict:
+    """A one-card ``state`` with only this rank's layers of each
+    pipeline-parallel encoder, its optimizer state renumbered to this
+    stage's parameter order."""
+    blocks = _stage_blocks(stages)
+    keep = set(model.state_dict())
+
+    def own(d):
+        return {k: v for k, v in d.items()
+                if k in keep or not any(k.startswith(b[0]) for b in blocks)}
+
+    out = _rebuilt(state)
+    out["model"] = own(out["model"])
+    out["accum_grads"] = own(out["accum_grads"])
+    groups = _optimizer_names(optimizer, model)
+    one_card = {n: i for i, n in enumerate(
+        n for g in groups for n in _one_card_order(g, blocks))}
+    opt = out["optimizer"]
+    stage_names = [n for g in groups for n in g]
+    opt["state"] = {i: opt["state"][one_card[n]]
+                    for i, n in enumerate(stage_names)
+                    if one_card[n] in opt["state"]}
+    opt["param_groups"] = _renumbered(opt["param_groups"], groups)
     return out

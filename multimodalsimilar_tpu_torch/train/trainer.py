@@ -49,18 +49,28 @@ package's pjit step computes on the whole batch:
   this rank's block are summed over the model group before the
   data-group mean); AdamP reduces its channel sums of every cut
   parameter over the model group (``AdamP.shard``);
+* ``pipeline_parallel`` (``--pipeline_parallel M``) trains a model built
+  inside ``parallel/pp.py:building(mesh)``: each rank holds its stage's
+  layers of every pipeline-parallel BERT encoder, and only their
+  optimizer moments, and runs the GPipe schedule over the model group;
+  the embeddings' gradient, which stage 0 alone has (the others hold
+  zeros), is summed over the model group before the data-group mean,
+  and the pooler and heads, which every stage runs alike on the
+  broadcast result, need nothing;
 * dropout masks are drawn from ``(seed, step)`` mixed with the rank's
   data coordinate (the ranks of one data coordinate see one batch and
   draw the same masks);
 * metrics are meaned over the data group where they are logged, eval
   sums over the whole split; rank 0 alone writes metrics and
   checkpoints, the latter in the one-card layout with every cut
-  parameter gathered (``full_state``), and ``load_state`` cuts them
-  again.
+  parameter and every stage's layers gathered (``full_state``), and
+  ``load_state`` cuts them again.
 
 The JAX Trainer's refusals of the layouts that do not compose are kept
-word for word. Pipeline parallelism is not ported (ROADMAP A17 part 2
-item 5): ``pipeline_parallel`` raises.
+word for word and in its order (``check_layouts``), and so are its
+refusals of a half-configured pipeline: a Trainer with
+``pipeline_parallel`` over a model that holds no stage, and a first
+step that ran the schedule without the configured microbatches.
 """
 
 from __future__ import annotations
@@ -80,9 +90,12 @@ from multimodalsimilar_tpu_torch.parallel.mesh import (DATA_AXIS,
                                                        MODEL_AXIS, Shard,
                                                        create_mesh,
                                                        shard_batch)
+from multimodalsimilar_tpu_torch.parallel import pp
 from multimodalsimilar_tpu_torch.train.checkpoint import (CheckpointManager,
                                                           gather_shards,
-                                                          shard_state)
+                                                          gather_stages,
+                                                          shard_state,
+                                                          stage_state)
 from multimodalsimilar_tpu_torch.train.metrics import MetricLogger
 from multimodalsimilar_tpu_torch.train.tasks import Task
 from multimodalsimilar_tpu_torch.utils.devices import resolve_device
@@ -92,6 +105,19 @@ from multimodalsimilar_tpu_torch.utils.profiling import StepTimer, trace
 PP_WITH_TP = ("pipeline_parallel and tensor/sequence_parallel shard the same "
               "mesh model axis in incompatible layouts (stacked stages vs "
               "per-layer weight splits) — pick one")
+# the JAX Trainer's refusals of a half-configured pipeline
+PP_NO_STAGES = ("pipeline_parallel is on but the state holds no stacked "
+                "layer tree (pp_layers) — build the model with "
+                "pipeline_parallel=True in its BertConfig (cli does this "
+                "automatically)")
+PP_NOT_APPLIED = (
+    "TrainerConfig.pipeline_parallel is on but the model applied no "
+    "pipeline_parallel behavior — build the model with "
+    "pipeline_parallel=True in its BertConfig (cli does this "
+    "automatically); if it already is, the per-chip batch likely failed to "
+    "split into pp_microbatches equal microbatches (batch_size must divide "
+    "by data_axis * pp_microbatches) and the step rode the sequential "
+    "fallback")
 # gradient elements per all-reduce of _reduce_gradients
 BUCKET_ELEMENTS = 8 * 2**20
 
@@ -100,6 +126,13 @@ def _f32(x: float) -> float:
     """The margin is a float32 in the JAX TrainState; keep the same
     rounding so both packages log and apply the same margin."""
     return float(np.float32(x))
+
+
+def _stages(model) -> dict:
+    """Module name -> encoder of every pipeline stage in ``model``."""
+    from multimodalsimilar_tpu_torch.models.bert import BertEncoderModel
+    return {name: m for name, m in model.named_modules()
+            if isinstance(m, BertEncoderModel) and m.pp is not None}
 
 
 @dataclasses.dataclass
@@ -134,13 +167,45 @@ class TrainerConfig:
     # their residual stream in sequence blocks (needs tensor_parallel and
     # a model built with BertConfig.sequence_parallel)
     sequence_parallel: bool = False
-    # not ported (ROADMAP A17 part 2 item 5): the Trainer raises
+    # GPipe stages of the BERT towers over the model axis (a model built
+    # inside parallel.pp.building)
     pipeline_parallel: bool = False
 
     def __post_init__(self):
         if self.grad_accum < 1:
             raise ValueError(f"grad_accum must be >= 1, got "
                              f"{self.grad_accum}")
+
+
+def check_layouts(cfg: TrainerConfig, mesh) -> None:
+    """The JAX Trainer's refusals of layouts that do not compose, in its
+    order and words (the command line calls it before it builds a
+    pipeline stage)."""
+    if cfg.bf16_grad_allreduce and (cfg.model_parallel_heads
+                                    or cfg.tensor_parallel
+                                    or cfg.pipeline_parallel):
+        raise ValueError(
+            "bf16_grad_allreduce is a pure-DP path (shard_map over the "
+            "data axis with fully replicated params); it cannot compose "
+            "with model_parallel_heads/tensor_parallel/"
+            "pipeline_parallel — pick one")
+    if cfg.pipeline_parallel:
+        if cfg.tensor_parallel or cfg.sequence_parallel:
+            raise ValueError(PP_WITH_TP)
+        pp.check_mesh(mesh)
+    if cfg.tensor_parallel and mesh.model <= 1:
+        raise ValueError(
+            "tensor_parallel requires a mesh model axis > 1 (e.g. "
+            "--model_parallel 2); on this mesh every tower weight "
+            "would silently stay replicated")
+    if cfg.sequence_parallel:
+        if not cfg.tensor_parallel:
+            raise ValueError(
+                "sequence_parallel shards the residual stream over the "
+                "tensor-parallel mesh group — it requires "
+                "tensor_parallel (pass --tensor_parallel too)")
+        from multimodalsimilar_tpu_torch.parallel.sp import check_mesh
+        check_mesh(mesh)
 
 
 class Trainer:
@@ -158,8 +223,20 @@ class Trainer:
         self.task = task
         self.config = config
         self.mesh = mesh if mesh is not None else create_mesh()
-        self._check_layouts()
+        check_layouts(config, self.mesh)
         self.model = task.model.to(self.device)
+        # name -> encoder of each pipeline-parallel stage, and the
+        # parameters whose gradients only stage 0 holds
+        self.stages = _stages(self.model)
+        self.pipeline_partial = []
+        if config.pipeline_parallel:
+            self.pipeline_partial = self._check_stages()
+        elif self.stages:
+            raise ValueError(
+                "the model holds pipeline stages (built inside "
+                "parallel.pp.building) but TrainerConfig.pipeline_parallel "
+                "is off")
+        self._pp_checked = False
         # name -> Shard of each parameter cut to this rank's block over
         # the model group (heads, tensor-parallel tower weights), and the
         # parameters whose gradients are partial over it (sequence
@@ -195,37 +272,21 @@ class Trainer:
 
     # -- placement ------------------------------------------------------
 
-    def _check_layouts(self) -> None:
-        """The JAX Trainer's refusals of layouts that do not compose, in
-        its order and words; pipeline parallelism is not ported."""
-        cfg, model_n = self.config, self.mesh.model
-        if cfg.bf16_grad_allreduce and (cfg.model_parallel_heads
-                                        or cfg.tensor_parallel
-                                        or cfg.pipeline_parallel):
-            raise ValueError(
-                "bf16_grad_allreduce is a pure-DP path (shard_map over the "
-                "data axis with fully replicated params); it cannot compose "
-                "with model_parallel_heads/tensor_parallel/"
-                "pipeline_parallel — pick one")
-        if cfg.pipeline_parallel:
-            if cfg.tensor_parallel or cfg.sequence_parallel:
-                raise ValueError(PP_WITH_TP)
-            raise NotImplementedError(
-                "pipeline_parallel: the GPipe schedule and its stacked "
-                "layer layout are not ported (ROADMAP A17 part 2 item 5)")
-        if cfg.tensor_parallel and model_n <= 1:
-            raise ValueError(
-                "tensor_parallel requires a mesh model axis > 1 (e.g. "
-                "--model_parallel 2); on this mesh every tower weight "
-                "would silently stay replicated")
-        if cfg.sequence_parallel:
-            if not cfg.tensor_parallel:
+    def _check_stages(self) -> list:
+        """A pipeline-parallel Trainer's model holds this rank's stage of
+        each pipeline-parallel encoder, over this mesh; returns the names
+        of the embeddings' parameters."""
+        if not self.stages:
+            raise ValueError(PP_NO_STAGES)
+        partial = []
+        for name, enc in self.stages.items():
+            if enc.pp.mesh.shape != self.mesh.shape:
                 raise ValueError(
-                    "sequence_parallel shards the residual stream over the "
-                    "tensor-parallel mesh group — it requires "
-                    "tensor_parallel (pass --tensor_parallel too)")
-            from multimodalsimilar_tpu_torch.parallel.sp import check_mesh
-            check_mesh(self.mesh)
+                    f"{name}: built for a {enc.pp.mesh.shape} mesh, trained "
+                    f"over {self.mesh.shape}")
+            partial += [f"{name}.embeddings.{n}" for n, _ in
+                        enc.embeddings.named_parameters()]
+        return partial
 
     def _shard_heads(self) -> dict:
         """Cut each ArcFace head whose class count divides by the model
@@ -282,14 +343,22 @@ class Trainer:
         """``state()`` in the one-card layout: every cut parameter, its
         optimizer moments and its gradient so far gathered over the model
         group (a collective: every rank calls it)."""
-        if not self.shards:
-            return self.state()
-        return gather_shards(self.state(), self.shards, self.optimizer,
-                             self.mesh)
+        state = self.state()
+        if self.shards:
+            state = gather_shards(state, self.shards, self.optimizer,
+                                  self.mesh)
+        if self.stages:
+            state = gather_stages(state, self.stages, self.model,
+                                  self.optimizer, self.mesh)
+        return state
 
     def load_state(self, state: dict) -> None:
-        """Load a ``full_state()`` (the one-card layout), cutting every
-        sharded parameter to this rank's block."""
+        """Load a ``full_state()`` (the one-card layout), keeping this
+        rank's stage and cutting every sharded parameter to this rank's
+        block."""
+        if self.stages:
+            state = stage_state(state, self.stages, self.model,
+                                self.optimizer)
         if self.shards:
             state = shard_state(state, self.shards, self.optimizer,
                                 self.mesh)
@@ -330,7 +399,12 @@ class Trainer:
         accum = self.config.grad_accum
         self.model.train()
         self.generator.manual_seed(self._mask_seed())
+        applied = pp.applied_count()
         loss, metrics = self.task.train_loss(batch, self.margin)
+        if self.stages and not self._pp_checked:
+            if pp.applied_count() == applied:
+                raise ValueError(PP_NOT_APPLIED)
+            self._pp_checked = True
         # the accumulated gradient is the mean of the micro-steps'
         (loss / accum if accum > 1 else loss).backward()
         if self.config.bf16_grad_allreduce:
@@ -344,15 +418,17 @@ class Trainer:
         return metrics
 
     def _reduce_gradients(self) -> None:
-        """Sum the sequence-partial gradients over the model group, then
-        mean every gradient over the data group: flat buckets of up to
+        """Sum the sequence- and pipeline-partial gradients over the model
+        group, then mean every gradient over the data group: flat buckets
+        of up to
         ``BUCKET_ELEMENTS``, one all-reduce each, in f32 (or bfloat16
         under ``bf16_grad_allreduce``, cast back after the mean, as JAX's
         ``pmean(g.astype(bf16))``)."""
-        if self.sequence_partial:
+        partial = self.sequence_partial + self.pipeline_partial
+        if partial:
             params = dict(self.model.named_parameters())
             self._all_reduce_buckets(
-                [params[n].grad for n in self.sequence_partial
+                [params[n].grad for n in partial
                  if params[n].grad is not None], MODEL_AXIS, "sum",
                 torch.float32)
         if self.mesh.group(DATA_AXIS) is None:

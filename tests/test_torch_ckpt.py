@@ -355,9 +355,13 @@ def test_import_refusals(tmp_path):
     with pytest.raises(SystemExit, match="no text tower"):
         cli.main(base + _flags("cv") + ["--pipeline_parallel", "2"],
                  device="cpu")
-    with pytest.raises(NotImplementedError, match="A17"):
-        cli.main(base + _flags("nlp") + ["--pipeline_parallel", "2"],
-                 device="cpu")
+    # --pipeline_parallel is accepted for a text kind: the one-card layout
+    plain = CheckpointManager(str(tmp_path / "ckpt")).restore()["model"]
+    cli.main(base + _flags("nlp") + ["--pipeline_parallel", "2",
+                                      "--overwrite"], device="cpu")
+    staged = CheckpointManager(str(tmp_path / "ckpt")).restore()["model"]
+    assert list(staged) == list(plain)
+    assert all(torch.equal(staged[k], v) for k, v in plain.items())
     with pytest.raises(KeyError):               # base preset: 12 layers
         cli.main(base + ["--kind", "nlp", "--bert_preset", "base",
                          "--overwrite"], device="cpu")

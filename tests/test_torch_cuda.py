@@ -1018,3 +1018,35 @@ def test_remat_on_card_equals_no_remat_with_dropout(dev, policy):
     assert a == b
     for k, g in ga.items():
         assert torch.equal(g, gb[k]), k
+
+
+@pytest.mark.parametrize("backend", ["gloo", "nccl"])
+def test_pipeline_handoff_on_card(dev, backend):
+    """Two ranks over gloo on this card (the hand-off staged through the
+    host) or, with two cards, over NCCL: ``Mesh.shift`` hands rank 0's
+    bf16 tensor to rank 1 (rank 0 receives zeros) and back in reverse,
+    ``broadcast_from`` gives both ranks rank 1's tensor and keeps only
+    rank 1's gradient, and the GPipe schedule of eight toy layers (two
+    microbatches) equals the layers in turn within 1e-6, forward and
+    gradients."""
+    import torch_parallel_workers as W
+    from multimodalsimilar_tpu_torch.parallel.spawn import spawn
+    if backend == "nccl" and torch.cuda.device_count() < 2:
+        pytest.skip("NCCL ranks need a card each: this machine has one")
+    ranks = spawn(W.card_pipeline, 2, (), device="cuda", backend=backend,
+                  timeout=180, threads=None)
+    x = np.arange(6, dtype=np.float32).reshape(2, 3)
+    zero = np.zeros_like(x)
+    assert [r["rank"] for r in ranks] == [0, 1]
+    np.testing.assert_array_equal(ranks[0]["next"], zero)
+    np.testing.assert_array_equal(ranks[1]["next"], x)
+    np.testing.assert_array_equal(ranks[0]["prev"], x + 1)
+    np.testing.assert_array_equal(ranks[1]["prev"], zero)
+    for r in ranks:
+        np.testing.assert_array_equal(r["bcast"], np.arange(4) + 10.0)
+        sched = r["schedule"]
+        assert sched["applied"] == 1
+        assert max(sched[k] for k in ("out", "grad_x", "grad_w",
+                                      "grad_b")) <= 1e-6
+    np.testing.assert_array_equal(ranks[0]["grad"], np.zeros(4))
+    np.testing.assert_array_equal(ranks[1]["grad"], np.full(4, 2.0))

@@ -743,8 +743,9 @@ def test_refusals_match_jax(capsys):
     sequence parallelism without tensor parallelism or at model 1, a
     model axis that divides no head, a model no tensor-parallel rule
     cuts, and a sequence-parallel Trainer over a model not built for it.
-    Pipeline parallelism alone is not ported (ROADMAP A17 part 2 item 5).
-    The fused loss and AdamP over class blocks (C3) and tensor
+    A pipeline-parallel Trainer over a model that holds no stage raises
+    JAX's message of a state without the stacked layers (held against
+    JAX in tests/test_torch_pp.py). The fused loss and AdamP over class blocks (C3) and tensor
     parallelism with an indivisible block (a notice) now build."""
     model = NlpTextClassifier(BertConfig.tiny(**BERT), num_labels=37)
     opt = lambda m: dual_group_adamw(m, lambda s: 1e-3,  # noqa: E731
@@ -762,7 +763,8 @@ def test_refusals_match_jax(capsys):
             Trainer(text_arcface_task(model), opt, TrainerConfig(**cfg),
                     device="cpu", mesh=Mesh(*shape))
         assert str(got.value) == _j_trainer_error(cfg, shape), cfg
-    with pytest.raises(NotImplementedError, match="A17 part 2 item 5"):
+    with pytest.raises(ValueError,
+                       match="holds no stacked layer tree \\(pp_layers\\)"):
         Trainer(text_arcface_task(model), opt,
                 TrainerConfig(pipeline_parallel=True), device="cpu",
                 mesh=Mesh(1, 2))

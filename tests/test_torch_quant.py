@@ -48,6 +48,7 @@ from multimodalsimilar_tpu.pipelines.embedders import (
 from multimodalsimilar_tpu.utils.dtypes import DTypePolicy as JPolicy
 from multimodalsimilar_tpu_torch import cli
 from multimodalsimilar_tpu_torch.cli.embedders import _build_text_embedder
+from multimodalsimilar_tpu_torch.data.datasets import InputError
 from multimodalsimilar_tpu_torch.data.tokenizer import (TextTokenizer,
                                                         build_char_vocab)
 from multimodalsimilar_tpu_torch.models import quant as Q
@@ -335,8 +336,10 @@ def test_embed_incremental_int8_matches_jax_cli(int8_setup, monkeypatch,
 def test_int8_with_a_pipeline_parallel_checkpoint_exits_as_jax(
         int8_setup, tmp_path, monkeypatch):
     """The JAX embedder rebuilds the stacked layout, then refuses --int8;
-    the port refuses with the same message (its own pipeline-parallel
-    checkpoints are not ported, ROADMAP A17)."""
+    the port refuses with the same message. Without --int8 the JAX orbax
+    directory is no port checkpoint (the port's own pipeline-parallel
+    checkpoints are in the one-card layout): the port's "no checkpoint"
+    error."""
     d, vocab, params = int8_setup
     meta = tmp_path / "pp" / "100" / "default"
     meta.mkdir(parents=True)
@@ -354,5 +357,5 @@ def test_int8_with_a_pipeline_parallel_checkpoint_exits_as_jax(
     assert str(err.value) == str(jerr.value)
     assert "pipeline-parallel" in str(err.value)
     args.int8 = False
-    with pytest.raises(NotImplementedError, match="A17"):
+    with pytest.raises(InputError, match="no checkpoint found"):
         _build_text_embedder(args, device="cpu")

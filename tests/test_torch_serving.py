@@ -1036,10 +1036,11 @@ def test_serve_score_th_defaults_and_unported_flags(tmp_path, capsys):
 
 
 def test_build_text_embedder_refuses_unported_checkpoints(tmp_path):
-    """A JAX pipeline-parallel checkpoint (its orbax metadata names the
-    stacked ``pp_layers``) raises; so does a directory with no port
-    checkpoint, and an HF tokenizer that is not on disk (``from_hf``
-    reads local files only, it never downloads)."""
+    """A JAX pipeline-parallel checkpoint (an orbax directory whose
+    metadata names the stacked ``pp_layers``) is no port checkpoint: the
+    port's "no checkpoint" error, as for an empty directory; so does an
+    HF tokenizer that is not on disk (``from_hf`` reads local files only,
+    it never downloads)."""
     from multimodalsimilar_tpu_torch.cli.embedders import (
         _build_text_embedder)
     from multimodalsimilar_tpu_torch.data.datasets import InputError
@@ -1052,7 +1053,8 @@ def test_build_text_embedder_refuses_unported_checkpoints(tmp_path):
                      encoding="utf-8")
     args = _serve_args("x", "--tokenizer", str(vocab), "--checkpoint",
                        str(tmp_path / "pp"))
-    with pytest.raises(NotImplementedError, match="pipeline"):
+    with pytest.raises(InputError, match="no checkpoint found under "
+                       + str(tmp_path / "pp")):
         _build_text_embedder(args, df=table, device="cpu")
     args.checkpoint = str(tmp_path / "empty")
     with pytest.raises(InputError, match="no checkpoint"):

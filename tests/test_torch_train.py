@@ -540,12 +540,12 @@ def test_async_failure_reraises_and_a_retry_writes(tmp_path, monkeypatch):
 
 
 def test_unported_options_raise(tmp_path):
-    """Only pipeline parallelism (ROADMAP A17 part 2 item 5) stays
-    unported: its TrainerConfig field and its command flag raise, and with
-    tensor or sequence parallelism it is the JAX Trainer's refusal.
-    Tensor and sequence parallelism refuse a mesh without a model axis
-    (the JAX messages: tests/test_torch_parallel.py holds them word for
-    word). Accumulation, profiling, AdamP, the cosine schedules, the fused
+    """Pipeline parallelism, as its TrainerConfig field and as its command
+    flag, refuses a mesh without a model axis, and with tensor or sequence
+    parallelism it is the JAX Trainer's refusal (it runs over ranks in
+    tests/test_torch_pp.py). Tensor and sequence parallelism refuse a
+    mesh without a model axis (the JAX messages: tests/test_torch_parallel.py
+    and tests/test_torch_pp.py hold them word for word). Accumulation, profiling, AdamP, the cosine schedules, the fused
     loss, remat, class-sharded heads and the bf16 gradient all-reduce
     build (the layouts over ranks run in tests/test_torch_parallel.py).
     ``--model_parallel 2`` on one process fails as the JAX package's
@@ -553,7 +553,8 @@ def test_unported_options_raise(tmp_path):
     model = NlpTextClassifier(BertConfig.tiny(), num_labels=3)
     opt = lambda m: dual_group_adamw(m, lambda s: 0.0,  # noqa: E731
                                      lambda s: 0.0)
-    with pytest.raises(NotImplementedError, match="A17 part 2 item 5"):
+    with pytest.raises(ValueError,
+                       match="pipeline_parallel needs a mesh model axis > 1"):
         Trainer(text_arcface_task(model), opt,
                 TrainerConfig(pipeline_parallel=True), device="cpu")
     for cfg, match in ((dict(pipeline_parallel=True, tensor_parallel=True),
@@ -581,7 +582,8 @@ def test_unported_options_raise(tmp_path):
                 margin_delta_per_epoch=0.0, output="unused", seed=0,
                 epochs=1)
     args = argparse.Namespace(**base, pipeline_parallel=2)
-    with pytest.raises(NotImplementedError, match="pipeline_parallel"):
+    with pytest.raises(ValueError,
+                       match="pipeline_parallel needs a mesh model axis > 1"):
         _trainer(text_arcface_task(model), args, 4, device="cpu")
     args = argparse.Namespace(**base, pipeline_parallel=2,
                               tensor_parallel=True)

@@ -802,9 +802,9 @@ def test_train_commands_refuse_what_jax_refuses(tmp_path):
     """The JAX commands' refusals (SystemExit) of flags that do not apply,
     ``--remat_policy``/``--remat_skip`` without ``--remat`` (JAX
     ``_bert_config``'s SystemExit), the JAX Trainer's ValueErrors of
-    layouts that need a model axis or do not compose, and the port's own
-    of pipeline parallelism (NotImplementedError, ROADMAP A17 part 2
-    item 5), before any training. ``--remat`` builds; ``--model_parallel``,
+    layouts that need a model axis or do not compose (pipeline
+    parallelism included: it needs ``--model_parallel`` > 1, and runs
+    over ranks in tests/test_torch_pp.py), before any training. ``--remat`` builds; ``--model_parallel``,
     ``--tensor_parallel``, ``--sequence_parallel`` and ``--bf16_grads``
     run over ranks (tests/test_torch_parallel.py)."""
     argv = ["--data", "unused.csv", "--img_root", "unused"]
@@ -825,8 +825,8 @@ def test_train_commands_refuse_what_jax_refuses(tmp_path):
                     ("multilabel", CT.cmd_train_multilabel),
                     ("pair", CT.cmd_train_pair)):
         for flag, error, match in (
-                (["--pipeline_parallel", "2"], NotImplementedError,
-                 "A17 part 2 item 5"),
+                (["--pipeline_parallel", "2"], ValueError,
+                 "pipeline_parallel needs a mesh model axis > 1"),
                 (["--pipeline_parallel", "2", "--tensor_parallel"],
                  ValueError, "incompatible layouts"),
                 (["--tensor_parallel"], ValueError, "model axis > 1"),

@@ -1,4 +1,5 @@
-"""What each rank runs in tests/test_torch_parallel.py.
+"""What each rank runs in tests/test_torch_parallel.py and
+tests/test_torch_pp.py.
 
 The ranks start under ``spawn`` (``multimodalsimilar_tpu_torch.parallel.
 spawn``) and import this module afresh, so it imports torch and the port
@@ -8,6 +9,7 @@ of a gloo process group on the CPU and returns plain numpy and Python
 values.
 """
 
+import contextlib
 import dataclasses
 import os
 
@@ -17,8 +19,9 @@ import torch
 from multimodalsimilar_tpu_torch.models import efficientnet as E
 from multimodalsimilar_tpu_torch.models.bert import BertConfig
 from multimodalsimilar_tpu_torch.models.classifiers import (
-    NlpMultilabelClassifier, NlpTextClassifier)
+    NlpMultilabelClassifier, NlpTextClassifier, SiamesePairModel)
 from multimodalsimilar_tpu_torch.models.vision import CvImageClassifier
+from multimodalsimilar_tpu_torch.parallel import pp
 from multimodalsimilar_tpu_torch.parallel.mesh import (DATA_AXIS, MODEL_AXIS,
                                                        MeshRules,
                                                        create_mesh,
@@ -27,12 +30,15 @@ from multimodalsimilar_tpu_torch.pipelines.similar import nlp_similar_job
 from multimodalsimilar_tpu_torch.pipelines.sinks import InMemoryKVSink
 from multimodalsimilar_tpu_torch.retrieval.knn import (pad_corpus,
                                                        sharded_knn_search)
-from multimodalsimilar_tpu_torch.train.checkpoint import gather_shard
+from multimodalsimilar_tpu_torch.train.checkpoint import (
+    gather_shard, gather_stage_tensors)
 from multimodalsimilar_tpu_torch.train.optim import (AdamP, adamp_views,
                                                      dual_group,
                                                      dual_group_adamw)
 from multimodalsimilar_tpu_torch.train.tasks import (cv_arcface_task,
                                                      multilabel_arcface_task,
+                                                     multimodal_arcface_task,
+                                                     pair_task,
                                                      text_arcface_task)
 from multimodalsimilar_tpu_torch.train.trainer import Trainer, TrainerConfig
 from multimodalsimilar_tpu_torch.utils.dtypes import DTypePolicy
@@ -48,8 +54,7 @@ class Batches:
         self.items = batches
 
     def __len__(self):
-        return sum(len(b["labels" if "labels" in b else "tag_label"])
-                   for b in self.items)
+        return sum(len(next(iter(b.values()))) for b in self.items)
 
     def batches(self, batch_size, shuffle=True, seed=0, epoch=0,
                 sampler=None, drop_remainder=True):
@@ -71,8 +76,20 @@ def build(kind, spec):
                                         *spec["labels"], policy=FULL)
         return model, multilabel_arcface_task(
             model, num_valid=spec.get("num_valid", (None,) * 3))
+    if kind == "pair":
+        model = SiamesePairModel(BertConfig.tiny(**spec["bert"]),
+                                 policy=FULL)
+        return model, pair_task(model)
     cfg = dataclasses.replace(E.EfficientNetConfig.tiny(),
                               drop_path_rate=0.0)
+    if kind == "multimodal":
+        from multimodalsimilar_tpu_torch.models.multimodal import (
+            MultimodalClassifier)
+        model = MultimodalClassifier(BertConfig.tiny(**spec["bert"]), cfg,
+                                     num_labels=spec["num_labels"],
+                                     fc_dim=spec["fc_dim"], policy=FULL)
+        model.cv.dropout.p = 0.0
+        return model, multimodal_arcface_task(model, spec.get("num_valid"))
     model = CvImageClassifier(cfg, num_labels=spec["num_labels"],
                               fc_dim=spec["fc_dim"], policy=FULL)
     model.dropout.p = 0.0
@@ -100,9 +117,13 @@ def fit(kind, spec, state_dict, batches, mesh_shape, config, lrs,
     every rank its coordinates, its own head blocks and the shapes of
     its cut parameters."""
     mesh = create_mesh(*mesh_shape)
-    model, task = build(kind, spec)
+    staged = config.get("pipeline_parallel", False)
+    with pp.building(mesh) if staged else contextlib.nullcontext():
+        model, task = build(kind, spec)
+    own = model.state_dict()
     model.load_state_dict({k: torch.from_numpy(v)
-                           for k, v in state_dict.items()})
+                           for k, v in state_dict.items()
+                           if not staged or k in own})
     trainer = Trainer(
         task, _optimizer(optimizer, lrs),
         TrainerConfig(log_every=1, metrics_path=os.path.join(
@@ -120,7 +141,10 @@ def fit(kind, spec, state_dict, batches, mesh_shape, config, lrs,
         g = p.grad
         if name in trainer.shards:
             g = gather_shard(g, trainer.shards[name], mesh)
-        grads[name] = g.numpy()
+        grads[name] = g
+    if trainer.stages:
+        grads = gather_stage_tensors(grads, trainer.stages, mesh)
+    grads = {k: v.numpy() for k, v in grads.items()}
     trainer.optimizer.zero_grad(set_to_none=True)
     model.load_state_dict(saved)
     state = trainer.fit(Batches([_numpy_batch(b) for b in batches]), 1,
@@ -134,10 +158,31 @@ def fit(kind, spec, state_dict, batches, mesh_shape, config, lrs,
                    for name, sh in trainer.shards.items()},
            "sequence_partial": list(trainer.sequence_partial),
            "bn_mesh": sum(getattr(m, "stats_mesh", None) is not None
-                          for m in trainer._batch_norms())}
+                          for m in trainer._batch_norms()),
+           "stage": _stage_layout(trainer)}
     if mesh.rank == 0:
         out.update(grads=grads, state=_numpy(state["model"]))
     return out
+
+
+def _layer_index(name):
+    """The global layer index of an encoder layer's parameter name."""
+    return int(name.split(".encoder.layer.")[1].split(".")[0])
+
+
+def _stage_layout(trainer):
+    """The layers this rank holds, those its optimizer holds moments of,
+    and its embeddings' names (the pipeline-partial gradients)."""
+    names = {id(p): n for n, p in trainer.model.named_parameters()}
+    layers = [n for n in names.values() if ".encoder.layer." in n]
+    moments = [names[id(p)] for p, st in trainer.optimizer.state.items()
+               if "exp_avg" in st]
+    return {"layers": sorted({_layer_index(n) for n in layers}),
+            "layer_params": len(layers),
+            "moment_layers": sorted({_layer_index(n) for n in moments
+                                     if ".encoder.layer." in n}),
+            "moments": len(moments),
+            "pipeline_partial": list(trainer.pipeline_partial)}
 
 
 def _tensors(batch):
@@ -219,6 +264,22 @@ def train_cli(argv):
             "shards": sorted(trainer.shards),
             "remat": trainer.model.tower.encoder.config.remat,
             "sequence_partial": len(trainer.sequence_partial)}
+
+
+def train_cli_pp(argv):
+    """A ``train`` command through the command line on this rank: its
+    step, its stage's layout and the checkpoint's parameter names."""
+    from multimodalsimilar_tpu_torch import cli
+    from multimodalsimilar_tpu_torch.train.checkpoint import (
+        CheckpointManager)
+    trainer = cli.main(argv, device="cpu")
+    ckpt = CheckpointManager(trainer.config.checkpoint_dir).restore()
+    return {"rank": trainer.mesh.rank, "step": trainer.step,
+            "stage": _stage_layout(trainer),
+            "saved": sorted(ckpt["model"]),
+            "microbatches": [enc.config.pp_microbatches
+                             for enc in trainer.stages.values()],
+            "remat": [enc.config.remat for enc in trainer.stages.values()]}
 
 
 def run(jobs):
@@ -329,4 +390,119 @@ def card_collectives(n_model):
     with torch.device("cuda"):
         out = collectives((1, n_model), n_model)
     out["native"] = native
+    return out
+
+
+# -- pipeline parallelism (tests/test_torch_pp.py) ---------------------------
+
+def pp_schedule(shape, m, L=8, B=8, D=16, seed=0, device="cpu"):
+    """``pp.gpipe`` over layers tanh(h @ W_l + b_l + c) against the same
+    layers in turn on this process, forward and gradients of
+    sum(out ** 2), on this rank's rows of the batch (on ``device``): the
+    largest differences, and whether the configured microbatches ran."""
+    mesh = create_mesh(*shape)
+    rng = np.random.default_rng(seed)
+    w = (rng.standard_normal((L, D, D)) * 0.3).astype(np.float32)
+    b = (rng.standard_normal((L, D)) * 0.1).astype(np.float32)
+    x = rng.standard_normal((B, D)).astype(np.float32)
+    c = (rng.standard_normal((B, D)) * 0.2).astype(np.float32)
+    rows = MeshRules(mesh).batch(B)
+    stage = pp.stage_of(L, mesh)
+
+    def layers(h, cc, ws, bs):
+        for wl, bl in zip(ws, bs):
+            h = torch.tanh(h @ wl + bl + cc)
+        return h
+
+    cc = torch.from_numpy(c[rows]).to(device)
+    ref = [torch.tensor(a, device=device, requires_grad=True)
+           for a in (x[rows], w, b)]
+    want = layers(ref[0], cc, ref[1], ref[2])
+    (want ** 2).sum().backward()
+    own = slice(stage.layers.start, stage.layers.stop)
+    got = [torch.tensor(a, device=device, requires_grad=True)
+           for a in (x[rows], w[own], b[own])]
+    before = pp.applied_count()
+    out = pp.gpipe(lambda h, ci, sl: layers(h, ci, got[1], got[2]), got[0],
+                   cc, mesh, m)
+    (out ** 2).sum().backward()
+    g_x = mesh.all_reduce(got[0].grad.clone(), MODEL_AXIS)
+
+    def err(a, b):
+        return float((a - b).abs().max())
+
+    return {"rank": mesh.rank, "layers": list(stage.layers),
+            "applied": pp.applied_count() - before,
+            "out": err(out.detach(), want.detach()),
+            "grad_x": err(g_x, ref[0].grad),
+            "grad_x_off_stage0": float(got[0].grad.abs().max())
+            if stage.layers.start else 0.0,
+            "grad_w": err(got[1].grad, ref[1].grad[own]),
+            "grad_b": err(got[2].grad, ref[2].grad[own])}
+
+
+def pp_encoder(shape, bert, state_dict, ids, mask, train_seed=None):
+    """A pipeline-parallel ``BertEncoderModel`` (this rank's stage) in
+    full precision: its outputs on this rank's rows with no gradient,
+    and, with a graph, the gradients of mean(pooled ** 2) gathered to
+    the one-card layout (rank 0). ``train_seed``: in train() mode,
+    dropout drawn from a generator of that seed."""
+    from multimodalsimilar_tpu_torch.models.bert import (
+        BertEncoderModel, set_dropout_generator)
+    mesh = create_mesh(*shape)
+    with pp.building(mesh):
+        model = BertEncoderModel(BertConfig.tiny(**bert), FULL)
+    own = model.state_dict()
+    model.load_state_dict({k: torch.from_numpy(v)
+                           for k, v in state_dict.items() if k in own})
+    rows = MeshRules(mesh).batch(len(ids))
+    ids, mask = (torch.from_numpy(a[rows]) for a in (ids, mask))
+    if train_seed is not None:
+        model.train()
+        set_dropout_generator(model, torch.Generator().manual_seed(
+            train_seed))
+    with torch.no_grad():
+        plain = model(ids, mask)
+    if train_seed is not None:
+        set_dropout_generator(model, torch.Generator().manual_seed(
+            train_seed))
+    out = model(ids, mask)
+    (out["pooler_output"] ** 2).mean().backward()
+    grads = gather_stage_tensors(
+        {n: p.grad for n, p in model.named_parameters()},
+        {"": model}, mesh)
+    grads = {n: mesh.all_reduce(g.clone(), MODEL_AXIS)
+             if n.startswith("embeddings.") else g
+             for n, g in grads.items()}
+    return {"rank": mesh.rank, "rows": (rows.start, rows.stop),
+            "layers": list(model.pp.layers),
+            "hidden": out["last_hidden_state"].detach().numpy(),
+            "pooled": out["pooler_output"].detach().numpy(),
+            "hidden_no_grad": plain["last_hidden_state"].numpy(),
+            "grads": {n: g.numpy() for n, g in grads.items()}
+            if mesh.rank == 0 else None}
+
+
+def card_pipeline():
+    """The stage hand-off (``Mesh.shift`` both ways) and ``broadcast_from``
+    forward and backward on this rank's card (over gloo: ``cuda:0``, the
+    tensors staged through the host; over NCCL: its own card), and the
+    toy schedule of ``pp_schedule`` there, at data 1 x model world."""
+    import torch.distributed as dist
+    from multimodalsimilar_tpu_torch.parallel.mesh import broadcast_from
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", torch.cuda.current_device())
+    world = dist.get_world_size()
+    mesh = create_mesh(1, world)
+    r = mesh.rank
+    x = torch.arange(6, dtype=torch.bfloat16, device=dev).reshape(2, 3) + r
+    out = {"rank": r, "next": mesh.shift(x).float().cpu().numpy(),
+           "prev": mesh.shift(x, reverse=True).float().cpu().numpy()}
+    y = (torch.arange(4, dtype=torch.float32, device=dev) + 10 * r
+         ).requires_grad_(True)
+    z = broadcast_from(y, mesh, world - 1)
+    (z * (r + 1)).sum().backward()
+    out.update(bcast=z.detach().cpu().numpy(), grad=y.grad.cpu().numpy(),
+               schedule=pp_schedule((1, world), 2, device=dev))
+    torch.cuda.synchronize()
     return out
