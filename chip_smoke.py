@@ -267,7 +267,7 @@
    neighbour-list overlap are reported; ``torch._int_mm`` equals the exact
    product (f64 on the card) at the tower's shapes, one row, and K = 3,072
    with every product at 127^2, timed beside the bf16 product; ``serve
-   --tower bert --int8`` at ``configs/serve.yaml`` over the first 20,000
+   --tower bert --int8`` at ``configs/serve.yaml`` over the first 10,000
    of phase 5's titles (the corpus pass through the int8 tower), held as
    phase 5's fused path, top-k launches equal to micro-batches,
    the int8 and bf16 towers timed at buckets 1 and 64. The kernels line
@@ -298,25 +298,61 @@
    rank, each on its own class block; the model-parallel checkpoint holds
    the gathered head. Step p50, examples/s, peak memory and the
    gradient all-reduce's time and share of the step are reported. (b)
-   ``similar nlp --config configs/similar_nlp.yaml`` over phase 2's
-   50,000 titles through ``cli.main`` (``--checkpoint`` and
+   ``similar nlp --config configs/similar_nlp.yaml`` over the first
+   25,000 of phase 2's titles through ``cli.main`` (``--checkpoint`` and
    ``--tokenizer`` of the saved base tower): each rank embeds its own rows, the
    engine searches its block of the corpus, rank 0 writes; the two-rank
    run's KV items must equal the one-rank run's exactly, top-k launches
    counted per rank; after the job each rank holds the kernel against
    its plain version on the inputs of its first launch there (its block
-   of the 65,536-row padded corpus, ``true_n`` masked, and the query
+   of the 32,768-row padded corpus, ``true_n`` masked, and the query
    chunk), as phase 1 holds it. (c) ``sharded_knn_search`` at phase 1's shapes
    (4,096 queries against 262,144 x 768 rows, in blocks of 131,072, with
    duplicate rows across the block boundary), ip and l2: equal to the
    one-block ``knn_search`` exactly, the tie to the lower index; each
    rank then holds the kernel against its plain version on its own block
-   (ip and l2, k = 13), as phase 1 holds it. The
-   parent then times the top-k kernel on one block beside its bound,
-   the plain version and ``torch.topk``, and the ArcFace kernel on one
-   class block (5,103 x 768 at B = 128 and 1,024, as phase 3's recipe
-   heads). ``python3 chip_smoke.py --phases 12`` runs the builds and
-   phase 12 alone and prints no kernels or result line.
+   (ip and l2, k = 13), as phase 1 holds it. (e) the sharded daemon and
+   daodian job: ``serve --config configs/serve.yaml`` over 100,000
+   synthetic titles with a 40-value category through
+   ``_build_serve_service``, every rank warm-started from an
+   ``--emb_table`` that the reference rank writes first (the corpus
+   through the serving tower at the bulk batch, as a parquet of float
+   lists; the runs then hold the same corpus bit for bit). Over two
+   ranks each holds 65,536 rows of the 131,072-row padded corpus (rank 1
+   34,464 real ones), rank 0 serves and rank 1 replays its engine calls
+   (``pipelines/sharded_serving.py``). Rank 0 warms, then sends the same
+   192 novel titles to ``/similar`` over HTTP at c = 1 (96 requests)
+   and c = 16 (192), recording the bucket each was served at; a query's
+   bf16 embedding depends on its bucket's shapes and not on the other
+   queries, so the reference tabulates every title's answer at every
+   bucket of the ladder, and every answer of every run must equal the
+   table's at its bucket (indices equal where neighbouring scores differ
+   by more than 1e-5, scores within phase 1's tolerances). Then one
+   ``/update`` appends a title whose ``/similar`` must find it first
+   (score >= 0.999) and equal the reference's answer. Top-k launches and
+   search dispatches are counted on every rank from the built daemon on
+   and must be equal; the corpus re-cuts (the first search, and the one
+   after the update, which uploads each block again) are timed; each
+   rank holds the kernel against its plain version on its first launch's
+   inputs. Then ``similar daodian --text_only`` at
+   ``configs/similar_daodian_v2_recent_days.yaml`` through ``cli.main``
+   over two areas of 8,300 and 9,000 rows (a fastText model trained on
+   their titles on the card): each area pads to 16,384 rows, so rank 1
+   holds 108 real rows of the first (its local search, k = 108, takes
+   ``csrc/topk.cu``) and 808 of the second (k = 808, the selection
+   kernel), while rank 0 takes the selection kernel on both. Every rank
+   must launch the selection kernel, one launch a rank for each area's
+   text search, and holds it against its plain version on its first
+   launch's inputs; the two-rank job's KV items must equal the one-rank
+   job's exactly. The parent then times the top-k kernel on one block
+   beside its bound, the plain version and ``torch.topk``, the ArcFace
+   kernel on one class block (5,103 x 768 at B = 128 and 1,024, as phase
+   3's recipe heads), and (e)'s per-rank blocks: the serving search (64
+   queries against 65,536 x 768 rows, all real and 34,464 real) and the
+   daodian text arm's (8,300 queries against rank 0's 8,192 rows at k =
+   1,185; 9,000 against rank 1's 808 at k = 808). ``python3
+   chip_smoke.py --phases 12`` runs the builds and phase 12 alone and
+   prints no kernels or result line.
 
 14. Phase 13 trains ``configs/train_nlp_large_tp.yaml`` at full width
    (``roberta_wwm_ext_large``: 24 layers, hidden 1,024, 16 heads, MLP
@@ -431,7 +467,7 @@ from multimodalsimilar_tpu_torch.pipelines.similar import (
 from multimodalsimilar_tpu_torch.pipelines.sinks import InMemoryKVSink
 from multimodalsimilar_tpu_torch.retrieval.engine import (SimilarityEngine,
                                                           _normalize_rows)
-from multimodalsimilar_tpu_torch.retrieval.knn import knn_search
+from multimodalsimilar_tpu_torch.retrieval.knn import knn_search, next_pow2
 from multimodalsimilar_tpu_torch.train.checkpoint import CheckpointManager
 from multimodalsimilar_tpu_torch.train.tasks import text_arcface_task
 from multimodalsimilar_tpu_torch.utils.dtypes import DTypePolicy
@@ -2036,14 +2072,15 @@ def daodian_titles(rng, labels, words) -> list:
     return out
 
 
-def daodian_table(rng, words, n_areas: int = N_AREAS) -> dict:
-    """``n_areas`` areas (12 by default) of 8,300 rows: title, lv1 (30
-    labels) and lv2 (4 under each), a sku per row and dts over the 7 days
-    of the window."""
-    n = n_areas * AREA_ROWS
+def daodian_table(rng, words, n_areas: int = N_AREAS, rows=None) -> dict:
+    """``n_areas`` areas (12 by default) of 8,300 rows (``rows``: the
+    size of each): title, lv1 (30 labels) and lv2 (4 under each), a sku
+    per row and dts over the 7 days of the window."""
+    rows = list(rows or [AREA_ROWS] * n_areas)
+    n = sum(rows)
     lv1 = rng.integers(0, FT_LABELS, n)
-    return {"area_id": [int(a) for a in np.repeat(np.arange(n_areas),
-                                                  AREA_ROWS)],
+    return {"area_id": [int(a) for a in np.repeat(np.arange(len(rows)),
+                                                  rows)],
             "spu_sn": [f"dd{i:06d}" for i in range(n)],
             "sku": [f"{700000 + i}" for i in range(n)],
             "title": daodian_titles(rng, lv1, words),
@@ -3044,9 +3081,10 @@ VIT_OWN_SCORE = 0.996
 N_NEW_CV_ROWS, N_NEW_TIMM_ROWS = 96, 192
 # 8,192 titles (16,384 before a cut for time)
 N_INT8_TITLES, N_INT8_F32 = 8_192, 2_048
-# the int8 daemon's corpus: phase 5's first 20,000 titles (all 100,000
-# before a cut for time: their corpus pass took 31.2 s of phase 11)
-N_INT8_SERVE = 20_000
+# the int8 daemon's corpus: phase 5's first 10,000 titles (all 100,000,
+# then 20,000, before cuts for time: the corpus pass of 100,000 took
+# 31.2 s of phase 11)
+N_INT8_SERVE = 10_000
 INT8_COS = 1e-3            # JAX's int8 budget against f32 (test_quant.py)
 # (rows, K, N) of int8 products: one row, 16 and 17 rows (the pad to
 # torch._int_mm's floor), a bucket-64 x 80-token request's QKV, and the
@@ -3326,6 +3364,9 @@ def phase11(dev) -> dict:
 
 # train_nlp_v2_dist.yaml's batch; 4 steps (6 before a cut for time)
 DIST_BATCH, DIST_STEPS = 1_024, 4
+# (b)'s catalog: the first 25,000 of phase 2's titles (all 50,000 before
+# a cut for time)
+N_DIST_TITLES = 25_000
 DIST_TIMEOUT = 600                      # a rank that hangs fails the phase
 # the loss of world 2 against world 1 on the same global batches: the
 # kernel path's loss tolerance of phase 4 (head_paths)
@@ -3559,7 +3600,7 @@ def csv_rows(path: str) -> list:
 
 def dist_similar(ref: bool, work: str) -> dict:
     """(b): ``similar nlp --config configs/similar_nlp.yaml`` over phase
-    2's 50,000 titles through ``cli.main`` on this rank, the reference
+    2's first 25,000 titles through ``cli.main`` on this rank, the reference
     spawn's base tower loaded from its checkpoint. The reference world
     writes its KV items; the other's rank 0 must write the same."""
     import torch.distributed as dist
@@ -3608,10 +3649,12 @@ def dist_similar(ref: bool, work: str) -> dict:
     return row
 
 
-def check_launch(name, corpus, queries, k, metric, true_n=None) -> dict:
-    """The top-k kernel against its plain version (k + 1 columns) on one
-    block's inputs, as phase 1's ``run`` holds it."""
-    got = T.topk_cuda(corpus, queries, k, metric, true_n)
+def check_launch(name, corpus, queries, k, metric, true_n=None,
+                 kernel=None) -> dict:
+    """The top-k kernel (or ``kernel``: the selection route) against its
+    plain version (k + 1 columns) on one block's inputs, as phase 1's
+    ``run`` holds it."""
+    got = (kernel or T.topk_cuda)(corpus, queries, k, metric, true_n)
     want = T.topk_plain(corpus, queries, k + 1, metric, true_n)
     torch.cuda.synchronize()
     if true_n is not None and int(got[1].max()) >= true_n:
@@ -3664,9 +3707,305 @@ def dist_search(dev) -> dict:
     return out
 
 
+# (e): the daodian areas of the two-rank job. 8,300 rows pad to 16,384, so
+# rank 1's block holds 108 real rows and its local search (k = 108) takes
+# csrc/topk.cu; at 9,000 rows it holds 808 (k = 808) and takes the
+# selection kernel, as rank 0 does on both areas.
+DIST_DD_ROWS = (AREA_ROWS, 9_000)
+N_DIST_TEXTS = 192                      # the c = 16 level's requests
+
+
+def serve_e_args(work: str) -> argparse.Namespace:
+    """(e)'s ``serve --config configs/serve.yaml``: the saved base tower
+    and vocab, warm-started from the reference rank's ``--emb_table``,
+    port 0."""
+    return cli_args(["serve", "--config", config_path("serve.yaml"),
+                     "--data", "synthetic corpus (table=)", "--checkpoint",
+                     os.path.join(work, "base_ckpt"), "--tokenizer",
+                     os.path.join(work, "vocab.txt"), "--emb_table",
+                     os.path.join(work, "serve_emb.parquet"), "--port",
+                     "0"])
+
+
+def write_emb_table(args, table, dev) -> float:
+    """The nightly export that (e)'s daemons warm-start from: the corpus
+    through the serving tower at the daemon's bulk batch (512), written as
+    keys and float lists (the layout ``--emb_table`` reads with one flat
+    reshape). Returns its seconds."""
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+    from multimodalsimilar_tpu_torch.cli.embedders import (
+        _build_text_embedder)
+    t0 = time.perf_counter()
+    embedder = _build_text_embedder(args, df=table, device=dev)
+    embedder.batch_size = 512
+    emb = embedder([str(t) for t in table[args.text_col]])
+    flat = pa.array(np.ascontiguousarray(emb, np.float32).reshape(-1))
+    pq.write_table(pa.table({
+        args.key_col: table[args.key_col],
+        args.emb_col: pa.FixedSizeListArray.from_arrays(flat,
+                                                        emb.shape[1])}),
+        args.emb_table)
+    del embedder
+    torch.cuda.empty_cache()
+    return time.perf_counter() - t0
+
+
+def same_answer(name, got, want) -> None:
+    """Neighbour lists of two daemons: scores within phase 1's
+    tolerances, keys equal wherever ``want``'s neighbouring scores differ
+    by more than GAP (the last one by score alone)."""
+    gs = np.array([g["score"] for g in got])
+    ws = np.array([w["score"] for w in want])
+    if gs.shape != ws.shape or not np.allclose(gs, ws, atol=ATOL,
+                                               rtol=RTOL):
+        raise AssertionError(f"{name}: scores {gs} vs {ws}")
+    gap = np.abs(np.diff(ws))
+    for r in range(len(ws) - 1):
+        if (r == 0 or gap[r - 1] > GAP) and gap[r] > GAP \
+                and got[r]["key"] != want[r]["key"]:
+            raise AssertionError(f"{name} rank {r}: {got[r]['key']} vs "
+                                 f"{want[r]['key']}")
+
+
+def serve_rank0(service, args, texts, ref: bool, work: str) -> dict:
+    """(e) on the serving rank: the warm-up, the same ``/similar``
+    requests at c = 1 and c = 16 over HTTP, one ``/update`` and its own
+    title; the service closes at the end (a sharded engine then stops its
+    followers). Each request's bucket is recorded: a query's bf16
+    embedding depends on its bucket's shapes, not on the other queries,
+    so the reference tabulates every query's answer at every bucket and
+    the two-rank run's answers are held against the entry of the bucket
+    each was served at."""
+    out = {}
+    path = os.path.join(work, "serve_answers.json")
+    t0 = time.perf_counter()
+    _warm_serve_service(service, args)
+    torch.cuda.synchronize()
+    out["warm_s"] = time.perf_counter() - t0
+    buckets, level = {}, [None]
+    try_batch = service._try_device_batch
+
+    def recorded(queries, n):
+        for q in queries:
+            buckets.setdefault(level[0], {})[q] = service._bucket_size(n)
+        return try_batch(queries, n)
+
+    service._try_device_batch = recorded
+    httpd = make_server(service, args.host, args.port)
+    server = threading.Thread(target=httpd.serve_forever, daemon=True)
+    server.start()
+    base = f"http://{args.host}:{httpd.server_address[1]}"
+    answers, rows = {}, []
+    try:
+        for c in (1, 16):
+            level[0] = c
+            got = answers.setdefault(c, {})
+
+            def call(t, got=got):
+                got[t] = _post(base + "/similar", {"text": t,
+                                                   "score_th": None}
+                               )["neighbors"]
+
+            b0 = service.stats["batches"]
+            row = closed_loop(call, texts, c)
+            row["batches"] = service.stats["batches"] - b0
+            row["buckets"] = dict(collections.Counter(
+                buckets[c].values()))
+            rows.append(row)
+        service._try_device_batch = try_batch
+        keys, k = service.engine.keys, service.k
+        if ref:
+            # at most 16 requests in flight: buckets up to 16; bucket 1's
+            # answers for the c = 1 texts are those of the c = 1 level
+            table = {t: {"1": got} for t, got in answers[1].items()}
+            for b in (1, 2, 4, 8, 16):
+                for i in range(0, len(texts), b):
+                    if b == 1 and texts[i] in table:
+                        continue
+                    chunk = texts[i: i + b]
+                    got = service._run_batch([{"op": "similar", "query": t}
+                                              for t in chunk])
+                    for t, (sc, ix) in zip(chunk, got):
+                        table.setdefault(t, {})[str(b)] = [
+                            {"key": str(keys[j]), "score": float(v)}
+                            for v, j in zip(sc[:k], ix[:k])]
+        else:
+            table = json.load(open(path, encoding="utf-8"))["table"]
+        held = 0
+        for c in (1, 16):
+            for t, got in answers[c].items():
+                same_answer(f"c={c} {t!r}", got,
+                            table[t][str(buckets[c][t])])
+                held += 1
+        # /update: a new key whose title then finds it first
+        new = texts[0] + "新品上架"
+        res = _post(base + "/update", {"items": [
+            {"key": "new_e", "text": new, "category": 7}]})
+        t0 = time.perf_counter()
+        own = _post(base + "/similar", {"text": new, "score_th": None}
+                    )["neighbors"]
+        first_ms = (time.perf_counter() - t0) * 1e3
+        if res["corpus"] != N_SERVE + 1 or own[0]["key"] != "new_e" \
+                or own[0]["score"] < 0.999:
+            raise AssertionError(f"/update: {res}, then {own[:2]}")
+        if ref:
+            json.dump({"table": table, "own": own},
+                      open(path, "w", encoding="utf-8"))
+        else:
+            same_answer("after /update", own, json.load(open(
+                path, encoding="utf-8"))["own"])
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        server.join(timeout=30)
+        service.close()
+    out.update(levels=rows, answers_held=held,
+               similar_after_update_ms=first_ms,
+               own_score=own[0]["score"])
+    return out
+
+
+def dist_serve(dev, ref: bool, work: str) -> dict:
+    """(e): ``serve --config configs/serve.yaml`` over 100,000 titles on
+    this rank, through ``_build_serve_service`` (sharded over the ranks'
+    data axis: rank 0 serves, the others follow) and ``serve_rank0``.
+    Top-k launches and search dispatches are counted on every rank from
+    the built daemon on and must be equal; the corpus re-cuts are
+    timed; each rank then holds the kernel against its plain version on
+    its first launch's inputs."""
+    import torch.distributed as dist
+
+    import multimodalsimilar_tpu_torch.retrieval.engine as engine_mod
+    from multimodalsimilar_tpu_torch.pipelines.sharded_serving import (
+        Follower)
+    table = json.load(open(os.path.join(work, "serve.json"),
+                           encoding="utf-8"))
+    args = serve_e_args(work)
+    rank = dist.get_rank()
+    out = {}
+    if ref and rank == 0:
+        out["emb_table_s"] = write_emb_table(args, table, dev)
+    counts = collections.Counter()
+    saved = (engine_mod.knn_search, engine_mod.sharded_knn_search,
+             SimilarityEngine._ensure_corpus_dev, T.topk_cuda)
+    first, recuts = [], []
+
+    def counted(name):
+        def fn(*a, **kw):
+            counts["dispatches"] += 1
+            return saved[name](*a, **kw)
+        return fn
+
+    def ensure(self):
+        if self._corpus_dev is not None:
+            return saved[2](self)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = saved[2](self)
+        torch.cuda.synchronize()
+        recuts.append((time.perf_counter() - t0) * 1e3)
+        return got
+
+    def recorded(corpus, queries, k, metric="ip", true_n=None):
+        if not first:
+            first.append((corpus.clone(), queries.clone(), k, metric,
+                          true_n))
+        return saved[3](corpus, queries, k, metric, true_n)
+
+    engine_mod.knn_search, engine_mod.sharded_knn_search = (counted(0),
+                                                            counted(1))
+    SimilarityEngine._ensure_corpus_dev = ensure
+    T.topk_cuda = recorded
+    try:
+        t0 = time.perf_counter()
+        service, n = _build_serve_service(args, table=table, device=dev)
+        torch.cuda.synchronize()
+        out["build_s"] = time.perf_counter() - t0
+        T.LAUNCHES["topk"] = 0
+        counts.clear()
+        if isinstance(service, Follower):
+            out["followed"] = service.run()
+        else:
+            out.update(serve_rank0(service, args,
+                                   make_titles(N_DIST_TEXTS,
+                                               np.random.default_rng(
+                                                   SEED + 131)),
+                                   ref, work))
+        torch.cuda.synchronize()
+        launches = T.LAUNCHES["topk"]
+    finally:
+        (engine_mod.knn_search, engine_mod.sharded_knn_search,
+         SimilarityEngine._ensure_corpus_dev, T.topk_cuda) = saved
+    if not launches or launches != counts["dispatches"]:
+        raise AssertionError(f"serve rank {rank}: {launches} top-k launches "
+                             f"for {counts['dispatches']} search dispatches")
+    out.update(corpus=n, topk_launches=launches,
+               dispatches=counts["dispatches"], recut_ms=recuts,
+               kernel_vs_plain=check_launch(f"serve rank {rank}",
+                                            *first[0]))
+    del first
+    torch.cuda.empty_cache()
+    return out
+
+
+def dist_daodian(ref: bool, work: str) -> dict:
+    """(e): ``similar daodian --text_only`` at
+    ``configs/similar_daodian_v2_recent_days.yaml`` over the two areas
+    through ``cli.main`` on this rank. Every rank must launch the
+    selection kernel, one top-k kernel or selection launch a rank for
+    each area's text search, and holds the selection kernel against its
+    plain version on its first launch's inputs; the two-rank run's KV
+    items must equal the one-rank run's exactly."""
+    import torch.distributed as dist
+    from multimodalsimilar_tpu_torch.cli import similar as cli_similar
+    sink = InMemoryKVSink()
+    saved = (cli_similar._kv_sink, T.topk_select_cuda)
+    first = []
+
+    def recorded(corpus, queries, k, metric="ip", true_n=None):
+        if not first:
+            first.append((corpus.clone(), queries.clone(), k, metric,
+                          true_n))
+        return saved[1](corpus, queries, k, metric, true_n)
+
+    cli_similar._kv_sink = lambda args: sink
+    T.topk_select_cuda = recorded
+    try:
+        _, _, wall, launches = run_cli([
+            "similar", "daodian", "--config",
+            config_path("similar_daodian_v2_recent_days.yaml"), "--data",
+            os.path.join(work, "areas.csv"), "--text_only",
+            "--fasttext_model", os.path.join(work, "fasttext.pt"), "--dt",
+            DD_DAYS[-1]])
+    finally:
+        cli_similar._kv_sink, T.topk_select_cuda = saved
+    rank = dist.get_rank()
+    searches = launches["topk_select"] + launches["topk"]
+    if not launches["topk_select"] or searches != len(DIST_DD_ROWS):
+        raise AssertionError(f"daodian rank {rank}: launches {launches} "
+                             f"for {len(DIST_DD_ROWS)} text searches")
+    row = {"wall_s": wall, "topk_select_launches": launches["topk_select"],
+           "topk_launches": launches["topk"],
+           "kernel_vs_plain": check_launch(
+               f"daodian rank {rank}", *first[0],
+               kernel=T.topk_select_cuda)}
+    del first
+    if rank == 0:
+        items = kv_items(sink)
+        path = os.path.join(work, "daodian_items.json")
+        if ref:
+            json.dump(items, open(path, "w", encoding="utf-8"))
+        elif items != json.load(open(path, encoding="utf-8")):
+            raise AssertionError("sharded similar daodian: the KV items "
+                                 "differ from the one-rank job's")
+        row["written"] = len(items)
+    return row
+
+
 def phase12_rank(ref: bool, work: str) -> dict:
-    """What every rank of phase 12 runs: (a), (b) and (c) of the
-    docstring, its prints swallowed (rank 0's trainer logs every step)."""
+    """What every rank of phase 12 runs: (a) to (e) of the docstring, its
+    prints swallowed (rank 0's trainer logs every step)."""
     import contextlib
     import io
 
@@ -3677,9 +4016,77 @@ def phase12_rank(ref: bool, work: str) -> dict:
     with contextlib.redirect_stdout(io.StringIO()):
         train = dist_train(dev, ref, work)
         similar = dist_similar(ref, work)
+        serve = dist_serve(dev, ref, work)
+        daodian = dist_daodian(ref, work)
     return {"rank": dist.get_rank(), "world": dist.get_world_size(),
             "backend": dist.get_backend(), "train": train,
-            "similar": similar, "search": dist_search(dev)}
+            "similar": similar, "search": dist_search(dev),
+            "serve": serve, "daodian": daodian}
+
+
+def dist_e_inputs(work: str) -> None:
+    """(e)'s inputs in the work directory: the 100,000-title corpus with a
+    40-value category (phase 5's layout), the two daodian areas and a
+    fastText model trained on their titles on the card."""
+    from multimodalsimilar_tpu_torch.models.fasttext import train_supervised
+    rng = np.random.default_rng(SEED + 130)
+    json.dump({"spu_sn": [f"spu{i:06d}" for i in range(N_SERVE)],
+               "spu_name": make_titles(N_SERVE, rng),
+               "first_level_category_id": [int(c) for c in rng.integers(
+                   0, N_CATEGORIES, N_SERVE)]},
+              open(os.path.join(work, "serve.json"), "w", encoding="utf-8"))
+    areas = daodian_table(rng, title_words(), rows=DIST_DD_ROWS)
+    write_csv(os.path.join(work, "areas.csv"), areas)
+    train_supervised(areas["title"], areas["first_level_category_id"],
+                     dim=FT_DIM, lr=25.6, epochs=2, word_ngrams=2,
+                     device="cuda").save(os.path.join(work, "fasttext.pt"))
+
+
+def dist_e_blocks(dev) -> dict:
+    """(e)'s per-rank searches alone, each beside its bound, the plain
+    version and the library call: the serving block (64 queries against
+    65,536 x 768 rows: rank 0's all real, rank 1's 34,464) through the
+    top-k kernel, and the daodian text arm's blocks through the selection
+    kernel (8,300 queries of d = 100 against rank 0's 8,192 rows at k =
+    1,185; 9,000 against rank 1's 808 real rows of the 9,000-row area at
+    k = 808)."""
+    rng = np.random.default_rng(SEED + 132)
+    rows = next_pow2(N_SERVE, 512) // 2
+    out = {"serve_blocks": [], "daodian_blocks": []}
+    block, q = unit_rows(rng, rows, DIM, dev), unit_rows(rng, 64, DIM, dev)
+    for true_n in (rows, N_SERVE - rows):
+        row = {"q": 64, "n": rows, "true_n": true_n, "d": DIM, "k": 13,
+               "metric": "ip",
+               "ms": cuda_ms(lambda: T.topk_cuda(block, q, 13, "ip",
+                                                 true_n), reps=20),
+               "plain_ms": cuda_ms(lambda: T.topk_plain(block, q, 13, "ip",
+                                                        true_n), reps=1),
+               "library_ms": cuda_ms(lambda: topk_library(
+                   block[:true_n], q, 13, "ip"), reps=20)}
+        row["bound_ms"], row["bound_by"] = T.bound_ms(64, true_n, DIM, 13)
+        out["serve_blocks"].append(row)
+    del block, q
+    small, big = DIST_DD_ROWS
+    rows = next_pow2(small, 512) // 2
+    for n_q, true_n, k in ((small, rows, small // RECENT_DAYS),
+                           (big, big - rows,
+                            min(big // RECENT_DAYS, big - rows))):
+        x = unit_rows(rng, rows, FT_DIM, dev)
+        q = unit_rows(rng, n_q, FT_DIM, dev)
+        row = {"q": n_q, "n": rows, "true_n": true_n, "d": FT_DIM, "k": k,
+               "metric": "ip",
+               "ms": cuda_ms(lambda: T.topk_select_cuda(x, q, k, "ip",
+                                                        true_n)),
+               "plain_ms": cuda_ms(lambda: T.topk_plain(x, q, k, "ip",
+                                                        true_n), reps=1),
+               "library_ms": cuda_ms(lambda: select_library(x, q, k, "ip",
+                                                            true_n))}
+        row["bound_ms"], row["bound_by"] = T.bound_ms(n_q, true_n, FT_DIM,
+                                                      k)
+        out["daodian_blocks"].append(row)
+        del x, q
+    torch.cuda.empty_cache()
+    return out
 
 
 def phase12(dev) -> dict:
@@ -3698,10 +4105,11 @@ def phase12(dev) -> dict:
                                   zipf_with_last(n, AF_C, rng)]},
                   open(os.path.join(work, "train.json"), "w",
                        encoding="utf-8"))
-        titles = make_titles(N_TITLES, np.random.default_rng(SEED + 1))
+        titles = make_titles(N_DIST_TITLES, np.random.default_rng(SEED + 1))
         write_csv(os.path.join(work, "titles.csv"),
-                  {"spu_sn": [f"spu{i:06d}" for i in range(N_TITLES)],
+                  {"spu_sn": [f"spu{i:06d}" for i in range(N_DIST_TITLES)],
                    "spu_name": titles})
+        dist_e_inputs(work)
         n_cards = torch.cuda.device_count()
         wall = {}
 
@@ -3751,7 +4159,7 @@ def phase12(dev) -> dict:
                 "gloo_times": "two ranks share one card and their "
                               "collectives stage through the host: not a "
                               "scaling number",
-                "search_shard": shard}
+                "search_shard": shard, **dist_e_blocks(dev)}
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -4409,12 +4817,27 @@ def main(argv=None) -> None:
         arcface["launches_nccl_every_card"] = [
             r["train"]["f32"]["arcface_launches"]
             for r in p12["nccl_every_card"]]
-    # phase 12's checks of the kernel against its plain version on the
+    # phase 12 (e): the sharded daemon's and daodian job's launches on
+    # each rank of the two-rank run, and their per-rank blocks timed alone
+    topk["launches_sharded_serving"] = [r["serve"]["topk_launches"]
+                                        for r in gloo]
+    topk["launches_serving_one_rank"] = [r["serve"]["topk_launches"]
+                                         for r in p12["nccl"]]
+    topk["launches_sharded_daodian"] = [r["daodian"]["topk_launches"]
+                                        for r in gloo]
+    topk["sharded_serving_blocks"] = p12["serve_blocks"]
+    topk_select["launches_sharded_daodian"] = [
+        r["daodian"]["topk_select_launches"] for r in gloo]
+    topk_select["sharded_daodian_blocks"] = p12["daodian_blocks"]
+    # phase 12's checks of the kernels against their plain versions on the
     # sharded paths' blocks, every rank of every run
-    shard_checks = [c for r in p12["nccl"] + gloo + (
-        p12["nccl_every_card"] or []) for c in [r["similar"][
-            "kernel_vs_plain"]] + [r["search"][m]["kernel_vs_plain"]
-                                   for m in ("ip", "l2")]]
+    runs12 = p12["nccl"] + gloo + (p12["nccl_every_card"] or [])
+    shard_checks = [c for r in runs12 for c in [
+        r["similar"]["kernel_vs_plain"], r["serve"]["kernel_vs_plain"]] + [
+            r["search"][m]["kernel_vs_plain"] for m in ("ip", "l2")]]
+    topk_select["max_abs_err"] = max(
+        [topk_select["max_abs_err"]]
+        + [r["daodian"]["kernel_vs_plain"]["max_abs_err"] for r in runs12])
     topk["sharded_blocks_max_abs_err"] = max(c["max_abs_err"]
                                              for c in shard_checks)
     topk["max_abs_err"] = max(topk["max_abs_err"],

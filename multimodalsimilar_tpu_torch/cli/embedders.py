@@ -237,12 +237,16 @@ def _multimodal_embedder(args, df, device="cuda"):
                               args.batch_size, device=device)
 
 
-def _fused_embeddings(args, df, embedder=None, device="cuda"):
+def _fused_embeddings(args, df, embedder=None, device="cuda",
+                      require_rows=True):
     """Fused [N, fc_dim + hidden] embeddings of the (text_col,
     {img_root}/{key}.jpg) rows of ``df`` (a DataFrame or ``{column:
     list}``) — what the reference job does (multimodal_infer.py:119-134).
     Returns (embeddings, surviving row positions): rows whose image fails
-    to load are skipped like the reference's per-row try/except."""
+    to load are skipped like the reference's per-row try/except. With
+    ``require_rows=False`` no readable image at all gives ``(0, 0)``
+    embeddings instead of an error (a rank's block of a sharded corpus
+    may have none; the caller checks what the ranks gathered)."""
     from multimodalsimilar_tpu_torch.data import images as I
 
     if embedder is None:
@@ -267,6 +271,8 @@ def _fused_embeddings(args, df, embedder=None, device="cuda"):
         if imgs:
             out_parts.append(embedder(np.stack(imgs), texts))
     if not keep:
+        if not require_rows:
+            return np.zeros((0, 0), np.float32), keep
         raise SystemExit(f"no readable images under {args.img_root} for "
                          f"any row — check --img_root/--key_col")
     return np.concatenate(out_parts), keep

@@ -50,6 +50,8 @@ from multimodalsimilar_tpu_torch.cli.embedders import (
     _fused_embeddings, _image_paths, _load_cv_tower, _multimodal_embedder)
 from multimodalsimilar_tpu_torch.cli.similar import _gen_titles, _sku_to_spusn
 from multimodalsimilar_tpu_torch.data.datasets import column
+from multimodalsimilar_tpu_torch.pipelines.similar import (
+    embed_kept, embed_keys_sharded, embed_sharded, table_columns, take_rows)
 from multimodalsimilar_tpu_torch.utils.devices import resolve_device
 
 # Per-tower default thresholds = the reference jobs' own operating points:
@@ -77,17 +79,13 @@ def _serve_warm_payload(args):
     return "warmup"
 
 
-def _check_ported(args) -> None:
-    """The daemons serve on one card: a mesh of more than one rank is
-    sharded serving (ROADMAP A17 part 2)."""
-    if int(getattr(args, "model_parallel", 1) or 1) != 1:
-        raise NotImplementedError("--model_parallel: the port serves on "
-                                  "one card (ROADMAP A17 part 2)")
-    mesh = _knn_backend_mesh(args)
-    if mesh is not None and mesh.size > 1:
-        raise NotImplementedError(
-            f"serve over {mesh.size} ranks: the port serves on one card "
-            f"(sharded serving, ROADMAP A17 part 2)")
+def _world() -> tuple:
+    """(this process's rank, the ranks) of the process group; (0, 1)
+    without one."""
+    import torch.distributed as dist
+    if not dist.is_initialized():
+        return 0, 1
+    return dist.get_rank(), dist.get_world_size()
 
 
 def _columns(table) -> list:
@@ -97,12 +95,18 @@ def _columns(table) -> list:
 def _build_serve_service(args, table=None, device="cuda"):
     """(SimilarityService, corpus_rows) for ``serve --tower
     bert|cv|multimodal|fasttext`` on ``device``. ``table`` (a DataFrame
-    or a ``{column: list}`` mapping) replaces reading ``args.data``."""
+    or a ``{column: list}`` mapping) replaces reading ``args.data``.
+
+    Over several ranks (``torchrun``) every rank calls it with the same
+    table: the engine holds this rank's block of the corpus, each rank
+    embeds its own block of rows (fastText embeds every row on every
+    rank), and global rank 0 gets the service while every other rank gets
+    a ``Follower`` in its place (``pipelines/sharded_serving.py``)."""
     dev = resolve_device(device)
     if args.tower == "daodian":
         raise ValueError("serve --tower daodian has its own service: "
                          "_build_daodian_service")
-    _check_ported(args)
+    mesh = _knn_backend_mesh(args)
     if table is None:
         from multimodalsimilar_tpu_torch.data.datasets import read_table
         table = read_table(args.data)
@@ -125,10 +129,11 @@ def _build_serve_service(args, table=None, device="cuda"):
     metric, normalize, parser = "ip", True, None
     if args.tower == "cv":
         (embed_queries, parser, keys, emb, cats,
-         embedder) = _serve_cv_corpus(args, table, cats, dev)
+         embedder) = _serve_cv_corpus(args, table, cats, dev, mesh)
     elif args.tower == "multimodal":
         (embed_queries, parser, keys, emb, cats,
-         embedder) = _serve_multimodal_corpus(args, table, cats, dev)
+         embedder) = _serve_multimodal_corpus(args, table, cats, dev,
+                                              mesh)
         # the fused job searches UN-normalized squared L2
         # (multimodal_infer.py:140-145 IndexFlatL2) — scores ascend, and
         # a request's score_th means "max distance"
@@ -154,18 +159,23 @@ def _build_serve_service(args, table=None, device="cuda"):
                     embedder.batch_size = serve_bs
             return embed_queries(tt)
 
-        emb = _corpus_with_emb_table(args, keys, texts, embed_bulk)
+        def embed_corpus(tt):
+            return embed_sharded(mesh, len(tt), lambda rows: embed_bulk(
+                [tt[i] for i in rows]), dev)
+
+        emb = _corpus_with_emb_table(args, keys, texts, embed_corpus)
     print(f"corpus embedded: {len(keys)} rows in "
           f"{time.perf_counter() - t0:.1f}s", file=sys.stderr)
     service = _service_from_corpus(args, emb, keys, cats, embed_queries,
                                    embedder, parser=parser, metric=metric,
-                                   normalize=normalize, device=dev)
+                                   normalize=normalize, device=dev,
+                                   mesh=mesh)
     return service, len(keys)
 
 
 def _service_from_corpus(args, emb, keys, cats, embed_queries, embedder,
                          parser=None, metric="ip", normalize=True,
-                         device="cuda"):
+                         device="cuda", mesh=None):
     """The ``SimilarityService`` over an embedded corpus (``emb`` rows
     follow ``keys`` and ``cats``): the engine on ``device``, and, when a
     device ``embedder`` is given and ``--max_batch`` fits its batch, the
@@ -173,13 +183,25 @@ def _service_from_corpus(args, emb, keys, cats, embed_queries, embedder,
     normalize -> exact top-k) chained on the worker's stream per pow2
     bucket — with ``embedder.embed_device`` as its two-step fallback.
     Without one (fasttext, whose embed returns host vectors) requests
-    take the host path."""
+    take the host path.
+
+    With a ``mesh`` of several ranks the engine holds this rank's block
+    of the corpus (its data axis above 1): global rank 0's engine is a
+    ``LockstepEngine``, and the service takes the two-step chain, since
+    a sharded corpus has no fused one; every other rank gets a
+    ``Follower`` instead of a service."""
     from multimodalsimilar_tpu_torch.pipelines.serving import (
         SimilarityService)
+    from multimodalsimilar_tpu_torch.pipelines.sharded_serving import (
+        Follower, LockstepEngine)
     from multimodalsimilar_tpu_torch.retrieval.engine import SimilarityEngine
 
     engine = SimilarityEngine(emb, keys, categories=cats, metric=metric,
-                              normalize=normalize, device=device)
+                              normalize=normalize, device=device, mesh=mesh)
+    if _world()[0] != 0:
+        return Follower(engine, mesh)
+    if engine.sharded:
+        engine = LockstepEngine(engine, mesh)
     embed_device = fused = fused_factory = None
     if embedder is not None and args.max_batch <= args.batch_size:
         fused = embedder.fused_similar_fn(engine, args.k)
@@ -196,26 +218,30 @@ def _service_from_corpus(args, emb, keys, cats, embed_queries, embedder,
                              warm_payload=_serve_warm_payload(args))
 
 
-def _serve_cv_corpus(args, table, cats, device="cuda"):
+def _serve_cv_corpus(args, table, cats, device="cuda", mesh=None):
     """(embed_queries, parser, keys, emb, cats, embedder) for ``serve
     --tower cv``: the corpus is embedded from the reference's image
     layout ({img_root}/{key}/0..7.jpg mean, emb.txt and the packed cache
-    respected — daodian_infer.py:259-285); queries arrive as decoded
-    uint8 images from ImageQueryParser and run ImageEmbedder's batches."""
+    respected — daodian_infer.py:259-285), each rank its own block of
+    keys under a sharded ``mesh``; queries arrive as decoded uint8 images
+    from ImageQueryParser and run ImageEmbedder's batches."""
     from multimodalsimilar_tpu_torch.pipelines.serving import ImageQueryParser
 
     embedder = _cv_embedder(args, device=device)
     keys_all = [str(k) for k in column(table, args.key_col)]
     paths_for_key = _image_paths(args)
+
+    def embed_keys(kk):
+        return embed_keys_sharded(mesh, kk, lambda part: embedder.embed_keys(
+            part, paths_for_key), device)
+
     if args.emb_table:
         # warm-start from the nightly cv job's own table
         # (goodssku_emb_cv_di layout): hit keys need NO image on disk
-        emb, live = _corpus_rows_from_table(
-            args, keys_all,
-            lambda mk: embedder.embed_keys(list(mk), paths_for_key),
-            dim_hint=embedder.emb_dim)
+        emb, live = _corpus_rows_from_table(args, keys_all, embed_keys,
+                                            dim_hint=embedder.emb_dim)
     else:
-        emb_map = embedder.embed_keys(keys_all, paths_for_key)
+        emb_map = embed_keys(keys_all)
         # keys without a single readable image drop out of the corpus —
         # and the category list must stay row-aligned with the survivors
         live = [i for i, k in enumerate(keys_all) if k in emb_map]
@@ -239,11 +265,12 @@ def _serve_cv_corpus(args, table, cats, device="cuda"):
             cats, embedder)
 
 
-def _serve_multimodal_corpus(args, table, cats, device="cuda"):
+def _serve_multimodal_corpus(args, table, cats, device="cuda", mesh=None):
     """(embed_queries, parser, keys, emb, cats, embedder) for ``serve
     --tower multimodal``: corpus rows are (text_col, {img_root}/{key}.jpg)
     pairs fused through the checkpointed tower (the multimodal_infer.py
-    input layout); queries arrive as (text, image) pairs from
+    input layout), each rank its own block of rows under a sharded
+    ``mesh``; queries arrive as (text, image) pairs from
     MultimodalQueryParser and run the same fused tower."""
     from multimodalsimilar_tpu_torch.pipelines.serving import (
         MultimodalQueryParser)
@@ -253,6 +280,10 @@ def _serve_multimodal_corpus(args, table, cats, device="cuda"):
                          "(a trained fused model)")
     embedder = _multimodal_embedder(args, table, device=device)
     keys_all = [str(k) for k in column(table, args.key_col)]
+    # each rank's block may hold no readable image: the check that some
+    # row does runs on what every rank gathered
+    unreadable = (f"no readable images under {args.img_root} for any "
+                  "row — check --img_root/--key_col")
     if args.emb_table:
         # warm-start from the nightly fused-embedding table: hit keys
         # need NO image on disk; the rest run the fused tower pass
@@ -263,13 +294,27 @@ def _serve_multimodal_corpus(args, table, cats, device="cuda"):
             rows = [i for i, k in enumerate(keys_all) if k in want]
             sub = {args.key_col: [keys_all[i] for i in rows],
                    args.text_col: [texts_all[i] for i in rows]}
-            semb, skeep = _fused_embeddings(args, sub, embedder=embedder)
+            semb, skeep = _fused_embeddings(args, sub, embedder=embedder,
+                                            require_rows=False)
             return {sub[args.key_col][j]: semb[i]
                     for i, j in enumerate(skeep)}
 
-        emb, keep = _corpus_rows_from_table(args, keys_all, embed_missing)
+        def embed_missing_by_block(mk):
+            got = embed_keys_sharded(mesh, mk, embed_missing, device)
+            if not got:
+                raise SystemExit(unreadable)
+            return got
+
+        emb, keep = _corpus_rows_from_table(args, keys_all,
+                                            embed_missing_by_block)
     else:
-        emb, keep = _fused_embeddings(args, table, embedder=embedder)
+        cols = table_columns(table)
+        emb, keep = embed_kept(mesh, len(keys_all), lambda rows: (
+            _fused_embeddings(args, take_rows(cols, rows),
+                              embedder=embedder, require_rows=False)),
+            device)
+        if not keep:
+            raise SystemExit(unreadable)
         if len(keep) < len(keys_all):
             print(f"serve: {len(keys_all) - len(keep)} of {len(keys_all)} "
                   f"corpus keys have no readable image and were dropped",
@@ -324,15 +369,24 @@ def _build_daodian_service(args, table=None, device="cuda"):
     embeddings) so one request returns the nightly job's merged per-key
     answer online (daodian_infer.py:361-392). ``table`` replaces reading
     ``args.data``. Without ``--cv_checkpoint`` it refuses unless
-    ``--text_only`` says to serve the fastText arm alone."""
+    ``--text_only`` says to serve the fastText arm alone.
+
+    The per-area engines are small and built without a mesh, as in the
+    JAX package (its ``_build_daodian_service`` keeps them on one chip):
+    under a launch of several ranks it refuses, so the daemon starts as
+    one process."""
     from multimodalsimilar_tpu_torch.pipelines.daodian_serving import (
         DaodianService)
     from multimodalsimilar_tpu_torch.pipelines.embedders import ImageEmbedder
-    from multimodalsimilar_tpu_torch.pipelines.similar import (n_rows,
-                                                               table_columns)
+    from multimodalsimilar_tpu_torch.pipelines.similar import n_rows
 
     dev = resolve_device(device)
-    _check_ported(args)
+    _knn_backend_mesh(args)
+    if _world()[1] > 1:
+        raise SystemExit(
+            f"serve --tower daodian over {_world()[1]} ranks: its per-area "
+            "engines are small and live on one card, as in the JAX "
+            "package; start the daemon as one process (without torchrun)")
     if table is None:
         from multimodalsimilar_tpu_torch.data.datasets import read_table
         table = read_table(args.data)
@@ -709,8 +763,15 @@ def _warm_serve_service(service, args):
 def cmd_serve(args, device="cuda"):
     """Online similarity daemon — the capability the reference's
     precomputed Redis KV can't give (a query NOT in last night's batch).
-    Micro-batched HTTP serving; see pipelines/serving.py."""
+    Micro-batched HTTP serving; see pipelines/serving.py.
+
+    Under ``torchrun`` the corpus is sharded over the ranks' data axis:
+    global rank 0 warms, binds HTTP and prints the ``serving`` line, and
+    every other rank replays its engine calls until rank 0's service
+    closes (``pipelines/sharded_serving.py``), then returns what it
+    replayed."""
     from multimodalsimilar_tpu_torch.pipelines.serving import make_server
+    from multimodalsimilar_tpu_torch.pipelines.sharded_serving import Follower
     if args.tower == "daodian":
         # the merged tower has two thresholds and two depths: the generic
         # single-value knobs would be silently ignored, so refuse them
@@ -726,8 +787,14 @@ def cmd_serve(args, device="cuda"):
                 "--ann_cnt_nlp / --ann_cnt_cv")
         return _serve_daodian(args, device=device)
     service, n = _build_serve_service(args, device=device)
-    _warm_serve_service(service, args)
-    httpd = make_server(service, args.host, args.port)
+    if isinstance(service, Follower):
+        return service.run()
+    try:
+        _warm_serve_service(service, args)
+        httpd = make_server(service, args.host, args.port)
+    except BaseException:
+        service.close()
+        raise
     host, port = httpd.server_address[:2]
     print(json.dumps({"serving": f"http://{host}:{port}", "corpus": n,
                       "k": service.k}), flush=True)

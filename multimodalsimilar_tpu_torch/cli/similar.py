@@ -11,11 +11,11 @@ sink is Redis with ``--redis_host``, else an in-memory dry run.
 one device (``_knn_backend_mesh``).
 
 Under ``torchrun`` (``python -m multimodalsimilar_tpu_torch.cli`` joins
-the process group when ``WORLD_SIZE`` > 1) ``similar nlp`` and ``similar
-multimodal`` shard the search over the ranks as the JAX jobs do over the
-mesh's data axis; ``similar nlp`` also embeds each rank's own rows. Rank
-0 writes the sink and prints the result. ``similar daodian`` runs on one
-card (its per-area engines are small; ROADMAP A17 part 2).
+the process group when ``WORLD_SIZE`` > 1) every job shards its search
+over the ranks as the JAX jobs do over the mesh's data axis (``similar
+daodian``: both arms of every area). ``similar nlp`` also embeds each
+rank's own rows, and ``similar daodian`` each rank's own block of an
+area's SKU images. Rank 0 writes the sink and prints the result.
 """
 
 from __future__ import annotations
@@ -161,7 +161,7 @@ def cmd_similar_daodian(args, device="cuda"):
             cache=_emb_cache(args), emb_dim=args.fc_dim, device=device)
 
         def embed_skus(area):
-            return _sku_to_spusn(area, emb, args)
+            return _sku_to_spusn(area, emb, args, mesh, device)
     else:
         # The reference job always has a CV side (daodian_infer.py:367);
         # degrading to text-only must be an explicit operator choice.
@@ -184,29 +184,28 @@ def cmd_similar_daodian(args, device="cuda"):
     date_key = args.dt.replace("-", "") if (args.dt and args.date_keyed) \
         else None
     mesh = _knn_backend_mesh(args)
-    if mesh is not None and mesh.size > 1:
-        raise NotImplementedError(
-            f"similar daodian over {mesh.size} ranks: the daodian job runs "
-            f"on one card (ROADMAP A17 part 2)")
     merged = daodian_similar_job(
         table, embed_titles, embed_skus, sink, ttl_seconds=args.exp_seconds,
         date_key=date_key, dt_col=args.dt_col, target_dt=args.dt,
-        recent_days=args.recent_days, device=device)
-    print(json.dumps({"skus": len(merged)}))
+        recent_days=args.recent_days, device=device, mesh=mesh)
+    _print_rank0(mesh, {"skus": len(merged)})
 
 
-def _sku_to_spusn(area, emb, args):
+def _sku_to_spusn(area, emb, args, mesh=None, device="cuda"):
     """Embed by goods_sku (image folders) but key the result by spu_sn.
 
     ``area`` is a DataFrame or a ``{column: list}`` table, ``emb`` an
     ``ImageEmbedder``. Several spu_sns may share one goods_sku (same
     product listed twice) — every spu_sn gets its sku's embedding, like
     the reference's per-row loop (daodian_infer.py:256-288), not just the
-    last one."""
+    last one. Under a sharded ``mesh`` each rank embeds its own block of
+    the skus."""
+    from multimodalsimilar_tpu_torch.pipelines.similar import (
+        embed_keys_sharded)
     skus = [str(s) for s in column(area, args.sku_col)]
     spusns = column(area, args.key_col)
-    by_sku = emb.embed_keys(
-        sorted(set(skus)),
-        lambda kk: [os.path.join(args.img_root, kk, f"{j}.jpg")
-                    for j in range(8)])
+    by_sku = embed_keys_sharded(mesh, sorted(set(skus)), lambda kk: (
+        emb.embed_keys(kk, lambda k: [os.path.join(args.img_root, k,
+                                                   f"{j}.jpg")
+                                      for j in range(8)])), device)
     return {sp: by_sku[sk] for sk, sp in zip(skus, spusns) if sk in by_sku}

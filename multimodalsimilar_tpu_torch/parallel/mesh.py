@@ -50,6 +50,8 @@ DATA_AXIS = "data"
 MODEL_AXIS = "model"
 # how long a collective may wait for its peers before the rank fails
 TIMEOUT = datetime.timedelta(seconds=300)
+# how long a serving follower waits for the next request (Mesh.control_group)
+IDLE_TIMEOUT = datetime.timedelta(days=365)
 
 
 def init_distributed(device="cuda") -> int:
@@ -90,6 +92,7 @@ class Mesh:
                  groups: Optional[Dict[str, Any]] = None):
         self.data, self.model, self.rank = data, model, rank
         self._groups = groups or {}
+        self._control = None
 
     @property
     def shape(self) -> Dict[str, int]:
@@ -255,6 +258,18 @@ class Mesh:
     def barrier(self) -> None:
         if self.distributed:
             dist.barrier()
+
+    def control_group(self):
+        """A gloo group over every rank whose collectives, on host
+        tensors, wait without a practical time limit: the serving
+        followers block in it between requests, however long the daemon
+        stays idle (``pipelines/sharded_serving.py``). Made at the first
+        call, which is a collective: every rank calls it at the same
+        point."""
+        if self._control is None:
+            self._control = dist.new_group(backend="gloo",
+                                           timeout=IDLE_TIMEOUT)
+        return self._control
 
 
 def create_mesh(data: Optional[int] = None, model: int = 1) -> Mesh:

@@ -414,7 +414,12 @@ class SimilarityService:
         return dict(self._batcher.stats)
 
     def close(self):
+        """Stop the batcher; a sharded engine (``pipelines/
+        sharded_serving.py:LockstepEngine``) then stops its followers."""
         self._batcher.close()
+        stop = getattr(self.engine, "stop", None)
+        if stop is not None:
+            stop()
 
 
 class _Handler(BaseHTTPRequestHandler):

@@ -22,11 +22,12 @@ machine has no pandas); the daodian job hands each area to its embedders
 as a ``{column: list}`` mapping.
 
 ``mesh=`` (``parallel.mesh.Mesh``, every rank calling the job with the
-same table) shards the text and fused jobs over its data axis: each rank
-embeds its own block of rows (``embed_sharded``), the vectors are
-all-gathered into the query set, the engine searches its block of the
-corpus (``sharded_knn_search``), and rank 0 alone runs the filters and
-writes the sink; every rank returns the count rank 0 wrote.
+same table) shards the jobs over its data axis: each rank embeds its own
+block of rows (``embed_sharded``; the daodian job's fastText arm embeds
+every row on every rank), the vectors are all-gathered into the query
+set, the engine searches its block of the corpus
+(``sharded_knn_search``), and rank 0 alone runs the filters and writes
+the sink; every rank returns what rank 0 returns.
 """
 
 from __future__ import annotations
@@ -69,14 +70,69 @@ def row_block(mesh, n: int) -> range:
                  min((mesh.data_index + 1) * per, n))
 
 
+def gather_rows(mesh, local, device) -> np.ndarray:
+    """The [n_r, D] f32 rows of every rank of the data axis, concatenated
+    in rank order. A rank with no rows may pass any empty array (an
+    embedder's ``(0, 0)``): the width is agreed first."""
+    import torch
+    local = np.asarray(local, np.float32)
+    width = torch.tensor([local.shape[-1] if len(local) else 0],
+                         dtype=torch.int64, device=device)
+    width = int(mesh.all_reduce(width, op="max")[0])
+    if not len(local):
+        local = np.zeros((0, width), np.float32)
+    t = torch.from_numpy(np.ascontiguousarray(local)).to(device)
+    return mesh.all_gather_rows(t).cpu().numpy()
+
+
 def embed_sharded(mesh, n: int, embed_rows: Callable[[range], np.ndarray],
                   device) -> np.ndarray:
     """[n, D]: ``embed_rows(block)`` of every rank's ``row_block``,
-    all-gathered in row order (each rank embeds only its own rows)."""
+    all-gathered in row order (each rank embeds only its own rows);
+    ``embed_rows(range(n))`` without a sharded ``mesh``."""
+    if not _sharded(mesh):
+        return embed_rows(range(n))
+    return gather_rows(mesh, embed_rows(row_block(mesh, n)), device)
+
+
+def embed_kept(mesh, n: int, embed_rows: Callable[[range], tuple],
+               device) -> tuple:
+    """(emb [m, D], kept row indices) of rows 0..n-1, where
+    ``embed_rows(rows) -> (emb, kept)`` may drop rows (an image key with
+    no readable image): ``kept`` are the positions in ``rows`` that it
+    embedded. Sharded, each rank embeds its own ``row_block`` and both
+    are all-gathered in row order."""
+    if not _sharded(mesh):
+        emb, kept = embed_rows(range(n))
+        return emb, list(kept)
     import torch
-    local = np.asarray(embed_rows(row_block(mesh, n)), np.float32)
-    t = torch.from_numpy(np.ascontiguousarray(local)).to(device)
-    return mesh.all_gather_rows(t).cpu().numpy()
+    block = row_block(mesh, n)
+    emb, kept = embed_rows(block)
+    pos = torch.tensor([block[j] for j in kept], dtype=torch.int64,
+                       device=device)
+    return (gather_rows(mesh, emb, device),
+            mesh.all_gather_rows(pos).cpu().tolist())
+
+
+def embed_keys_sharded(mesh, keys: Sequence, embed_keys: Callable[
+        [List[str]], Dict[str, np.ndarray]], device) -> Dict[str, np.ndarray]:
+    """``embed_keys(keys) -> {key: vec}`` (the keys it could embed: an
+    image key may have no readable image), each rank embedding its own
+    block of ``keys`` under a sharded ``mesh``."""
+    keys = list(keys)
+    if not _sharded(mesh):
+        return embed_keys(keys)
+
+    def block(rows):
+        got = embed_keys([keys[i] for i in rows])
+        kept = [j for j, i in enumerate(rows) if keys[i] in got]
+        vecs = [np.asarray(got[keys[rows[j]]], np.float32).reshape(-1)
+                for j in kept]
+        return (np.stack(vecs) if vecs else np.zeros((0, 0), np.float32),
+                kept)
+
+    emb, kept = embed_kept(mesh, len(keys), block, device)
+    return {keys[i]: emb[j] for j, i in enumerate(kept)}
 
 
 def _search_and_write(engine: SimilarityEngine, mesh, k: int,
@@ -109,11 +165,8 @@ def nlp_similar_job(table, embed_texts, sink: KVSink,
     we always drop same-key neighbors and dedup (see retrieval/filters.py
     docstring)."""
     texts = [str(t) for t in column(table, text_col)]
-    if _sharded(mesh):
-        emb = embed_sharded(mesh, len(texts), lambda rows: embed_texts(
-            [texts[i] for i in rows]), device)
-    else:
-        emb = embed_texts(texts)
+    emb = embed_sharded(mesh, len(texts), lambda rows: embed_texts(
+        [texts[i] for i in rows]), device)
     engine = SimilarityEngine(emb, column(table, key_col), metric="ip",
                               normalize=True, device=device, mesh=mesh)
     return _search_and_write(
@@ -194,11 +247,12 @@ def build_area_index(
     require_dt: Optional[str] = None,       # already norm_dt'd
     recent_days: int = 7,
     device="cuda",
+    mesh=None,
 ) -> DaodianAreaIndex:
     """Both arms' engines + the reference variant's retrieval depths/rules
     for ONE area (daodian_infer.py:361-375; see daodian_similar_job's
     docstring for the v1/v2 depth semantics). ``area`` is a DataFrame or
-    a ``{column: list}`` mapping."""
+    a ``{column: list}`` mapping; ``mesh`` shards both arms' engines."""
     area = table_columns(area)
     n = n_rows(area)
     windowed = bool(require_dt and dt_col)
@@ -211,7 +265,7 @@ def build_area_index(
     text_engine = SimilarityEngine(
         text_emb, area[key_col], area[lv1_col],
         dts=([norm_dt(v) for v in area[dt_col]] if dt_col else None),
-        metric="ip", normalize=True, device=device)
+        metric="ip", normalize=True, device=device, mesh=mesh)
     # +1: the reference appends, then breaks once len > ann_cnt
     text_rules = FilterRules(score_threshold=nlp_score_th,
                              same_category=True,
@@ -233,7 +287,7 @@ def build_area_index(
             cv_emb, cv_rows[key_col], cv_rows[lv2_col],
             dts=([norm_dt(v) for v in cv_rows[dt_col]]
                  if dt_col else None),
-            metric="ip", normalize=True, device=device)
+            metric="ip", normalize=True, device=device, mesh=mesh)
         cv_rules = FilterRules(score_threshold=cv_score_th,
                                same_category=True, max_neighbors=cv_cap,
                                **rules_kw)
@@ -243,9 +297,17 @@ def build_area_index(
                             k_cv=k_cv, cv_rules=cv_rules)
 
 
-def area_merged_map(index: DaodianAreaIndex) -> Dict[str, List[str]]:
+def area_merged_map(index: DaodianAreaIndex, mesh=None
+                    ) -> Optional[Dict[str, List[str]]]:
     """The area's production answer: cv-first-then-text merged neighbor
-    map (daodian_infer.py:368-375)."""
+    map (daodian_infer.py:368-375). Sharded over ``mesh``, every rank runs
+    both arms' searches and rank 0 alone filters and merges; the others
+    return None."""
+    if _sharded(mesh) and mesh.rank != 0:
+        index.text_engine.search(index.k_text)
+        if index.cv_engine is not None:
+            index.cv_engine.search(index.k_cv)
+        return None
     nlp_map = index.text_engine.similar_map(index.k_text, index.text_rules)
     cv_map = (index.cv_engine.similar_map(index.k_cv, index.cv_rules)
               if index.cv_engine is not None else {})
@@ -288,6 +350,7 @@ def daodian_similar_job(
                                       # vs :342). Defaults to date_key.
     recent_days: int = 7,             # v2 window (daodian_infer_v2_recent_days)
     device="cuda",
+    mesh=None,
 ) -> Dict[str, List[str]]:
     """Per-area fastText + CV retrieval, cv-first merge, KV write.
 
@@ -308,6 +371,13 @@ def daodian_similar_job(
       their ann_cnt (:248-250, :323-325), so caps are ann_cnt+1.
 
     Returns the merged neighbor map (all areas) for inspection/testing.
+
+    ``mesh`` (every rank calling the job with the same table) shards both
+    arms' engines over its data axis: every rank runs every area's
+    searches, rank 0 alone filters, merges and writes, and every rank
+    returns rank 0's map. Sharded engines skip the per-group ranking of
+    the v1 text arm: its k = len(area) search runs over the ranks' blocks,
+    as in the JAX package.
     """
     merged_all: Dict[str, List[str]] = {}
     key_fn = ((lambda s: f"{date_key}:{s}") if date_key
@@ -324,8 +394,11 @@ def daodian_similar_job(
             nlp_score_th=nlp_score_th, cv_score_th=cv_score_th,
             ann_cnt_nlp=ann_cnt_nlp, ann_cnt_cv=ann_cnt_cv,
             dt_col=dt_col, require_dt=require_dt if windowed else None,
-            recent_days=recent_days, device=device)
-        merged = area_merged_map(index)
-        merged_all.update(merged)
-        write_neighbor_map(sink, merged, ttl_seconds, key_fn)
+            recent_days=recent_days, device=device, mesh=mesh)
+        merged = area_merged_map(index, mesh)
+        if merged is not None:
+            merged_all.update(merged)
+            write_neighbor_map(sink, merged, ttl_seconds, key_fn)
+    if _sharded(mesh):
+        merged_all = mesh.broadcast_object(merged_all)
     return merged_all

@@ -270,24 +270,25 @@ class SimilarityEngine:
         -> ``.float()`` -> normalize (when the engine normalizes) -> exact
         top-k over the cached device corpus. Returns
         ``fused(*tower_args) -> (scores, indices)``, device tensors with
-        no host sync and no read-back, or None for an empty corpus.
+        no host sync and no read-back, or None for an empty or sharded
+        corpus.
 
         The JAX package compiles one program for a corpus shape and k, and
         its fused function returns None once an /update outgrows them, so
         that the service rebuilds it. Nothing here is compiled per shape:
         every call reads the current device corpus and ``min(k, n)``, so
-        an /update never makes the function stale and it never returns
-        None. The single-chunk bound is planned once, here, so a request
-        makes no ``torch.cuda.mem_get_info`` call to size it.
+        an /update never makes the function stale. The single-chunk bound
+        is planned once, here, so a request makes no
+        ``torch.cuda.mem_get_info`` call to size it.
+
+        None for a sharded corpus, as in the JAX package: its search is a
+        collective that every rank replays, so the service takes the
+        two-step ``embed_device`` -> ``search_device`` chain instead.
 
         The corpus is fetched outside inference mode (``update`` patches
         it in place); the chain runs inside it."""
-        if self.n == 0:
+        if self.n == 0 or self.sharded:
             return None
-        if self.sharded:
-            raise NotImplementedError(
-                "the fused serving chain over a sharded corpus (sharded "
-                "serving, ROADMAP A17 part 2)")
         self._ensure_corpus_dev()
         limit = self._chunk_rows(min(k, self.n))
         metric, normalized = self.metric, self._normalized

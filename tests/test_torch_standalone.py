@@ -43,8 +43,8 @@ print(json.dumps([names, leaked]))
 
 # the serving and export modules, which pull in the most of the package,
 # the image slice's, the daodian slice's, the training recipes', the
-# command line's, the ViT, ConvNeXt and int8 towers' and the multi-GPU
-# layouts'
+# command line's, the ViT, ConvNeXt and int8 towers', the multi-GPU
+# layouts' and sharded serving's
 SERVING = ["cli.common", "cli.embed", "cli.embedders", "cli.serve",
            "pipelines.embed", "pipelines.microbatch", "pipelines.serving",
            "data.images", "pipelines.embcache", "models.efficientnet",
@@ -62,7 +62,9 @@ SERVING = ["cli.common", "cli.embed", "cli.embedders", "cli.serve",
            "models.vit", "models.convnext", "models.quant",
            "models.hf_import",
            # the multi-GPU layouts
-           "parallel", "parallel.mesh", "parallel.spawn"]
+           "parallel", "parallel.mesh", "parallel.spawn",
+           # sharded serving
+           "pipelines.sharded_serving"]
 
 
 def _py_files():

@@ -1,5 +1,5 @@
-"""What each rank runs in tests/test_torch_parallel.py and
-tests/test_torch_pp.py.
+"""What each rank runs in tests/test_torch_parallel.py,
+tests/test_torch_pp.py and tests/test_torch_sharded_serving.py.
 
 The ranks start under ``spawn`` (``multimodalsimilar_tpu_torch.parallel.
 spawn``) and import this module afresh, so it imports torch and the port
@@ -11,7 +11,11 @@ values.
 
 import contextlib
 import dataclasses
+import json
 import os
+import threading
+import urllib.error
+import urllib.request
 
 import numpy as np
 import torch
@@ -280,6 +284,202 @@ def train_cli_pp(argv):
             "microbatches": [enc.config.pp_microbatches
                              for enc in trainer.stages.values()],
             "remat": [enc.config.remat for enc in trainer.stages.values()]}
+
+
+# -- sharded serving (tests/test_torch_sharded_serving.py) -------------------
+
+@contextlib.contextmanager
+def full_precision():
+    """The f32 policy wherever the command line picks the inference one
+    (its towers then agree with the JAX package's to f32 rounding)."""
+    from multimodalsimilar_tpu_torch.utils.dtypes import DTypePolicy
+    saved = DTypePolicy.__dict__["inference"]
+    DTypePolicy.inference = classmethod(lambda cls: cls.full_precision())
+    try:
+        yield
+    finally:
+        DTypePolicy.inference = saved
+
+
+def drive(base, script, calls=None):
+    """Each ``(path, body)`` of ``script`` sent to the daemon at ``base``
+    (GET when ``body`` is None): [(HTTP status, reply)]. ``calls()``, when
+    given, is read after each request and kept beside its reply."""
+    out = []
+    for path, body in script:
+        data = None if body is None else json.dumps(body).encode()
+        req = urllib.request.Request(
+            base + path, data=data,
+            headers={"Content-Type": "application/json"})
+        try:
+            with urllib.request.urlopen(req, timeout=60) as r:
+                got = (r.status, json.loads(r.read()))
+        except urllib.error.HTTPError as e:
+            got = (e.code, json.loads(e.read()))
+        out.append(got + ((calls(),) if calls else ()))
+    return out
+
+
+def serve_cli(argv, script, model_parallel=None):
+    """``serve`` through ``cli.main`` on this rank, its tower in f32. The
+    serving rank's daemon answers ``script`` over HTTP from a client
+    thread, which then shuts the server down (``cmd_serve`` then closes
+    the service, and that stops the followers). Rank 0 (or the one
+    process) returns the replies with its engine's lockstep calls after
+    each; a follower returns what ``cmd_serve`` returns, the calls it
+    replayed. ``model_parallel`` puts that many ranks on the mesh's model
+    axis (the command line's ``serve`` has no such flag; a library
+    caller's Namespace may)."""
+    from multimodalsimilar_tpu_torch import cli
+    from multimodalsimilar_tpu_torch.cli import serve as cli_serve
+    from multimodalsimilar_tpu_torch.pipelines import serving
+    out = {}
+    make, mesh_of = serving.make_server, cli_serve._knn_backend_mesh
+
+    def with_model_axis(args):
+        args.model_parallel = model_parallel or 1
+        return mesh_of(args)
+
+    def serving_daemon(service, host, port):
+        httpd = make(service, host, port)
+        calls = getattr(service.engine, "calls", None)
+
+        def client():
+            try:
+                out["replies"] = drive(
+                    f"http://127.0.0.1:{httpd.server_address[1]}", script,
+                    (lambda: sum(calls.values())) if calls is not None
+                    else None)
+            finally:
+                httpd.shutdown()
+
+        threading.Thread(target=client, daemon=True).start()
+        return httpd
+
+    serving.make_server = serving_daemon
+    cli_serve._knn_backend_mesh = with_model_axis
+    try:
+        with full_precision():
+            followed = cli.main(argv, device="cpu")
+    finally:
+        serving.make_server, cli_serve._knn_backend_mesh = make, mesh_of
+    if "replies" not in out:
+        return {"followed": followed}
+    return out
+
+
+def l2_ops(eng, queries, k, update, as_tensor):
+    """One sequence of engine calls, on any engine with the port's API
+    (the JAX package's too; ``as_tensor`` makes its device queries):
+    host and device queries, ``search_device``, an empty query set, an
+    update refused for a duplicate key, a real one, the searches after
+    it and the self-search. Returns each answer as numpy."""
+    def np_pair(vi):
+        return tuple(np.asarray(a) for a in vi)
+
+    out = {"host": np_pair(eng.search(k, queries=queries)),
+           "tensor": np_pair(eng.search(k, queries=as_tensor(
+               queries[::-1].copy()))),
+           "device": np_pair(eng.search_device(k, as_tensor(queries[:3]))),
+           "empty": [np.asarray(a).shape for a in eng.search(
+               k, queries=np.zeros((0, queries.shape[1]), np.float32))]}
+    new_emb, new_keys = update
+    try:
+        eng.update(new_emb[:2], [new_keys[0]] * 2)
+    except ValueError as e:
+        out["refused"] = str(e)
+    out["update"] = tuple(eng.update(new_emb, new_keys))
+    out["after_update"] = np_pair(eng.search(k, queries=queries))
+    out["self"] = np_pair(eng.search(k))
+    return out
+
+
+def lockstep_l2(emb, queries, k, update):
+    """``l2_ops`` on an l2 engine over un-normalized rows (the multimodal
+    daemon's metric): over several ranks each holds its block, rank 0
+    drives a ``LockstepEngine`` and returns the answers and its calls,
+    the others follow and return what they replayed."""
+    from multimodalsimilar_tpu_torch.pipelines.sharded_serving import (
+        LockstepEngine, follow)
+    from multimodalsimilar_tpu_torch.retrieval.engine import SimilarityEngine
+    mesh = create_mesh()
+    engine = SimilarityEngine(emb, [f"r{i}" for i in range(len(emb))],
+                              metric="l2", normalize=False, device="cpu",
+                              mesh=mesh)
+    if mesh.rank != 0:
+        return {"followed": follow(engine, mesh)}
+    fused = engine.fused_search_fn(lambda q: q, k)
+    eng = LockstepEngine(engine, mesh) if engine.sharded else engine
+    out = {"fused_is_none": fused is None, "sharded": engine.sharded,
+           "block_rows": engine._ensure_corpus_dev()[0].shape[0],
+           **l2_ops(eng, queries, k, update, torch.from_numpy)}
+    if engine.sharded:
+        eng.stop()
+        out["calls"] = dict(eng.calls)
+    return out
+
+
+def embed_blocks(n, drop):
+    """The sharded corpus passes' helpers on rows 0..n-1, each rank
+    embedding its own block: ``embed_sharded`` (every row),
+    ``embed_kept`` and ``embed_keys_sharded`` (rows and keys whose index
+    divides by ``drop`` cannot be embedded, as a key without a readable
+    image). Row i embeds as [i, -i]."""
+    from multimodalsimilar_tpu_torch.pipelines.similar import (
+        embed_kept, embed_keys_sharded, embed_sharded)
+    mesh = create_mesh()
+
+    def vecs(rows):
+        rows = list(rows)
+        return (np.stack([[i, -i] for i in rows]).astype(np.float32)
+                if rows else np.zeros((0, 0), np.float32))
+
+    def embed_rows(rows):
+        kept = [j for j, i in enumerate(rows) if i % drop]
+        return vecs(rows[j] for j in kept), kept
+
+    emb, kept = embed_kept(mesh, n, embed_rows, "cpu")
+    by_key = embed_keys_sharded(
+        mesh, [f"k{i}" for i in range(n)],
+        lambda kk: {k: np.float32([int(k[1:]), -int(k[1:])])
+                    for k in kk if int(k[1:]) % drop}, "cpu")
+    return {"all": embed_sharded(mesh, n, vecs, "cpu"), "kept": kept,
+            "kept_emb": emb,
+            "by_key": {k: v.tolist() for k, v in by_key.items()}}
+
+
+def similar_daodian(argv):
+    """``similar daodian`` through ``cli.main`` on this rank into an
+    in-memory sink: the job's return on every rank, the items rank 0
+    wrote."""
+    from multimodalsimilar_tpu_torch import cli
+    from multimodalsimilar_tpu_torch.cli import similar as cli_similar
+    from multimodalsimilar_tpu_torch.pipelines import similar as P
+    sink, job, got = InMemoryKVSink(), P.daodian_similar_job, {}
+
+    def recorded(*a, **kw):
+        got["merged"] = job(*a, **kw)
+        return got["merged"]
+
+    saved = cli_similar._kv_sink
+    cli_similar._kv_sink = lambda args: sink
+    P.daodian_similar_job = recorded
+    try:
+        cli.main(argv, device="cpu")
+    finally:
+        cli_similar._kv_sink, P.daodian_similar_job = saved, job
+    return {"merged": got["merged"],
+            "items": {k: v for k, (v, _) in sink.data.items()}}
+
+
+def refused(argv):
+    """What ``cli.main(argv)`` raises on this rank: (type, message)."""
+    from multimodalsimilar_tpu_torch import cli
+    try:
+        cli.main(argv, device="cpu")
+    except (SystemExit, NotImplementedError) as e:
+        return type(e).__name__, str(e)
+    return None
 
 
 def run(jobs):
