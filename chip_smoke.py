@@ -131,7 +131,14 @@
    0.9999: what separates a query from its corpus row is bf16's
    rounding); in-process
    closed-loop load at c = 1, 16, 64 must launch the top-k once per
-   micro-batch; 64 images are added by ``update`` and found first by
+   micro-batch; the first 32 of them as base64 JPEGs (``cv2.imencode``)
+   go to ``/similar`` over HTTP (``make_server`` on a free local port) at
+   c = 1 and 16, top-k launches equal to micro-batches, each answer held
+   against the in-process answer to its decoded JPEG at the bucket it
+   was served at (``http_images``; HTTP p50/p99 and qps print beside the
+   in-process level's, with the card's name and power limit, and the
+   top-k kernel is timed at each bucket the requests ran at);
+   64 images are added by ``update`` and found first by
    themselves; ``embed``; a CUDA-event split of a request at buckets 1
    and 64, and the tower's kernels per call under ``torch.profiler``
    (launches, device ms, the heaviest kernels; phases 5 and 7 too). Each
@@ -151,9 +158,8 @@
    neither decode ``{img_root}/{key}.jpg`` nor read an ``--emb_table``)
    and holds it as phase 6 does, at buckets 1, 8, 48 and c = 1, 16, 48,
    with scores ascending and each corpus pair's own key first at
-   distance <= 1e-3. The image paths take decoded uint8 arrays, so no
-   phase needs OpenCV; JPEG decode and image HTTP are held by the CPU
-   tests.
+   distance <= 1e-3, and serves 32 (title, JPEG) pairs over HTTP as
+   phase 6 does. OpenCV encodes the JPEGs (the card machine has it).
 9. Phase 8 runs the daodian slice from seeds. fastText
    (``configs/train_fasttext.yaml``: dim 100, 5 epochs, word bigrams,
    bucket 200,000, batch 256) trains on the card over 100,000 synthetic
@@ -207,9 +213,10 @@
    ``configs/train_pair.yaml`` with the base tower (the width users train;
    the config leaves the CLI's tiny default), batch 128, max_length 64,
    with ``--profile`` (the trace's files are counted). Each reports
-   examples/s at the median step, step p50 and p95 and peak memory; all
-   but ``--fused_loss`` and ``train pair`` also the device's busy share
-   from a short ``torch.profiler`` window.
+   examples/s at the median step, step p50 and p95 and peak memory;
+   ``train cv`` at ``train_cv_daodian.yaml`` and ``train multilabel``
+   also the device's busy share from a short ``torch.profiler`` window
+   (the other recipes' windows were cut for time).
 11. Phase 10 drives the command line in process, through
    ``multimodalsimilar_tpu_torch.cli.main(argv)`` on its default device
    (the card), with the repo's ``configs/*.yaml`` (read by
@@ -350,9 +357,36 @@
    3's recipe heads), and (e)'s per-rank blocks: the serving search (64
    queries against 65,536 x 768 rows, all real and 34,464 real) and the
    daodian text arm's (8,300 queries against rank 0's 8,192 rows at k =
-   1,185; 9,000 against rank 1's 808 at k = 808). ``python3
-   chip_smoke.py --phases 12`` runs the builds and phase 12 alone and
-   prints no kernels or result line.
+   1,185; 9,000 against rank 1's 808 at k = 808). (f) ``train cv
+   --config configs/train_cv_daodian.yaml`` (B4, fc 512, batch 24, 4,181
+   Zipf classes over 96 synthetic JPEGs at 256 px, 4 steps of one epoch,
+   dropout and drop-path off, every model in full precision with TF32
+   off) through ``cli/train.py:cmd_train_cv``, its mesh from the process
+   group: f32 (global BatchNorm statistics), ``--bf16_grads`` (each
+   shard's own statistics, the gradients meaned in bf16) and
+   ``--model_parallel 2`` (4,182 classes, 2,091 a rank) on the two ranks;
+   f32 and, for ``--bf16_grads``, ``two_shard_step`` (each half of the
+   batch alone, the gradients meaned in bf16) on the reference rank.
+   Every step's loss must match the reference's within ``DIST_LOSS_TOL``,
+   the first step's gradients (BN scales and biases and the head) within
+   ``DIST_GRAD_TOL`` (those the reference holds below ``DIST_GRAD_NOISE``
+   of its largest are float noise there and must stay below it), and the
+   first and last BN's running statistics after the steps within
+   ``DIST_BN_RTOL`` relative (the neck's ``fc.bias`` part taken out:
+   ``neck_bias_part``);
+   each rank's head block must be its rows of the gathered head; ArcFace
+   launches equal the steps on every rank. Step p50, peak memory and
+   the CUDA-event time of the BN all-reduces, the gradient all-reduce
+   and the rest are reported a rank. (g) ``similar multimodal
+   --checkpoint`` over 2,048 (title, JPEG) rows at 380 px, every 97th
+   without a JPEG (in both blocks), through ``cli.main``
+   (``serve_multimodal.yaml``'s model): each rank embeds only its own
+   block, rank 0's KV items must equal the one-rank job's exactly, and
+   each rank holds its first top-k launch (l2, d = 1,280) against the
+   plain version. The parent then times the ArcFace kernel on one cv
+   class block (24 x 2,091 x 512) and the top-k kernel on each rank's
+   block of (g). ``python3 chip_smoke.py --phases 12`` runs the builds
+   and phase 12 alone and prints no kernels or result line.
 
 14. Phase 13 trains ``configs/train_nlp_large_tp.yaml`` at full width
    (``roberta_wwm_ext_large``: 24 layers, hidden 1,024, 16 heads, MLP
@@ -493,6 +527,9 @@ CV_DIM, MM_DIM, CV_LABELS, MM_LABELS = 512, 512 + 768, 4_181, 796
 N_CV_IMAGES, CV_CHUNK, N_CV_CORPUS = 4_096, 1_024, 100_000
 N_MM = 4_096
 CV_LEVELS, MM_LEVELS = (1, 16, 64), (1, 16, 48)
+# image_b64 over HTTP (phases 6-7): the first 32 novel images, each once
+# a level
+HTTP_IMAGE_LEVELS, N_HTTP_IMAGES = (1, 16), 32
 FOLD_RTOL = 1e-4
 
 
@@ -1267,10 +1304,11 @@ def serve_vs_plain(service, queries, dev, buckets=(1, 8, 64)) -> dict:
     return out
 
 
-def closed_loop(call, texts, c: int) -> dict:
-    """max(96, 12 c) calls from ``c`` threads, each starting its next
-    call when the last returns; per-call latency on the host clock."""
-    n_req = max(96, 12 * c)
+def closed_loop(call, texts, c: int, n_req: int = None) -> dict:
+    """``n_req`` (default max(96, 12 c)) calls from ``c`` threads, each
+    starting its next call when the last returns; per-call latency on the
+    host clock."""
+    n_req = n_req or max(96, 12 * c)
     lat, failures, lock, nxt = [], [], threading.Lock(), [0]
 
     def client():
@@ -1642,6 +1680,145 @@ def update_and_embed(service, payloads, keys, cats, ok, dim) -> dict:
             "embed_shape": list(emb.shape)}
 
 
+def jpeg_payloads(images, titles=None) -> list:
+    """``/similar`` bodies of ``images`` (RGB uint8) as base64 JPEGs that
+    ``cv2.imencode`` makes at its default quality, each with its title
+    when ``titles`` is given (the fused tower's pairs), no threshold."""
+    import cv2
+    out = []
+    for i, img in enumerate(images):
+        ok, buf = cv2.imencode(".jpg", cv2.cvtColor(img, cv2.COLOR_RGB2BGR))
+        if not ok:
+            raise AssertionError("cv2 could not encode a JPEG")
+        body = {"image_b64": base64.b64encode(buf.tobytes()).decode(),
+                "score_th": None}
+        if titles is not None:
+            body["text"] = titles[i]
+        out.append(body)
+    return out
+
+
+def _query_id(query) -> tuple:
+    """A parsed image query (an array, or a (title, array) pair) as a
+    hashable id."""
+    import hashlib
+    text, img = query if isinstance(query, tuple) else (None, query)
+    return text, hashlib.sha1(np.ascontiguousarray(img).tobytes()).digest()
+
+
+def http_images(service, args, payloads) -> dict:
+    """An image daemon over HTTP (``image_b64``): ``make_server`` on a free
+    local port, ``payloads`` sent to ``/similar`` by closed-loop clients
+    at c = 1 and 16, each payload once a level, with the top-k launch
+    count set to 0 just before and held equal to the micro-batches just
+    after, and the bucket each request ran at recorded. Every answer is
+    held against the in-process answer to the same decoded query (what
+    the handler parses, ``service.parser.one``) at the bucket it was
+    served at (``same_answer``, phase 1's tolerances): a query's bf16
+    embedding depends on its bucket's shapes, not on the other queries.
+    The JPEG round trip moves pixels, so the raw arrays are not what an
+    answer is held against."""
+    t0 = time.perf_counter()
+    decoded = [service.parser.one(p) for p in payloads]
+    ids = {_query_id(q): i for i, q in enumerate(decoded)}
+    buckets, level = {}, [None]
+    try_batch = service._try_device_batch
+
+    def recorded(queries, n):
+        for q in queries:
+            buckets.setdefault(level[0], {})[ids[_query_id(q)]] = \
+                service._bucket_size(n)
+        return try_batch(queries, n)
+
+    service._try_device_batch = recorded
+    httpd = make_server(service, args.host, args.port)
+    server = threading.Thread(target=httpd.serve_forever, daemon=True)
+    server.start()
+    base = f"http://{args.host}:{httpd.server_address[1]}"
+    answers, rows = {}, []
+    try:
+        T.LAUNCHES["topk"] = 0
+        b0 = service.stats["batches"]
+        for c in HTTP_IMAGE_LEVELS:
+            level[0] = c
+            got = answers.setdefault(c, {})
+
+            def call(i, got=got):
+                got[i] = _post(base + "/similar", payloads[i])["neighbors"]
+
+            b1 = service.stats["batches"]
+            row = closed_loop(call, list(range(len(payloads))), c,
+                              n_req=len(payloads))
+            row["batches"] = service.stats["batches"] - b1
+            row["buckets"] = dict(collections.Counter(buckets[c].values()))
+            rows.append(row)
+        launches = T.LAUNCHES["topk"]
+        batches = service.stats["batches"] - b0
+    finally:
+        service._try_device_batch = try_batch
+        httpd.shutdown()
+        httpd.server_close()
+        server.join(timeout=30)
+    if launches != batches:
+        raise AssertionError(f"image HTTP: {launches} top-k launches for "
+                             f"{batches} similar-only batches")
+    wall = {"http_s": time.perf_counter() - t0}
+    t0 = time.perf_counter()
+    keys, k = service.engine.keys, service.k
+
+    def answer(queries, b):
+        """In-process answers to ``queries`` at bucket ``b`` (the batch
+        filled to ``b`` with the first query)."""
+        fill = list(queries) + [queries[0]] * (b - len(queries))
+        got = service._run_batch([{"op": "similar", "query": q}
+                                  for q in fill])
+        return [[{"key": str(keys[j]), "score": float(v)}
+                 for v, j in zip(sc[:k], ix[:k])]
+                for sc, ix in got[:len(queries)]]
+
+    need = collections.defaultdict(set)     # bucket -> requests served at it
+    for served_at in buckets.values():
+        for i, b in served_at.items():
+            need[b].add(i)
+    table = {}
+    for b, served in need.items():
+        served = sorted(served)
+        for s in range(0, len(served), b):
+            chunk = served[s: s + b]
+            for j, ans in zip(chunk, answer([decoded[j] for j in chunk],
+                                            b)):
+                table[(j, b)] = ans
+    held = 0
+    for c, got in answers.items():
+        for i, ans in got.items():
+            same_answer(f"image HTTP c={c} request {i}", ans,
+                        table[(i, buckets[c][i])])
+            held += 1
+    wall["held_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    corpus, true_n, _ = service.engine._corpus_dev
+    blocks = [timed_search(corpus, corpus[:b].clone(), k,
+                           service.engine.metric, true_n)
+              for b in sorted(need)]
+    wall["blocks_s"] = time.perf_counter() - t0
+    return {"levels": rows, "answers_held": held, "topk_launches": launches,
+            "blocks": blocks, "similar_batches": batches, "wall_s": wall,
+            "tolerance": "each answer against the in-process answer to its "
+                         "decoded JPEG at its bucket: keys equal where "
+                         "neighbouring scores differ by more than 1e-5, "
+                         "scores within atol 1e-4, rtol 1e-5"}
+
+
+def print_image_http(tower, http, load) -> None:
+    """One line: the image daemon's HTTP levels beside the in-process
+    ones at the same concurrency, with the card's name and power
+    limit."""
+    print(json.dumps({"image_http": {
+        "tower": tower, "card": card_line(), "http": http["levels"],
+        "in_process": [r for r in load["in_process"]
+                       if r["c"] in HTTP_IMAGE_LEVELS]}}), flush=True)
+
+
 WITNESS_COS = 0.9999      # alone vs in its batch, full precision
 
 
@@ -1677,13 +1854,14 @@ def precision_witness(embedder, images) -> dict:
 
 
 def phase6(dev, backbone=BACKBONE, size=CV_SIZE, n_images=N_CV_IMAGES,
-           seed=SEED, own_score=0.999) -> dict:
+           seed=SEED, own_score=0.999, http=True) -> dict:
     """``serve --tower cv`` at configs/serve_cv.yaml with ``backbone`` at
     ``size`` px (see the docstring): an EfficientNet gets seeded backbone
     BN statistics and is checked folded against unfolded; a ViT or
     ConvNeXt, which has no backbone BN, gets its neck's statistics
     measured. Each corpus image must find its own key first at
-    ``own_score``."""
+    ``own_score``. ``http``: the 64 novel images as ``image_b64`` requests
+    over HTTP too (``http_images``)."""
     work = tempfile.mkdtemp(prefix="chip_smoke_cv_")
     try:
         args = cv_args(work)
@@ -1768,6 +1946,11 @@ def phase6(dev, backbone=BACKBONE, size=CV_SIZE, n_images=N_CV_IMAGES,
             own = own_first(service, list(first), keys[:64],
                             lambda s: s >= own_score)
             load = load_and_launches(service, list(novel), CV_LEVELS)
+            image_http = http_images(service, args, jpeg_payloads(
+                novel[:N_HTTP_IMAGES])) if http else None
+            if http:
+                print_image_http(f"cv ({backbone} at {size} px)",
+                                 image_http, load)
             new = make_images(np.random.default_rng(seed + 10), 64, size)
             updated = update_and_embed(
                 service, list(new), [f"new{i:03d}" for i in range(64)],
@@ -1785,8 +1968,9 @@ def phase6(dev, backbone=BACKBONE, size=CV_SIZE, n_images=N_CV_IMAGES,
             "corpus_embed_s": embed_s, "build_s": build_s, "warm_s": warm_s,
             "fold": fold, "precision_witness": witness,
             "fused_vs_plain": checked, "own_first": own,
-            "own_score_limit": own_score, **load, "update": updated,
-            "request_split": split, "tower_profile": prof,
+            "own_score_limit": own_score, **load, "image_http": image_http,
+            "update": updated, "request_split": split,
+            "tower_profile": prof,
             "config": f"configs/serve_cv.yaml with --backbone {backbone} "
                       f"--image_size {size}: fc 512, 4181 labels, batch "
                       f"64, k 13, score_th 0.15, max_batch 64, max_wait 5 "
@@ -1913,6 +2097,11 @@ def phase7(dev) -> dict:
                                      buckets=(1, 8, 48))
             own = own_first(service, pairs, keys[:48], lambda s: s <= 1e-3)
             load = load_and_launches(service, novel, MM_LEVELS)
+            image_http = http_images(service, args, jpeg_payloads(
+                novel_imgs[:N_HTTP_IMAGES],
+                titles[N_MM: N_MM + N_HTTP_IMAGES]))
+            print_image_http("multimodal (efficientnet_b4 at 380 px + "
+                             "roberta_wwm_ext)", image_http, load)
             new_imgs = make_images(np.random.default_rng(SEED + 15), 48,
                                    MM_SIZE)
             updated = update_and_embed(
@@ -1930,8 +2119,8 @@ def phase7(dev) -> dict:
             "job_topk_launches": job_launches,
             "job_sample_max_abs_err": job_err, "warm_s": warm_s,
             "fused_vs_plain": checked, "own_first": own, **load,
-            "update": updated, "request_split": split,
-            "tower_profile": tower,
+            "image_http": image_http, "update": updated,
+            "request_split": split, "tower_profile": tower,
             "config": "configs/serve_multimodal.yaml: efficientnet_b4 at "
                       "380 px + roberta_wwm_ext (base), max_length 128, "
                       "fused 1280-d, 796 labels, batch and max_batch 48, "
@@ -2610,7 +2799,7 @@ def phase9(dev) -> dict:
     """The training recipes (see the docstring)."""
     from multimodalsimilar_tpu_torch.cli import train as CT
     from multimodalsimilar_tpu_torch.data.datasets import (
-        ImageClassificationSource, MultimodalSource)
+        ImageClassificationSource)
 
     work = tempfile.mkdtemp(prefix="chip_smoke_train_")
     rng = np.random.default_rng(SEED + 41)
@@ -2671,9 +2860,6 @@ def phase9(dev) -> dict:
                 or r["arcface_launches"] != trainer.step:
             raise AssertionError(f"timm: {type(trainer.optimizer)}, "
                                  f"{r['arcface_launches']} launches")
-        r["profile"] = profile_steps(trainer, ImageClassificationSource(
-            timm_table, img_root, "goods_sku", "tag_new_id", MM_SIZE,
-            train_aug=True), TIMM_BATCH, n=2)
         out["cv_timm"] = r
         release(trainer)
 
@@ -2743,11 +2929,6 @@ def phase9(dev) -> dict:
                 or not bn_moved(trainer.model.cv):
             raise AssertionError(f"multimodal: {r['arcface_launches']} "
                                  f"launches in {trainer.step} steps")
-        r["profile"] = profile_steps(trainer, MultimodalSource(
-            mm_table, TextTokenizer.from_vocab_file(
-                os.path.join(args.output, "vocab.txt")), img_root,
-            "spu_name", "spu_sn", "cateid", 128, MM_SIZE, train_aug=True),
-            48, n=2)
         out["multimodal"] = r
         release(trainer)
 
@@ -3079,12 +3260,12 @@ N_VIT_IMAGES = 4_096
 VIT_OWN_SCORE = 0.996
 # 96 and 192 rows (144 and 288 before a cut for time)
 N_NEW_CV_ROWS, N_NEW_TIMM_ROWS = 96, 192
-# 8,192 titles (16,384 before a cut for time)
-N_INT8_TITLES, N_INT8_F32 = 8_192, 2_048
-# the int8 daemon's corpus: phase 5's first 10,000 titles (all 100,000,
-# then 20,000, before cuts for time: the corpus pass of 100,000 took
-# 31.2 s of phase 11)
-N_INT8_SERVE = 10_000
+# 4,096 titles (16,384, then 8,192, before cuts for time)
+N_INT8_TITLES, N_INT8_F32 = 4_096, 2_048
+# the int8 daemon's corpus: phase 5's first 5,000 titles (all 100,000,
+# then 20,000 and 10,000, before cuts for time: the corpus pass of
+# 100,000 took 31.2 s of phase 11)
+N_INT8_SERVE = 5_000
 INT8_COS = 1e-3            # JAX's int8 budget against f32 (test_quant.py)
 # (rows, K, N) of int8 products: one row, 16 and 17 rows (the pad to
 # torch._int_mm's floor), a bucket-64 x 80-token request's QKV, and the
@@ -3357,7 +3538,7 @@ def phase11(dev) -> dict:
     """The ViT and ConvNeXt towers and the int8 text tower (see the
     docstring)."""
     return {"vit_serving": phase6(dev, VIT, NEW_SIZE, N_VIT_IMAGES,
-                                  SEED + 60, VIT_OWN_SCORE),
+                                  SEED + 60, VIT_OWN_SCORE, http=False),
             "train": phase11_train(dev), "int8": phase11_int8(dev)}
 
 # -- phase 12: multi-GPU training and the corpus-sharded search --------------
@@ -3598,11 +3779,11 @@ def csv_rows(path: str) -> list:
         return list(csv.reader(f))[1:]
 
 
-def dist_similar(ref: bool, work: str) -> dict:
-    """(b): ``similar nlp --config configs/similar_nlp.yaml`` over phase
-    2's first 25,000 titles through ``cli.main`` on this rank, the reference
-    spawn's base tower loaded from its checkpoint. The reference world
-    writes its KV items; the other's rank 0 must write the same."""
+def dist_job(name: str, argv, ref: bool, work: str) -> dict:
+    """A ``similar`` command through ``cli.main`` on this rank into an
+    in-memory sink, its first top-k launch recorded and, after the job,
+    held against the plain version (``check_launch``). The reference world
+    writes rank 0's KV items; the other's rank 0 must write the same."""
     import torch.distributed as dist
     from multimodalsimilar_tpu_torch.cli import similar as cli_similar
     sink = InMemoryKVSink()
@@ -3619,34 +3800,41 @@ def dist_similar(ref: bool, work: str) -> dict:
 
     T.topk_cuda = recorded
     try:
-        _, _, wall, launches = run_cli(
-            ["similar", "nlp", "--config", config_path("similar_nlp.yaml"),
-             "--data", os.path.join(work, "titles.csv"), "--checkpoint",
-             os.path.join(work, "base_ckpt"), "--tokenizer",
-             os.path.join(work, "vocab.txt")])
+        _, _, wall, launches = run_cli(argv)
     finally:
         cli_similar._kv_sink = saved
         T.topk_cuda = launch
     if launches["topk"] < 1:
-        raise AssertionError("similar nlp never launched the top-k kernel")
+        raise AssertionError(f"{name} never launched the top-k kernel")
     row = {"wall_s": wall, "topk_launches": launches["topk"],
-           "kernel_vs_plain": check_launch(f"similar nlp rank "
+           "kernel_vs_plain": check_launch(f"{name} rank "
                                            f"{dist.get_rank()}", *first[0])}
     del first
     if dist.get_rank() == 0:
         items = kv_items(sink)
-        path = os.path.join(work, "similar_items.json")
+        path = os.path.join(work, name.replace(" ", "_") + "_items.json")
         if ref:
             json.dump(items, open(path, "w", encoding="utf-8"))
         else:
             want = json.load(open(path, encoding="utf-8"))
             if items != want:
                 bad = sum(items.get(k) != v for k, v in want.items())
-                raise AssertionError(f"sharded similar nlp: {bad} of "
+                raise AssertionError(f"sharded {name}: {bad} of "
                                      f"{len(want)} KV items differ from "
                                      f"the one-rank job's")
         row["written"] = len(items)
     return row
+
+
+def dist_similar(ref: bool, work: str) -> dict:
+    """(b): ``similar nlp --config configs/similar_nlp.yaml`` over phase
+    2's first 25,000 titles, the reference spawn's base tower loaded from
+    its checkpoint (``dist_job``)."""
+    return dist_job("similar nlp", [
+        "similar", "nlp", "--config", config_path("similar_nlp.yaml"),
+        "--data", os.path.join(work, "titles.csv"), "--checkpoint",
+        os.path.join(work, "base_ckpt"), "--tokenizer",
+        os.path.join(work, "vocab.txt")], ref, work)
 
 
 def check_launch(name, corpus, queries, k, metric, true_n=None,
@@ -4003,9 +4191,420 @@ def dist_daodian(ref: bool, work: str) -> dict:
     return row
 
 
+# (f): train cv at configs/train_cv_daodian.yaml's width (B4, fc 512, 4,181
+# classes, batch 24), 4 steps of one epoch (the step timer skips the first
+# 3 intervals: one timed step, as (a)), every world in full precision (f32
+# products, TF32 off), at 256 px (512 before a cut: two ranks of
+# --model_parallel 2 share the card and each holds the whole batch's f32
+# activations)
+DIST_CV_BATCH, DIST_CV_STEPS, DIST_CV_SIZE = 24, 4, 256
+# the running statistics of the first and last BatchNorm after the steps
+# against world 1's, as a share of each tensor's largest entry (f32 sums
+# in another order)
+DIST_BN_RTOL = 1e-4
+# a first gradient whose largest entry in world 1 is below this share of
+# world 1's largest gradient is float noise (a bias whose output reaches
+# the loss only through a train()-mode BatchNorm that takes its mean out
+# is zero in exact arithmetic): it is held to stay below that share
+DIST_GRAD_NOISE = 1e-4
+# (g): similar multimodal --checkpoint over 2,048 rows (B4 at 380 px + the
+# base tower); rows i with i % 97 == 5 have no JPEG, in both blocks
+N_DIST_MM, DIST_MM_GAP = 2_048, 97
+
+
+def dist_f_inputs(work: str, dev) -> None:
+    """(f)'s and (g)'s inputs in the work directory: 96 JPEGs at 256 px
+    with Zipf labels over 4,181 classes that reach the last; (g)'s 2,048
+    titles with JPEGs at 380 px (but every 97th), their vocab, and a
+    seed-0 multimodal checkpoint whose backbone BN statistics are seeded
+    as phase 7 seeds them."""
+    rng = np.random.default_rng(SEED + 140)
+    n = DIST_CV_BATCH * DIST_CV_STEPS
+    keys = [f"cvd{i:04d}" for i in range(n)]
+    write_jpegs(os.path.join(work, "cv_images"), keys, DIST_CV_SIZE, rng)
+    json.dump({"goods_sku": keys, "tag_new_id": [
+        int(v) for v in zipf_with_last(n, CV_LABELS, rng)]},
+        open(os.path.join(work, "cv_train.json"), "w", encoding="utf-8"))
+    keys = [f"mmd{i:05d}" for i in range(N_DIST_MM)]
+    titles = make_titles(N_DIST_MM, rng)
+    write_jpegs(os.path.join(work, "mm_images"),
+                [k for i, k in enumerate(keys) if i % DIST_MM_GAP != 5],
+                MM_SIZE, rng)
+    write_csv(os.path.join(work, "mm.csv"),
+              {"spu_sn": keys, "spu_name": titles})
+    build_char_vocab(titles, out_path=os.path.join(work, "mm_vocab.txt"))
+    model = MultimodalClassifier(
+        BertConfig.roberta_wwm_ext(), backbone_config(BACKBONE),
+        num_labels=MM_LABELS, fc_dim=CV_DIM,
+        generator=torch.Generator().manual_seed(SEED))
+    seed_bn_statistics(model.cv, SEED + 12, make_images(
+        np.random.default_rng(SEED + 12), 8, MM_SIZE), dev)
+    CheckpointManager(os.path.join(work, "mm_ckpt")).save(
+        0, {"model": model.state_dict()})
+
+
+def first_last_bn(trainer) -> dict:
+    """The running statistics of the model's first and last BatchNorm
+    (the stem's and the neck's), on the host."""
+    bns = trainer._batch_norms()
+    return {f"{tag}.{b}": getattr(m, b).detach().float().cpu().clone()
+            for tag, m in (("first", bns[0]), ("last", bns[-1]))
+            for b in ("running_mean", "running_var")}
+
+
+def neck_bias_part(trainer):
+    """From here on, records the neck's ``fc.bias`` as each step's forward
+    reads it; returns the function that gives its part of the last
+    BatchNorm's running mean, m sum_t (1 - m)^(T - t) b_t (the running
+    mean is linear in the batch means, and each batch mean holds b_t
+    whole). That bias has no gradient in exact arithmetic (the BatchNorm
+    after it takes its mean out), so AdamW steps each world's float noise
+    in it by up to about lr either way, apart in each world: the running
+    mean is held without that part, which is reported."""
+    model, bn = trainer.model, trainer._batch_norms()[-1]
+    seen = {}
+
+    def record(module, inputs):
+        if module.training:
+            seen.setdefault(trainer.step,
+                            module.fc.bias.detach().float().cpu().clone())
+
+    model.register_forward_pre_hook(record)
+
+    def part():
+        out = torch.zeros_like(bn.running_mean, dtype=torch.float32,
+                               device="cpu")
+        for step in sorted(seen):
+            out = (1 - bn.momentum) * out + bn.momentum * seen[step]
+        return out
+
+    return part
+
+
+def bn_rel_err(got: dict, want: dict) -> float:
+    """The largest difference of two ``first_last_bn`` results, as a share
+    of each tensor's largest entry."""
+    return max(float((got[k] - w).abs().max() / w.abs().max().clamp_min(
+        1e-30)) for k, w in want.items())
+
+
+def cv_grad_errors(grads: dict, ref: dict, tol: tuple) -> dict:
+    """``dist_grad_errors`` on each gradient that world 1 holds above
+    ``DIST_GRAD_NOISE`` of its largest; the others are float noise there
+    (zero in exact arithmetic) and must stay below that share here. The
+    noise tensors are counted, with the largest share read on either
+    side."""
+    top = max(float(v.abs().max()) for v in ref.values())
+    noise = {n for n, v in ref.items()
+             if float(v.abs().max()) < DIST_GRAD_NOISE * top}
+    worst = 0.0
+    for name in noise:
+        got = float(grads[name].abs().max()) / top
+        if got >= DIST_GRAD_NOISE:
+            raise AssertionError(f"{name}: gradient {got} of the largest "
+                                 f"where world 1's is below "
+                                 f"{DIST_GRAD_NOISE} of it")
+        worst = max(worst, got, float(ref[name].abs().max()) / top)
+    out = dist_grad_errors(grads, {n: v for n, v in ref.items()
+                                   if n not in noise}, tol)
+    return {**out, "held": len(ref) - len(noise), "noise": len(noise),
+            "noise_max": worst}
+
+
+def capture_first_grads(trainer, names: set, into: dict) -> None:
+    """From here on the trainer's first ``_reduce_gradients`` also copies
+    the reduced gradients of ``names`` to the host (the class blocks
+    gathered) into ``into``."""
+    from multimodalsimilar_tpu_torch.train.checkpoint import gather_shard
+    reduce = trainer._reduce_gradients
+
+    def capture():
+        reduce()
+        if into:
+            return
+        for name, p in trainer.model.named_parameters():
+            if name in names:
+                g = p.grad
+                if name in trainer.shards:
+                    g = gather_shard(g, trainer.shards[name], trainer.mesh)
+                into[name] = g.detach().float().cpu()
+
+    trainer._reduce_gradients = capture
+
+
+def two_shard_step(trainer):
+    """World 1's counterpart of two ``--bf16_grads`` ranks, as its
+    ``train_step``: each half of the batch from the same weights and
+    running statistics (each half normalized with its own statistics, as
+    each rank normalizes its shard), the halves' gradients rounded to
+    bf16, added and halved in bf16 (the two ranks' all-reduce mean), their
+    running statistics and metrics meaned, then the optimizer step."""
+    model = trainer.model
+    bns = trainer._batch_norms()
+
+    def step(batch):
+        half = next(iter(batch.values())).shape[0] // 2
+        start = [(m.running_mean.clone(), m.running_var.clone())
+                 for m in bns]
+        grads, stats, metrics = [], [], []
+        model.train()
+        for s in (0, half):
+            for m, (mean, var) in zip(bns, start):
+                m.running_mean.copy_(mean)
+                m.running_var.copy_(var)
+            loss, got = trainer.task.train_loss(
+                {k: v[s:s + half] for k, v in batch.items()}, trainer.margin)
+            loss.backward()
+            grads.append({n: p.grad.to(torch.bfloat16)
+                          for n, p in model.named_parameters()
+                          if p.grad is not None})
+            trainer.optimizer.zero_grad(set_to_none=True)
+            stats.append([(m.running_mean.clone(), m.running_var.clone())
+                          for m in bns])
+            metrics.append(got)
+        for n, p in model.named_parameters():
+            if n in grads[0]:
+                p.grad = ((grads[0][n] + grads[1][n]) / 2).float()
+        for m, a, b in zip(bns, *stats):
+            m.running_mean.copy_((a[0] + b[0]) / 2)
+            m.running_var.copy_((a[1] + b[1]) / 2)
+        trainer.step += 1
+        trainer._reduce_gradients()
+        trainer.optimizer.step()
+        trainer.optimizer.zero_grad(set_to_none=True)
+        trainer.schedules.step()
+        return {k: (metrics[0][k] + metrics[1][k]) / 2 for k in metrics[0]}
+
+    return step
+
+
+def timed_collectives(trainer) -> dict:
+    """CUDA-event spans of every ``torch.distributed.all_reduce`` from here
+    on, sorted into the gradient all-reduce (inside
+    ``_reduce_gradients``), the BatchNorm ones (the statistics of each
+    train()-mode BN, forward and backward, and the running statistics'
+    mean under ``--bf16_grads``) and the rest (metrics); returns the
+    lists and a function that puts ``all_reduce`` back."""
+    import torch.distributed as dist
+    spans = {"grad": [], "bn": [], "other": []}
+    where = [None]
+    real = dist.all_reduce
+
+    def all_reduce(tensor, *a, **kw):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        work = real(tensor, *a, **kw)
+        end.record()
+        kind = where[0] or ("bn" if tensor.dim() == 2
+                            and tensor.shape[0] == 2 else "other")
+        spans[kind].append((start, end))
+        return work
+
+    for method, kind in (("_reduce_gradients", "grad"),
+                         ("_mean_batch_norm_statistics", "bn")):
+        def inside(fn=getattr(trainer, method), kind=kind):
+            where[0] = kind
+            try:
+                fn()
+            finally:
+                where[0] = None
+        setattr(trainer, method, inside)
+    dist.all_reduce = all_reduce
+
+    def restore():
+        dist.all_reduce = real
+    return spans, restore
+
+
+def dist_cv_train(dev, ref: bool, work: str) -> dict:
+    """(f): ``train cv --config configs/train_cv_daodian.yaml`` through
+    ``cli/train.py:cmd_train_cv`` on this rank, its mesh from the process
+    group as under ``torchrun``, at 256 px, every model in full precision
+    (``DTypePolicy.full_precision()``, TF32 off), dropout and drop-path
+    off (each world would draw its masks apart): f32 data-parallel (global
+    BN statistics) and, over two ranks, ``--bf16_grads`` (each shard's own
+    statistics, the gradients meaned in bf16) and ``--model_parallel 2``
+    (4,182 classes, 2,091 a rank). World 1 runs f32 and, for
+    ``--bf16_grads``, ``two_shard_step``; it writes their losses, first
+    gradients (the BatchNorm scales and biases and the head) and the first
+    and last BatchNorm's running statistics after the steps. The other
+    world holds its own against them: every step's loss within
+    ``DIST_LOSS_TOL``, the first gradients within ``DIST_GRAD_TOL``
+    (``cv_grad_errors``), the running statistics within ``DIST_BN_RTOL``,
+    and each rank's head block against the gathered head's rows that
+    ``ArcFaceHead.shard`` gives it."""
+    import torch.distributed as dist
+    from multimodalsimilar_tpu_torch.cli import train as CT
+    from multimodalsimilar_tpu_torch.models.bert import Dropout
+    from multimodalsimilar_tpu_torch.parallel.mesh import MeshRules
+    table = json.load(open(os.path.join(work, "cv_train.json"),
+                           encoding="utf-8"))
+    world, rank = dist.get_world_size(), dist.get_rank()
+    configs = ["f32", "bf16"] + (["model_parallel"]
+                                 if not ref and world % 2 == 0 else [])
+    want = None if ref else torch.load(os.path.join(work, "cv_ref.pt"),
+                                       weights_only=True)
+    fit, out, saved = CT._fit, {}, {}
+    for name in configs:
+        flags = {"bf16": ["--bf16_grads"],
+                 "model_parallel": ["--model_parallel", "2"]}.get(name, [])
+        args = cli_args([
+            "train", "cv", "--config", config_path("train_cv_daodian.yaml"),
+            "--data", "synthetic table (table=)", "--output",
+            os.path.join(work, f"cv_{name}_{world}"), "--img_root",
+            os.path.join(work, "cv_images"), "--key_col", "goods_sku",
+            "--image_size", str(DIST_CV_SIZE), "--epochs", "1",
+            "--log_every", "1", *flags])
+        row, spans, first = {}, {}, {}
+        t_config = time.perf_counter()
+
+        def full_precision_fit(trainer, args, src, *rest, row=row,
+                               spans=spans, first=first, name=name):
+            model = trainer.model
+            for m in model.modules():
+                if isinstance(m, Dropout):
+                    m.p = 0.0
+                if hasattr(m, "policy"):
+                    m.policy = DTypePolicy.full_precision()
+            if ref and name == "bf16":
+                trainer.train_step = two_shard_step(trainer)
+            if name != "model_parallel":
+                trainer.ckpt = None   # phase 9's train cv writes its save
+            row["neck_bias_part"] = neck_bias_part(trainer)
+            capture_first_grads(trainer, {
+                f"{n}.{p}" for n, m in model.named_modules()
+                if isinstance(m, torch.nn.modules.batchnorm._BatchNorm)
+                for p in ("weight", "bias")} | {"head.weight"}, first)
+            got, restore = timed_collectives(trainer)
+            spans.update(got)
+            A.LAUNCHES["arcface"] = 0
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            try:
+                return fit(trainer, args, src, *rest)
+            finally:
+                torch.cuda.synchronize()
+                restore()
+                row["fit_s"] = time.perf_counter() - t0
+
+        CT._fit = full_precision_fit
+        try:
+            trainer = CT.cmd_train_cv(args, table=table, device=dev)
+        finally:
+            CT._fit = fit
+        launches = A.LAUNCHES["arcface"]
+        if trainer.step != DIST_CV_STEPS or launches != DIST_CV_STEPS * (
+                2 if ref and name == "bf16" else 1):
+            raise AssertionError(f"cv {name}: {trainer.step} steps, "
+                                 f"{launches} ArcFace launches on rank "
+                                 f"{rank}; want {DIST_CV_STEPS} steps")
+        summary = trainer.timer.summary(DIST_CV_BATCH)
+        per_step = {k: sum(a.elapsed_time(b) for a, b in v) / trainer.step
+                    for k, v in spans.items()}
+        res = {"steps": trainer.step, "arcface_launches": launches,
+               "fit_s": row["fit_s"], "step_ms_p50": summary["p50_ms"],
+               "examples_per_s": summary["examples_per_sec"],
+               "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+               "all_reduces_per_step": {k: len(v) / trainer.step
+                                        for k, v in spans.items()},
+               "all_reduce_ms_per_step": per_step,
+               "all_reduce_share": {k: v / summary["p50_ms"]
+                                    for k, v in per_step.items()},
+               "bn_layers": len(trainer._batch_norms()),
+               "bn_stats_mesh": sum(getattr(m, "stats_mesh", None)
+                                    is not None
+                                    for m in trainer._batch_norms())}
+        losses = None
+        if rank == 0:
+            losses = [ln["train/loss"] for ln in map(json.loads, open(
+                os.path.join(args.output, "metrics.jsonl"),
+                encoding="utf-8")) if "train/loss" in ln]
+            if len(losses) != DIST_CV_STEPS or not all(
+                    math.isfinite(v) for v in losses):
+                raise AssertionError(f"cv {name}: losses {losses}")
+            res["losses"] = losses
+        bn_after = first_last_bn(trainer)
+        bias_part = row["neck_bias_part"]()
+        bn_after["last.running_mean"] -= bias_part
+        if ref:
+            saved[name] = {"losses": losses, "grads": first,
+                           "bn_after": bn_after, "bias_part": bias_part}
+        else:
+            base = want["f32" if name == "model_parallel" else name]
+            res["bn_after_rel_err"] = bn_rel_err(bn_after, base["bn_after"])
+            res["neck_bias_part_abs_err"] = float(
+                (bias_part - base["bias_part"]).abs().max())
+            if res["bn_after_rel_err"] > DIST_BN_RTOL:
+                raise AssertionError(f"cv {name} rank {rank}: running "
+                                     f"statistics after the steps differ "
+                                     f"by {res['bn_after_rel_err']}")
+            if rank == 0:
+                res["loss_abs_err"] = max(abs(a - b) for a, b in zip(
+                    losses, base["losses"]))
+                if res["loss_abs_err"] > DIST_LOSS_TOL:
+                    raise AssertionError(f"cv {name}: losses {losses} vs "
+                                         f"world 1's {base['losses']}")
+                res["grad_rel_err"] = cv_grad_errors(
+                    first, base["grads"], DIST_GRAD_TOL[name])
+        if name == "model_parallel":
+            whole = trainer.full_state()["model"]["head.weight"]
+            rows = MeshRules(trainer.mesh).class_sharded(whole.shape[0])
+            block = trainer.model.head.weight.detach()
+            if block.shape[0] != (CV_LABELS + 1) // 2 or not torch.equal(
+                    block, whole[rows].to(block.device)):
+                raise AssertionError(f"cv model_parallel rank {rank}: head "
+                                     f"block {tuple(block.shape)} is not "
+                                     f"rows {rows} of the gathered head")
+            res["head_rows_on_rank"] = block.shape[0]
+        release(trainer)
+        res["config_s"] = time.perf_counter() - t_config
+        out[name] = res
+        del trainer
+        torch.cuda.empty_cache()
+    if ref and rank == 0:
+        torch.save(saved, os.path.join(work, "cv_ref.pt"))
+    return out
+
+
+def dist_similar_mm(ref: bool, work: str) -> dict:
+    """(g): ``similar multimodal --checkpoint`` over the 2,048 rows of
+    ``dist_f_inputs`` at ``configs/serve_multimodal.yaml``'s model (B4 at
+    380 px + the base tower, fc 512, 796 labels, batch 48, k 13), through
+    ``cli.main`` (``dist_job``): each rank embeds its own block of rows,
+    counted here, and must embed no other."""
+    from multimodalsimilar_tpu_torch.cli import embedders as cli_embedders
+    fused, embedded = cli_embedders._fused_embeddings, []
+
+    def counted(args, df, *a, **kw):
+        embedded.append(len(df["spu_sn"]))
+        return fused(args, df, *a, **kw)
+
+    cli_embedders._fused_embeddings = counted
+    try:
+        row = dist_job("similar multimodal", [
+            "similar", "multimodal", "--data", os.path.join(work, "mm.csv"),
+            "--checkpoint", os.path.join(work, "mm_ckpt"), "--tokenizer",
+            os.path.join(work, "mm_vocab.txt"), "--img_root",
+            os.path.join(work, "mm_images"), "--bert_preset", "base",
+            "--num_labels", str(MM_LABELS)], ref, work)
+    finally:
+        cli_embedders._fused_embeddings = fused
+    import torch.distributed as dist
+    world = dist.get_world_size()
+    if sum(embedded) != -(-N_DIST_MM // world):
+        raise AssertionError(f"similar multimodal: rank "
+                             f"{dist.get_rank()} embedded {embedded} rows "
+                             f"of {N_DIST_MM} over {world} ranks")
+    row["rows_embedded"] = sum(embedded)
+    return row
+
+
 def phase12_rank(ref: bool, work: str) -> dict:
-    """What every rank of phase 12 runs: (a) to (e) of the docstring, its
-    prints swallowed (rank 0's trainer logs every step)."""
+    """What every rank of phase 12 runs: (a) to (g) of the docstring, its
+    prints swallowed (rank 0's trainer logs every step), each part's wall
+    seconds in ``wall_s``."""
     import contextlib
     import io
 
@@ -4013,15 +4612,21 @@ def phase12_rank(ref: bool, work: str) -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", torch.cuda.current_device())
+    out, wall = {}, {}
     with contextlib.redirect_stdout(io.StringIO()):
-        train = dist_train(dev, ref, work)
-        similar = dist_similar(ref, work)
-        serve = dist_serve(dev, ref, work)
-        daodian = dist_daodian(ref, work)
+        for key, fn, args in (
+                ("train", dist_train, (dev, ref, work)),
+                ("similar", dist_similar, (ref, work)),
+                ("serve", dist_serve, (dev, ref, work)),
+                ("daodian", dist_daodian, (ref, work)),
+                ("train_cv", dist_cv_train, (dev, ref, work)),
+                ("similar_multimodal", dist_similar_mm, (ref, work)),
+                ("search", dist_search, (dev,))):
+            t0 = time.perf_counter()
+            out[key] = fn(*args)
+            wall[key] = time.perf_counter() - t0
     return {"rank": dist.get_rank(), "world": dist.get_world_size(),
-            "backend": dist.get_backend(), "train": train,
-            "similar": similar, "search": dist_search(dev),
-            "serve": serve, "daodian": daodian}
+            "backend": dist.get_backend(), "wall_s": wall, **out}
 
 
 def dist_e_inputs(work: str) -> None:
@@ -4042,29 +4647,42 @@ def dist_e_inputs(work: str) -> None:
                      device="cuda").save(os.path.join(work, "fasttext.pt"))
 
 
+def timed_search(corpus, q, k, metric, true_n=None, select=False,
+                 reps=20) -> dict:
+    """One search timed alone on the card: the top-k kernel (the selection
+    route with ``select``), its plain version and the library call on the
+    same inputs, beside ``T.bound_ms`` for this shape."""
+    n = corpus.shape[0] if true_n is None else true_n
+    kernel = T.topk_select_cuda if select else T.topk_cuda
+    library = select_library if select else topk_library
+    row = {"q": q.shape[0], "n": corpus.shape[0], "true_n": n,
+           "d": corpus.shape[1], "k": k, "metric": metric,
+           "ms": cuda_ms(lambda: kernel(corpus, q, k, metric, true_n),
+                         reps=reps),
+           "plain_ms": cuda_ms(lambda: T.topk_plain(corpus, q, k, metric,
+                                                    true_n), reps=1),
+           "library_ms": cuda_ms(lambda: library(corpus, q, k, metric,
+                                                 true_n) if select else
+                                 library(corpus[:n], q, k, metric),
+                                 reps=reps)}
+    row["bound_ms"], row["bound_by"] = T.bound_ms(q.shape[0], n,
+                                                  corpus.shape[1], k, metric)
+    return row
+
+
 def dist_e_blocks(dev) -> dict:
-    """(e)'s per-rank searches alone, each beside its bound, the plain
-    version and the library call: the serving block (64 queries against
-    65,536 x 768 rows: rank 0's all real, rank 1's 34,464) through the
-    top-k kernel, and the daodian text arm's blocks through the selection
-    kernel (8,300 queries of d = 100 against rank 0's 8,192 rows at k =
-    1,185; 9,000 against rank 1's 808 real rows of the 9,000-row area at
-    k = 808)."""
+    """(e)'s per-rank searches alone (``timed_search``): the serving block
+    (64 queries against 65,536 x 768 rows: rank 0's all real, rank 1's
+    34,464) through the top-k kernel, and the daodian text arm's blocks
+    through the selection kernel (8,300 queries of d = 100 against rank
+    0's 8,192 rows at k = 1,185; 9,000 against rank 1's 808 real rows of
+    the 9,000-row area at k = 808)."""
     rng = np.random.default_rng(SEED + 132)
     rows = next_pow2(N_SERVE, 512) // 2
-    out = {"serve_blocks": [], "daodian_blocks": []}
     block, q = unit_rows(rng, rows, DIM, dev), unit_rows(rng, 64, DIM, dev)
-    for true_n in (rows, N_SERVE - rows):
-        row = {"q": 64, "n": rows, "true_n": true_n, "d": DIM, "k": 13,
-               "metric": "ip",
-               "ms": cuda_ms(lambda: T.topk_cuda(block, q, 13, "ip",
-                                                 true_n), reps=20),
-               "plain_ms": cuda_ms(lambda: T.topk_plain(block, q, 13, "ip",
-                                                        true_n), reps=1),
-               "library_ms": cuda_ms(lambda: topk_library(
-                   block[:true_n], q, 13, "ip"), reps=20)}
-        row["bound_ms"], row["bound_by"] = T.bound_ms(64, true_n, DIM, 13)
-        out["serve_blocks"].append(row)
+    out = {"serve_blocks": [timed_search(block, q, 13, "ip", true_n)
+                            for true_n in (rows, N_SERVE - rows)],
+           "daodian_blocks": []}
     del block, q
     small, big = DIST_DD_ROWS
     rows = next_pow2(small, 512) // 2
@@ -4073,20 +4691,48 @@ def dist_e_blocks(dev) -> dict:
                             min(big // RECENT_DAYS, big - rows))):
         x = unit_rows(rng, rows, FT_DIM, dev)
         q = unit_rows(rng, n_q, FT_DIM, dev)
-        row = {"q": n_q, "n": rows, "true_n": true_n, "d": FT_DIM, "k": k,
-               "metric": "ip",
-               "ms": cuda_ms(lambda: T.topk_select_cuda(x, q, k, "ip",
-                                                        true_n)),
-               "plain_ms": cuda_ms(lambda: T.topk_plain(x, q, k, "ip",
-                                                        true_n), reps=1),
-               "library_ms": cuda_ms(lambda: select_library(x, q, k, "ip",
-                                                            true_n))}
-        row["bound_ms"], row["bound_by"] = T.bound_ms(n_q, true_n, FT_DIM,
-                                                      k)
-        out["daodian_blocks"].append(row)
+        out["daodian_blocks"].append(timed_search(x, q, k, "ip", true_n,
+                                                  select=True, reps=3))
         del x, q
     torch.cuda.empty_cache()
     return out
+
+
+def dist_f_blocks(dev, gloo) -> dict:
+    """(f)'s and (g)'s per-rank kernels alone: the ArcFace kernel on one
+    class block of ``--model_parallel 2`` at the cv recipe (24 rows x
+    2,091 classes x 512, m 0.2, as phase 3's recipe heads), and the top-k
+    kernel on each rank's block of the two-rank multimodal job, at the
+    shape of that rank's first launch (fused rows of norm sqrt(2), l2,
+    d = 1,280; ``timed_search``)."""
+    rng = np.random.default_rng(SEED + 142)
+    out = {"arcface_cv_block": recipe_head(
+        dev, "cv model_parallel block, B=24", DIST_CV_BATCH,
+        (CV_LABELS + 1) // 2, CV_DIM, 0.2), "mm_job_blocks": []}
+    for r in gloo:
+        shape = r["similar_multimodal"]["kernel_vs_plain"]
+        corpus = fused_rows(rng, shape["n"], dev)
+        q = fused_rows(rng, shape["q"], dev)
+        out["mm_job_blocks"].append(timed_search(
+            corpus, q, shape["k"], shape["metric"], shape["true_n"]))
+        del corpus, q
+    torch.cuda.empty_cache()
+    return out
+
+
+def print_dist_fg(runs: dict) -> None:
+    """One line: (f)'s step p50, peak memory and all-reduce shares a rank
+    by world and configuration, and (g)'s rows embedded and job wall a
+    rank, with the card's name and power limit."""
+    print(json.dumps({"phase12_fg": {"card": card_line(), **{
+        world: {"train_cv": {name: [{k: r["train_cv"][name][k] for k in (
+            "step_ms_p50", "peak_gb", "all_reduce_ms_per_step",
+            "all_reduce_share", "all_reduces_per_step", "config_s")}
+            for r in ranks] for name in ranks[0]["train_cv"]},
+            "similar_multimodal": [{k: r["similar_multimodal"][k] for k in (
+                "rows_embedded", "wall_s", "topk_launches")}
+                for r in ranks]}
+        for world, ranks in runs.items()}}}), flush=True)
 
 
 def phase12(dev) -> dict:
@@ -4110,6 +4756,10 @@ def phase12(dev) -> dict:
                   {"spu_sn": [f"spu{i:06d}" for i in range(N_DIST_TITLES)],
                    "spu_name": titles})
         dist_e_inputs(work)
+        t0 = time.perf_counter()
+        dist_f_inputs(work, dev)
+        inputs_f_s = time.perf_counter() - t0
+        torch.cuda.empty_cache()
         n_cards = torch.cuda.device_count()
         wall = {}
 
@@ -4131,6 +4781,7 @@ def phase12(dev) -> dict:
         every_card = (run("nccl_every_card", n_cards, False, "nccl")
                       if n_cards > 1 else None)
         gloo = run("gloo_on_one_card", 2, False, "gloo")
+        print_dist_fg({"nccl": nccl, "gloo_on_one_card": gloo})
         # the kernel on one block of (c), alone, beside its bound and
         # torch.topk of the same block
         rng = np.random.default_rng(SEED + 121)
@@ -4155,17 +4806,19 @@ def phase12(dev) -> dict:
                   for b in (128, DIST_BATCH)]
         return {"nccl": nccl, "nccl_every_card": every_card,
                 "gloo_on_one_card": gloo, "arcface_blocks": blocks,
-                "spawn_wall_s": wall,
+                "spawn_wall_s": wall, "inputs_f_s": inputs_f_s,
                 "gloo_times": "two ranks share one card and their "
                               "collectives stage through the host: not a "
                               "scaling number",
-                "search_shard": shard, **dist_e_blocks(dev)}
+                "search_shard": shard, **dist_e_blocks(dev),
+                **dist_f_blocks(dev, gloo)}
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
 # -- phase 13: tensor- and sequence-parallel training of the large tower ------
 
-P13_BATCH, P13_STEPS = 256, 3          # train_nlp_large_tp.yaml's batch
+# train_nlp_large_tp.yaml's batch; 2 steps (3 before a cut for time)
+P13_BATCH, P13_STEPS = 256, 2
 P13_CHARS = 46                         # + [CLS], [SEP]: the 48 bucket
 P13_CLASSES = -(-AF_C // 4) * 4        # 10,208: the head padded for model 4
 P13_LOSS_RTOL = 2e-3                   # four ranks against one, per step
@@ -4828,12 +5481,31 @@ def main(argv=None) -> None:
     topk["sharded_serving_blocks"] = p12["serve_blocks"]
     topk_select["launches_sharded_daodian"] = [
         r["daodian"]["topk_select_launches"] for r in gloo]
+    # phase 12 (f), (g): train cv over ranks through the ArcFace kernel
+    # (class blocks under --model_parallel 2), and the two-rank similar
+    # multimodal job's search through the top-k kernel's l2 path
+    arcface["launches_cv_over_ranks"] = {
+        name: [r["train_cv"][name]["arcface_launches"] for r in gloo]
+        for name in gloo[0]["train_cv"]}
+    arcface["cv_model_parallel_shape"] = {k: p12["arcface_cv_block"][k]
+                                          for k in (
+        "head", "b", "c", "d", "m", "max_abs_err", "ms", "plain_ms",
+        "yardstick_ms", "bound_ms", "bound_by")}
+    topk["launches_sharded_similar_multimodal"] = [
+        r["similar_multimodal"]["topk_launches"] for r in gloo]
+    topk["sharded_mm_job_blocks"] = p12["mm_job_blocks"]
+    topk["image_http_launches"] = {
+        "cv": p6["image_http"]["topk_launches"],
+        "multimodal": p7["image_http"]["topk_launches"]}
+    topk["image_http_blocks"] = {"cv": p6["image_http"]["blocks"],
+                                 "multimodal": p7["image_http"]["blocks"]}
     topk_select["sharded_daodian_blocks"] = p12["daodian_blocks"]
     # phase 12's checks of the kernels against their plain versions on the
     # sharded paths' blocks, every rank of every run
     runs12 = p12["nccl"] + gloo + (p12["nccl_every_card"] or [])
     shard_checks = [c for r in runs12 for c in [
-        r["similar"]["kernel_vs_plain"], r["serve"]["kernel_vs_plain"]] + [
+        r["similar"]["kernel_vs_plain"], r["serve"]["kernel_vs_plain"],
+        r["similar_multimodal"]["kernel_vs_plain"]] + [
             r["search"][m]["kernel_vs_plain"] for m in ("ip", "l2")]]
     topk_select["max_abs_err"] = max(
         [topk_select["max_abs_err"]]

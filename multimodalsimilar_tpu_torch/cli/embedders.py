@@ -273,6 +273,27 @@ def _fused_embeddings(args, df, embedder=None, device="cuda",
     if not keep:
         if not require_rows:
             return np.zeros((0, 0), np.float32), keep
-        raise SystemExit(f"no readable images under {args.img_root} for "
-                         f"any row — check --img_root/--key_col")
+        raise _no_readable_images(args)
     return np.concatenate(out_parts), keep
+
+
+def _no_readable_images(args) -> SystemExit:
+    return SystemExit(f"no readable images under {args.img_root} for any "
+                      f"row — check --img_root/--key_col")
+
+
+def fused_embeddings_by_block(args, table, mesh, embedder, device="cuda"):
+    """``_fused_embeddings`` of every row of ``table``, each rank of a
+    sharded ``mesh`` embedding its own ``row_block``
+    (``pipelines/similar.py:embed_kept``; a block may hold no readable
+    image): (embeddings, kept row positions) in row order, the same on
+    every rank. Exits when no row of the table has a readable image."""
+    from multimodalsimilar_tpu_torch.pipelines.similar import (
+        embed_kept, n_rows, table_columns, take_rows)
+    cols = table_columns(table)
+    emb, keep = embed_kept(mesh, n_rows(cols), lambda rows: (
+        _fused_embeddings(args, take_rows(cols, rows), embedder=embedder,
+                          device=device, require_rows=False)), device)
+    if not keep:
+        raise _no_readable_images(args)
+    return emb, keep

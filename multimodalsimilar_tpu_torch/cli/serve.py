@@ -47,11 +47,12 @@ from multimodalsimilar_tpu_torch.cli.common import (_emb_cache,
                                                     _load_fasttext)
 from multimodalsimilar_tpu_torch.cli.embedders import (
     _build_text_embedder, _cv_embedder, _embed_fn_from_embedder,
-    _fused_embeddings, _image_paths, _load_cv_tower, _multimodal_embedder)
+    _fused_embeddings, _image_paths, _load_cv_tower, _multimodal_embedder,
+    _no_readable_images, fused_embeddings_by_block)
 from multimodalsimilar_tpu_torch.cli.similar import _gen_titles, _sku_to_spusn
 from multimodalsimilar_tpu_torch.data.datasets import column
 from multimodalsimilar_tpu_torch.pipelines.similar import (
-    embed_kept, embed_keys_sharded, embed_sharded, table_columns, take_rows)
+    embed_keys_sharded, embed_sharded, table_columns)
 from multimodalsimilar_tpu_torch.utils.devices import resolve_device
 
 # Per-tower default thresholds = the reference jobs' own operating points:
@@ -280,10 +281,6 @@ def _serve_multimodal_corpus(args, table, cats, device="cuda", mesh=None):
                          "(a trained fused model)")
     embedder = _multimodal_embedder(args, table, device=device)
     keys_all = [str(k) for k in column(table, args.key_col)]
-    # each rank's block may hold no readable image: the check that some
-    # row does runs on what every rank gathered
-    unreadable = (f"no readable images under {args.img_root} for any "
-                  "row — check --img_root/--key_col")
     if args.emb_table:
         # warm-start from the nightly fused-embedding table: hit keys
         # need NO image on disk; the rest run the fused tower pass
@@ -300,21 +297,18 @@ def _serve_multimodal_corpus(args, table, cats, device="cuda", mesh=None):
                     for i, j in enumerate(skeep)}
 
         def embed_missing_by_block(mk):
+            # a rank's block may hold no readable image: the check that
+            # some key does runs on what every rank gathered
             got = embed_keys_sharded(mesh, mk, embed_missing, device)
             if not got:
-                raise SystemExit(unreadable)
+                raise _no_readable_images(args)
             return got
 
         emb, keep = _corpus_rows_from_table(args, keys_all,
                                             embed_missing_by_block)
     else:
-        cols = table_columns(table)
-        emb, keep = embed_kept(mesh, len(keys_all), lambda rows: (
-            _fused_embeddings(args, take_rows(cols, rows),
-                              embedder=embedder, require_rows=False)),
-            device)
-        if not keep:
-            raise SystemExit(unreadable)
+        emb, keep = fused_embeddings_by_block(args, table, mesh, embedder,
+                                              device)
         if len(keep) < len(keys_all):
             print(f"serve: {len(keys_all) - len(keep)} of {len(keys_all)} "
                   f"corpus keys have no readable image and were dropped",

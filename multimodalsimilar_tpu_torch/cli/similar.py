@@ -13,9 +13,10 @@ one device (``_knn_backend_mesh``).
 Under ``torchrun`` (``python -m multimodalsimilar_tpu_torch.cli`` joins
 the process group when ``WORLD_SIZE`` > 1) every job shards its search
 over the ranks as the JAX jobs do over the mesh's data axis (``similar
-daodian``: both arms of every area). ``similar nlp`` also embeds each
-rank's own rows, and ``similar daodian`` each rank's own block of an
-area's SKU images. Rank 0 writes the sink and prints the result.
+daodian``: both arms of every area). ``similar nlp`` and ``similar
+multimodal --checkpoint`` also embed each rank's own rows, and ``similar
+daodian`` each rank's own block of an area's SKU images. Rank 0 writes
+the sink and prints the result.
 """
 
 from __future__ import annotations
@@ -28,10 +29,9 @@ import sys
 from multimodalsimilar_tpu_torch.cli.common import (_emb_cache,
                                                     _knn_backend_mesh,
                                                     _kv_sink, _load_fasttext)
-from multimodalsimilar_tpu_torch.cli.embedders import (_build_text_embedder,
-                                                       _embed_fn_from_embedder,
-                                                       _fused_embeddings,
-                                                       _load_cv_tower)
+from multimodalsimilar_tpu_torch.cli.embedders import (
+    _build_text_embedder, _embed_fn_from_embedder, _load_cv_tower,
+    _multimodal_embedder, fused_embeddings_by_block)
 from multimodalsimilar_tpu_torch.data.datasets import column
 
 
@@ -94,7 +94,9 @@ def cmd_similar_multimodal(args, device="cuda"):
     table = read_table(args.data)
     mesh = _knn_backend_mesh(args)
     if args.checkpoint:
-        emb, keep = _fused_embeddings(args, table, device=device)
+        emb, keep = fused_embeddings_by_block(
+            args, table, mesh, _multimodal_embedder(args, table, device),
+            device)
         table = take_rows(table, keep)
     elif args.embedding_col in table:
         ok = [i for i, v in enumerate(table[args.embedding_col])

@@ -25,11 +25,11 @@ Tolerances: Adam turns float noise in a near-zero gradient into an
 lr-sized step, so fits are compared through their per-step losses (f32:
 rtol 1e-4, as the JAX package's own model-parallel test) and through the
 first batch's gradients (within 1e-4 of each tensor's largest entry, as
-tests/test_torch_train_recipes.py). ``--bf16_grads`` rounds the gradients
-to bfloat16 before the mean (2^-8 relative to the largest shard
-gradient): gradients within 2e-2 of the tensor's largest entry against
-JAX's f32 gradients, losses rtol 2e-3 (both packages round the same f32
-gradients). The search is exact: indices and scores equal.
+tests/test_torch_train_recipes.py). ``--bf16_grads`` rounds each rank's
+gradients to bfloat16 and their sum again before the mean, where both
+packages round (``_assert_bf16_grads`` reckons the bound from the
+ranks' own gradients); losses rtol 2e-3 (both packages round the same
+f32 gradients). The search is exact: indices and scores equal.
 """
 
 import concurrent.futures
@@ -37,6 +37,7 @@ import dataclasses
 import json
 import os
 
+import cv2
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -45,6 +46,10 @@ import pytest
 import torch
 
 import torch_parallel_workers as W
+import multimodalsimilar_tpu.cli as jcli
+from multimodalsimilar_tpu.cli import embedders as jembedders
+from multimodalsimilar_tpu.cli import similar as jsimilar
+from multimodalsimilar_tpu.data.tokenizer import TextTokenizer as JTokenizer
 from multimodalsimilar_tpu.models import efficientnet as JE
 from multimodalsimilar_tpu.models.bert import BertConfig as JBertConfig
 from multimodalsimilar_tpu.models.classifiers import (
@@ -53,11 +58,17 @@ from multimodalsimilar_tpu.models.classifiers import (
     NlpTextClassifier as JClassifier)
 from multimodalsimilar_tpu.models.vision import (
     CvImageClassifier as JCvImageClassifier)
+from multimodalsimilar_tpu.models.multimodal import (
+    MultimodalClassifier as JMultimodalClassifier)
 from multimodalsimilar_tpu.parallel.mesh import create_mesh as j_mesh
 from multimodalsimilar_tpu.parallel.mesh import shard_batch as j_shard
 from multimodalsimilar_tpu.retrieval.knn import pad_corpus as j_pad
 from multimodalsimilar_tpu.retrieval.knn import (
     sharded_knn_search as j_sharded)
+from multimodalsimilar_tpu.pipelines.embedders import (
+    MultimodalEmbedder as JMultimodalEmbedder)
+from multimodalsimilar_tpu.pipelines.sinks import (
+    InMemoryKVSink as JInMemoryKVSink)
 from multimodalsimilar_tpu.train import tasks as JT
 from multimodalsimilar_tpu.train.optim import adamp as j_adamp
 from multimodalsimilar_tpu.train.optim import dual_group as j_dual_group
@@ -71,10 +82,12 @@ from multimodalsimilar_tpu_torch import cli
 from multimodalsimilar_tpu_torch.cli import similar as CS
 from multimodalsimilar_tpu_torch.models.bert import BertConfig
 from multimodalsimilar_tpu_torch.models.classifiers import NlpTextClassifier
+from multimodalsimilar_tpu_torch.data.tokenizer import build_char_vocab
 from multimodalsimilar_tpu_torch.models.convert import (
     cv_classifier_from_jax, multilabel_classifier_from_jax,
-    text_classifier_from_jax)
-from multimodalsimilar_tpu_torch.models.efficientnet import set_stats_mesh
+    multimodal_classifier_from_jax, text_classifier_from_jax)
+from multimodalsimilar_tpu_torch.models.efficientnet import (
+    EfficientNetConfig, set_stats_mesh)
 from multimodalsimilar_tpu_torch.models.heads import ArcFaceHead
 from multimodalsimilar_tpu_torch.parallel.mesh import (Mesh, MeshRules,
                                                        shard_batch)
@@ -83,6 +96,8 @@ from multimodalsimilar_tpu_torch.pipelines.similar import nlp_similar_job
 from multimodalsimilar_tpu_torch.pipelines.sinks import InMemoryKVSink
 from multimodalsimilar_tpu_torch.retrieval.knn import knn_search
 from multimodalsimilar_tpu_torch.train.checkpoint import CheckpointManager
+from multimodalsimilar_tpu_torch.utils.dtypes import DTypePolicy
+from tests.test_torch_image_serving import _jiggle, images
 from multimodalsimilar_tpu_torch.train.optim import (AdamP,
                                                      dual_group,
                                                      dual_group_adamw)
@@ -378,6 +393,59 @@ def _similar_weights():
     return bert, {k: v.numpy() for k, v in model.state_dict().items()}
 
 
+MM_IMG, MM_FC = 32, 16
+
+
+def _mm_similar_inputs(tmp):
+    """``similar multimodal --checkpoint`` on two tables over one image
+    root: "split", 24 rows whose rows 2, 9 (rank 0's block) and 15, 22
+    (rank 1's) have no image; "one_block", 20 rows whose second half (rank
+    1's block) has none. A tiny JAX multimodal model (BN statistics
+    jiggled), its port checkpoint and vocab, and the JAX embedder of the
+    same weights. Returns (the JAX embedder, {table: argv})."""
+    base = ["红富士苹果 5斤装", "青苹果 新鲜", "纯牛奶 250ml", "酸奶 原味",
+            "可乐 330ml 罐装", "雪碧 柠檬味", "香蕉 进口", "橙汁 100%"]
+    d = os.path.join(tmp, "mm_similar")
+    os.makedirs(os.path.join(d, "img"))
+    keys = [f"spu{i}" for i in range(24)]
+    titles = [base[i % len(base)] + str(i) for i in range(24)]
+    for i, im in enumerate(images(24, seed=43, size=MM_IMG)):
+        if i not in (2, 9, 15, 22):
+            cv2.imwrite(os.path.join(d, "img", f"{keys[i]}.jpg"), im)
+    tables = {"split": (keys, titles),
+              "one_block": (keys[:10] + [f"gone{i}" for i in range(10)],
+                            titles[:10] + titles[12:22])}
+    for name, (ks, ts) in tables.items():
+        with open(os.path.join(d, f"{name}.csv"), "w",
+                  encoding="utf-8") as f:
+            f.write("spu_sn,spu_name\n")
+            f.writelines(f"{k},{t}\n" for k, t in zip(ks, ts))
+    vocab = os.path.join(d, "vocab.txt")
+    build_char_vocab(titles, out_path=vocab)
+    jmodel = JMultimodalClassifier(JBertConfig.tiny(),
+                                   JE.EfficientNetConfig.tiny(),
+                                   num_labels=5, fc_dim=MM_FC,
+                                   policy=JPolicy.full_precision())
+    v = _jiggle(jax.jit(lambda x, i: jmodel.init(
+        {"params": jax.random.key(11)}, x, i,
+        label=jnp.zeros(1, jnp.int32)))(
+            jnp.zeros((1, MM_IMG, MM_IMG, 3)),
+            jnp.zeros((1, 12), jnp.int32)), 12)
+    CheckpointManager(os.path.join(d, "ckpt")).save(0, {
+        "model": multimodal_classifier_from_jax(
+            v, BertConfig.tiny(), EfficientNetConfig.tiny())})
+    jemb = JMultimodalEmbedder(jmodel, v, JTokenizer.from_vocab_file(vocab),
+                               max_length=12, image_size=MM_IMG,
+                               batch_size=4)
+    return jemb, {name: [
+        "similar", "multimodal", "--data", os.path.join(d, f"{name}.csv"),
+        "--k", "4", "--checkpoint", os.path.join(d, "ckpt"),
+        "--tokenizer", vocab, "--img_root", os.path.join(d, "img"),
+        "--backbone", "tiny", "--image_size", str(MM_IMG), "--fc_dim",
+        str(MM_FC), "--num_labels", "5", "--max_length", "12",
+        "--batch_size", "4"] for name in tables}
+
+
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     """Both spawns in the background, the JAX references meanwhile.
@@ -413,6 +481,9 @@ def runs(tmp_path_factory):
     jobs[2] += [(("search", 2), "search", (_search_cases(), 2)),
                 (("similar", 2), "similar", (_similar_table(), weights,
                                              bert, 2, 5, 0.5))]
+    jemb, mm_argv = _mm_similar_inputs(tmp)
+    jobs[2] += [(("similar_mm", name), "similar_multimodal", (argv,))
+                for name, argv in mm_argv.items()]
     with concurrent.futures.ThreadPoolExecutor(2) as pool:
         futures = {world: pool.submit(
             spawn, W.run, world, ([(fn, args) for _, fn, args in js],),
@@ -429,7 +500,8 @@ def runs(tmp_path_factory):
             os.path.join(tmp, name),)
         os.makedirs(one[-1])
         results[name] = [W.fit(*one)]
-    return {"port": results, "jax": jax_out, "tmp": tmp}
+    return {"port": results, "jax": jax_out, "tmp": tmp,
+            "mm": (jemb, mm_argv)}
 
 
 def _mixed_case(tmp, name):
@@ -496,6 +568,42 @@ def _assert_grads(got, want, tol):
         scale = max(float(np.abs(w).max()), 1e-4 * top)
         assert np.abs(g - w).max() <= tol * scale, (n, np.abs(g - w).max(),
                                                    scale)
+
+
+# bfloat16's unit roundoff (8 significant bits)
+BF16_U = 2.0 ** -8
+# the noise floor of a gradient that is zero in exact arithmetic, against
+# the model's largest gradient (see _assert_bf16_grads)
+ZERO_NOISE = 1e-4
+
+
+def _assert_bf16_grads(got, want, local):
+    """``--bf16_grads``: each package rounds every rank's f32 gradient to
+    bfloat16 (within u = 2^-8 of it), sums them, rounds the sum and halves
+    it, so each side lies within 2u L of the exact mean, L the tensor's
+    largest entry on any rank before the mean (``local``), and the two
+    sides within 4u L. L is the scale, not the mean's largest entry:
+    ranks' gradients that nearly cancel leave a mean far smaller than
+    what was rounded.
+
+    A gradient that is zero in exact arithmetic (a bias that feeds a
+    train-mode BatchNorm, as the cv neck's ``fc.bias``, which each rank
+    normalizes with its own statistics here) is f32 cancellation noise on
+    every rank, whose size follows the order of the sums: 1.2e-5 of the
+    model's largest gradient on one machine, while the smallest gradient
+    that is not zero in exact arithmetic is 6.3e-3 of it (1.3e-2 on a
+    rank). Such a tensor is held below ``ZERO_NOISE`` of the largest on
+    every rank and in JAX, not against JAX's noise."""
+    want = {n: np.asarray(want[n]) for n in got}
+    top = max(float(np.abs(w).max()) for w in want.values())
+    for n, w in want.items():
+        g = np.asarray(got[n])
+        if local[n] <= ZERO_NOISE * top and \
+                np.abs(w).max() <= ZERO_NOISE * top:
+            assert np.abs(g).max() <= local[n] * (1 + 2 * BF16_U), n
+            continue
+        err = np.abs(g - w).max()
+        assert err <= 4 * BF16_U * local[n], (n, err, local[n])
 
 
 def _want_grads(name, ref):
@@ -627,9 +735,12 @@ def test_first_gradients_match_jax(runs, name):
     blocks, gathered over the model group, against JAX's gradients of the
     global batch (on one device for ``GRADS_ON_ONE_DEVICE``)."""
     ref = runs["jax"][name]
-    got = runs["port"][name][0]["grads"]
-    tol = 2e-2 if "bf16" in name else 1e-4
-    _assert_grads(got, _want_grads(name, ref), tol)
+    port = runs["port"][name][0]
+    if "bf16" in name:
+        _assert_bf16_grads(port["grads"], _want_grads(name, ref),
+                           port["grads_local_max"])
+    else:
+        _assert_grads(port["grads"], _want_grads(name, ref), 1e-4)
 
 
 @pytest.mark.parametrize("name", ["mp_padded", "mp_multilabel"])
@@ -1021,6 +1132,68 @@ def test_sharded_similar_nlp_writes_the_one_rank_lists(runs):
                         score_th=0.5, device="cpu")
     assert n > 0 and got[0]["n"] == got[1]["n"] == n
     assert got[0]["items"] == {k: v for k, (v, _) in sink.data.items()}
+
+
+def _mm_one_process(runs, name, monkeypatch, capsys):
+    """The KV items of JAX ``cmd_similar_multimodal`` (its embedder the
+    JAX tower of the checkpoint's weights, one device) and of the port's
+    command on one process, both towers in f32, on table ``name``; the
+    port's printed result."""
+    jemb, argv = runs["mm"]
+    js, ps = JInMemoryKVSink(), InMemoryKVSink()
+    monkeypatch.setattr(JPolicy, "inference",
+                        classmethod(lambda cls: cls.full_precision()))
+    monkeypatch.setattr(DTypePolicy, "inference",
+                        classmethod(lambda cls: cls.full_precision()))
+    monkeypatch.setattr(jsimilar, "_kv_sink", lambda a: js)
+    monkeypatch.setattr(jsimilar, "_knn_backend_mesh",
+                        lambda a: ("xla", None, None))
+    monkeypatch.setattr(jembedders, "_multimodal_embedder",
+                        lambda a, df: jemb)
+    monkeypatch.setattr(CS, "_kv_sink", lambda a: ps)
+    jcli.main(argv[name])
+    want = capsys.readouterr().out
+    cli.main(argv[name], device="cpu")
+    assert capsys.readouterr().out == want
+    return ({k: v for k, (v, _) in js.data.items()},
+            {k: v for k, (v, _) in ps.data.items()}, json.loads(want))
+
+
+@pytest.mark.parametrize("name", ["split", "one_block"])
+def test_sharded_similar_multimodal_writes_the_one_process_lists(
+        runs, name, monkeypatch, capsys):
+    """``similar multimodal --checkpoint`` over 2 ranks (each embeds its
+    own block of rows, the vectors and kept rows all-gathered in row
+    order, the corpus searched in blocks, rank 0 writes) writes exactly
+    the KV items of the port on one process and of JAX
+    ``cmd_similar_multimodal``; a block with no readable image at all
+    ("one_block": rank 1's) is no error."""
+    jax_items, one, printed = _mm_one_process(runs, name, monkeypatch,
+                                              capsys)
+    got = runs["port"][("similar_mm", name)]
+    assert printed["written"] == len(one) > 0
+    assert one == jax_items
+    assert got[0]["items"] == one
+    assert got[1]["items"] == {}
+
+
+@pytest.mark.parametrize("name", ["split", "one_block"])
+def test_sharded_similar_multimodal_embeds_each_rank_block(runs, name):
+    """Each rank embeds only its own block of the table (rows [0, 12) and
+    [12, 24) of "split", [0, 10) and [10, 20) of "one_block"), and both
+    search the kept rows in the table's order, the keys without an image
+    skipped in both blocks."""
+    _, argv = runs["mm"]
+    keys = [line.split(",")[0] for line in open(
+        argv[name][3], encoding="utf-8").read().splitlines()[1:]]
+    got = runs["port"][("similar_mm", name)]
+    half = len(keys) // 2
+    assert got[0]["embedded"] == keys[:half]
+    assert got[1]["embedded"] == keys[half:]
+    missing = {"spu2", "spu9", "spu15", "spu22"}
+    kept = [k for k in keys if k not in missing and not
+            k.startswith("gone")]
+    assert got[0]["kept"] == got[1]["kept"] == kept
 
 
 def test_approx_recall_runs_the_exact_search(tmp_path, monkeypatch, capsys):

@@ -11,7 +11,10 @@ converters from the JAX package's stacked ``pp_layers`` tree; models are
 tiny (4 layers), in full precision, dropout off against JAX.
 
 Tolerances: the schedule on toy layers equals the layers in turn within
-1e-6 (f32: the microbatches' parameter gradients add in another order);
+1e-12 in f64, and in f32 within 32 units of roundoff of each quantity's
+largest entry on one microbatch (the microbatches' products round
+apart and their parameter gradients add in another order;
+``test_gpipe_matches_sequential``);
 the encoder matches JAX's ``PipelinedBertLayers`` within 1e-5; the
 Trainer matches the JAX Trainer with ``pipeline_parallel`` within 1e-4
 (losses, rtol, JAX's own in tests/test_pp.py; first gradients, of each
@@ -498,17 +501,33 @@ def _jax_encoder(enc):
 def test_gpipe_matches_sequential(runs, shape, m):
     """``gpipe`` over (data, model, M) equals the layers in turn on one
     process, forward and gradients (of the input, summed over the model
-    group: stage 0's, the others' zero; and of each stage's layers), in
-    f32 within 1e-6; each rank holds layers [s L/P, (s + 1) L/P)."""
+    group: stage 0's, the others' zero; and of each stage's layers); each
+    rank holds layers [s L/P, (s + 1) L/P).
+
+    In f64 every difference is below 1e-12 (3e-15 read): the schedule
+    computes what the layers in turn compute. In f32 each microbatch's
+    rows go through products of fewer rows, whose rounding may differ by
+    entry, and the weight and bias gradients are sums of the
+    microbatches' partials where the layers in turn sum all the rows in
+    one product. That rounding runs through the 2L = 16 layer passes of
+    the forward and the backward, each of which may round an entry once
+    more or less in its product and once in its tanh or the tanh's slope:
+    every quantity agrees within 2 * 2L = 32 units of roundoff (2^-24) of
+    its largest entry on one microbatch's rows (``scales``), 6.5e-6 at
+    this seed's weight partials of up to 3.4. Read over seeds 0-2 and the
+    four layouts: at most 14.0 units (12.4 at seed 0: grad_w 2.15e-6)."""
     ranks = runs["port"][("schedule", shape, m)]
     n = 8 // shape[1]
     for r in ranks:
         s = r["rank"] % shape[1]
         assert r["layers"] == list(range(s * n, (s + 1) * n))
-        assert r["applied"] == 1
+        assert r["applied"] == r["f64"]["applied"] == 1
         for key in ("out", "grad_x", "grad_w", "grad_b"):
-            assert r[key] <= 1e-6, (shape, m, r)
-        assert r["grad_x_off_stage0"] == 0.0
+            assert r["f64"][key] <= 1e-12, (shape, m, r)
+            assert r[key] <= 32 * 2.0 ** -24 * r["scales"][key], \
+                (shape, m, key, r)
+        assert r["grad_x_off_stage0"] == r["f64"]["grad_x_off_stage0"] \
+            == 0.0
 
 
 def test_gpipe_indivisible_batch_runs_one_microbatch(runs):
@@ -516,7 +535,7 @@ def test_gpipe_indivisible_batch_runs_one_microbatch(runs):
     M = 1 (JAX's sequential fallback), exactly, without counting as the
     configured schedule."""
     for r in runs["port"][("schedule", (1, 2), 3)]:
-        assert r["applied"] == 0
+        assert r["applied"] == r["f64"]["applied"] == 0
         assert max(r[k] for k in ("out", "grad_x", "grad_w", "grad_b")) \
             <= 1e-6
 

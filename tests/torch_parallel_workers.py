@@ -139,6 +139,12 @@ def fit(kind, spec, state_dict, batches, mesh_shape, config, lrs,
     loss, _ = task.train_loss(shard_batch(mesh, _tensors(batches[0])),
                               trainer.margin)
     loss.backward()
+    # each tensor's largest entry on any rank before the data-group mean:
+    # the scale of what --bf16_grads rounds
+    names = [n for n, p in model.named_parameters() if p.grad is not None]
+    local_max = mesh.all_reduce(torch.stack([
+        dict(model.named_parameters())[n].grad.abs().max() for n in names]),
+        DATA_AXIS, "max")
     trainer._reduce_gradients()
     grads = {}
     for name, p in model.named_parameters():
@@ -165,7 +171,8 @@ def fit(kind, spec, state_dict, batches, mesh_shape, config, lrs,
                           for m in trainer._batch_norms()),
            "stage": _stage_layout(trainer)}
     if mesh.rank == 0:
-        out.update(grads=grads, state=_numpy(state["model"]))
+        out.update(grads=grads, state=_numpy(state["model"]),
+                   grads_local_max=dict(zip(names, local_max.tolist())))
     return out
 
 
@@ -472,6 +479,41 @@ def similar_daodian(argv):
             "items": {k: v for k, (v, _) in sink.data.items()}}
 
 
+def similar_multimodal(argv):
+    """``similar multimodal --checkpoint`` through ``cli.main`` on this
+    rank, the towers in f32 (as the JAX package's full-precision policy),
+    into an in-memory sink: the keys this rank embedded, the keys of the
+    table the job searched (the kept rows, in order) and the items rank 0
+    wrote."""
+    from multimodalsimilar_tpu_torch import cli
+    from multimodalsimilar_tpu_torch.cli import embedders as cli_embedders
+    from multimodalsimilar_tpu_torch.cli import similar as cli_similar
+    from multimodalsimilar_tpu_torch.data.datasets import column
+    from multimodalsimilar_tpu_torch.pipelines import similar as P
+    sink, embedded, got = InMemoryKVSink(), [], {}
+    fused, job = cli_embedders._fused_embeddings, P.multimodal_similar_job
+
+    def embed(args, df, *a, **kw):
+        embedded.extend(column(df, args.key_col))
+        return fused(args, df, *a, **kw)
+
+    def search(table, *a, key_col="spu_sn", **kw):
+        got["kept"] = list(column(table, key_col))
+        return job(table, *a, key_col=key_col, **kw)
+
+    saved = (cli_similar._kv_sink, DTypePolicy.__dict__["inference"])
+    cli_similar._kv_sink = lambda args: sink
+    cli_embedders._fused_embeddings, P.multimodal_similar_job = embed, search
+    DTypePolicy.inference = classmethod(lambda cls: cls.full_precision())
+    try:
+        cli.main(argv, device="cpu")
+    finally:
+        cli_similar._kv_sink, DTypePolicy.inference = saved
+        cli_embedders._fused_embeddings, P.multimodal_similar_job = fused, job
+    return {"embedded": embedded, "kept": got["kept"],
+            "items": {k: v for k, (v, _) in sink.data.items()}}
+
+
 def refused(argv):
     """What ``cli.main(argv)`` raises on this rank: (type, message)."""
     from multimodalsimilar_tpu_torch import cli
@@ -599,7 +641,10 @@ def pp_schedule(shape, m, L=8, B=8, D=16, seed=0, device="cpu"):
     """``pp.gpipe`` over layers tanh(h @ W_l + b_l + c) against the same
     layers in turn on this process, forward and gradients of
     sum(out ** 2), on this rank's rows of the batch (on ``device``): the
-    largest differences, and whether the configured microbatches ran."""
+    largest differences in f32 and in f64 (``"f64"``), whether the
+    configured microbatches ran, and the largest entry of each compared
+    quantity of the layers in turn on any one microbatch's rows
+    (``scales``: for the parameters, the partials the schedule sums)."""
     mesh = create_mesh(*shape)
     rng = np.random.default_rng(seed)
     w = (rng.standard_normal((L, D, D)) * 0.3).astype(np.float32)
@@ -608,37 +653,56 @@ def pp_schedule(shape, m, L=8, B=8, D=16, seed=0, device="cpu"):
     c = (rng.standard_normal((B, D)) * 0.2).astype(np.float32)
     rows = MeshRules(mesh).batch(B)
     stage = pp.stage_of(L, mesh)
+    own = slice(stage.layers.start, stage.layers.stop)
 
     def layers(h, cc, ws, bs):
         for wl, bl in zip(ws, bs):
             h = torch.tanh(h @ wl + bl + cc)
         return h
 
-    cc = torch.from_numpy(c[rows]).to(device)
-    ref = [torch.tensor(a, device=device, requires_grad=True)
-           for a in (x[rows], w, b)]
-    want = layers(ref[0], cc, ref[1], ref[2])
-    (want ** 2).sum().backward()
-    own = slice(stage.layers.start, stage.layers.stop)
-    got = [torch.tensor(a, device=device, requires_grad=True)
-           for a in (x[rows], w[own], b[own])]
-    before = pp.applied_count()
-    out = pp.gpipe(lambda h, ci, sl: layers(h, ci, got[1], got[2]), got[0],
-                   cc, mesh, m)
-    (out ** 2).sum().backward()
-    g_x = mesh.all_reduce(got[0].grad.clone(), MODEL_AXIS)
+    def sequential(dtype, part=slice(None)):
+        ref = [torch.tensor(a, device=device, dtype=dtype,
+                            requires_grad=True)
+               for a in (x[rows][part], w, b)]
+        want = layers(ref[0], torch.tensor(c[rows][part], device=device,
+                                           dtype=dtype), ref[1], ref[2])
+        (want ** 2).sum().backward()
+        return want.detach(), [r.grad for r in ref]
 
-    def err(a, b):
-        return float((a - b).abs().max())
+    def schedule(dtype):
+        want, ref = sequential(dtype)
+        cc = torch.tensor(c[rows], device=device, dtype=dtype)
+        got = [torch.tensor(a, device=device, dtype=dtype,
+                            requires_grad=True)
+               for a in (x[rows], w[own], b[own])]
+        before = pp.applied_count()
+        out = pp.gpipe(lambda h, ci, sl: layers(h, ci, got[1], got[2]),
+                       got[0], cc, mesh, m)
+        (out ** 2).sum().backward()
+        g_x = mesh.all_reduce(got[0].grad.clone(), MODEL_AXIS)
 
-    return {"rank": mesh.rank, "layers": list(stage.layers),
-            "applied": pp.applied_count() - before,
-            "out": err(out.detach(), want.detach()),
-            "grad_x": err(g_x, ref[0].grad),
-            "grad_x_off_stage0": float(got[0].grad.abs().max())
-            if stage.layers.start else 0.0,
-            "grad_w": err(got[1].grad, ref[1].grad[own]),
-            "grad_b": err(got[2].grad, ref[2].grad[own])}
+        def err(a, b):
+            return float((a - b).abs().max())
+
+        return {"applied": pp.applied_count() - before,
+                "out": err(out.detach(), want),
+                "grad_x": err(g_x, ref[0]),
+                "grad_x_off_stage0": float(got[0].grad.abs().max())
+                if stage.layers.start else 0.0,
+                "grad_w": err(got[1].grad, ref[1][own]),
+                "grad_b": err(got[2].grad, ref[2][own])}
+
+    n = len(range(B)[rows])
+    parts = [sequential(torch.float32, slice(i * n // m, (i + 1) * n // m))
+             for i in range(m if n % m == 0 else 1)]
+    return dict(schedule(torch.float32), rank=mesh.rank,
+                layers=list(stage.layers), f64=schedule(torch.float64),
+                scales={key: max(float(f(*p).abs().max()) for p in parts)
+                        for key, f in (
+                            ("out", lambda o, g: o),
+                            ("grad_x", lambda o, g: g[0]),
+                            ("grad_w", lambda o, g: g[1][own]),
+                            ("grad_b", lambda o, g: g[2][own]))})
 
 
 def pp_encoder(shape, bert, state_dict, ids, mask, train_seed=None):
