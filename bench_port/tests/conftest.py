@@ -1,0 +1,12 @@
+"""Put the benchmark's directory and the repository root on the path, as
+``run.py`` does."""
+
+import os
+import sys
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+BENCH = os.path.dirname(HERE)
+ROOT = os.path.dirname(BENCH)
+for path in (BENCH, ROOT):
+    if path not in sys.path:
+        sys.path.insert(0, path)
