@@ -8,7 +8,10 @@ with ``non_blocking=True``; PyTorch's pinned allocator keeps the host
 buffer alive until its copy has run. The copies go on the producer
 thread's current stream, which is the device's default stream, the one
 the training step runs on, so a step never reads a batch before its copy
-has landed. There is no mesh: the port runs on one device.
+has landed. There is no mesh: the port runs on one device. The recorder's
+spans (``utils/profiling.py``): ``prefetch.build`` (the source's next
+batch) and ``prefetch.upload`` on the producer thread, ``prefetch.wait``
+(the consumer's wait on the queue) on the consumer's.
 """
 
 from __future__ import annotations
@@ -19,6 +22,8 @@ from typing import Dict, Iterator
 
 import numpy as np
 import torch
+
+from multimodalsimilar_tpu_torch.utils.profiling import span
 
 
 def to_device(batch: Dict[str, np.ndarray], device: torch.device
@@ -58,8 +63,15 @@ def prefetch_to_device(batch_iter: Iterator, device, buffer_size: int = 2
 
     def producer():
         try:
-            for batch in batch_iter:
-                if stop.is_set() or not put(to_device(batch, device)):
+            it = iter(batch_iter)
+            while True:
+                with span("prefetch.build"):
+                    batch = next(it, end)
+                if batch is end or stop.is_set():
+                    return
+                with span("prefetch.upload"):
+                    item = to_device(batch, device)
+                if not put(item):
                     return
         except Exception as e:  # surfaced in the consumer
             err.append(e)
@@ -70,7 +82,8 @@ def prefetch_to_device(batch_iter: Iterator, device, buffer_size: int = 2
     t.start()
     try:
         while True:
-            item = q.get()
+            with span("prefetch.wait"):
+                item = q.get()
             if item is end:
                 if err:
                     raise err[0]

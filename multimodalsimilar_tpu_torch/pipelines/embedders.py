@@ -47,6 +47,7 @@ from multimodalsimilar_tpu_torch.models.vision import (device_normalize,
                                                        to_nchw)
 from multimodalsimilar_tpu_torch.utils.buckets import bucket_ladder
 from multimodalsimilar_tpu_torch.utils.devices import resolve_device
+from multimodalsimilar_tpu_torch.utils.profiling import count, enabled, span
 
 _TOKEN_KEYS = ("input_ids", "attention_mask", "token_type_ids")
 _IN_FLIGHT = 3   # batches launched ahead of the oldest read-back
@@ -76,6 +77,16 @@ def _token_arrays(toks: Dict[str, np.ndarray]) -> List[np.ndarray]:
     return [toks[key] for key in _TOKEN_KEYS]
 
 
+def _count_tokens(real: np.ndarray, rows: int, length: int) -> None:
+    """The recorder's counters of one text micro-batch: the real tokens
+    (``real``: the attention mask of its rows before padding, or their
+    token counts) and the token positions the tower computes (padded rows
+    x padded length)."""
+    if enabled():
+        count("embed.tokens_real", int(real.sum()))
+        count("embed.tokens_computed", rows * length)
+
+
 def _stream(batches, run, device: torch.device) -> np.ndarray:
     """Pipelined embed loop: keep ``_IN_FLIGHT`` batches in flight.
 
@@ -89,19 +100,22 @@ def _stream(batches, run, device: torch.device) -> np.ndarray:
     cuda = device.type == "cuda"
 
     def launch(arrays, n):
-        emb = run(*_upload(arrays, device)).float()
-        if not cuda:
-            return emb, None, n
-        host = torch.empty(emb.shape, dtype=torch.float32, pin_memory=True)
-        host.copy_(emb, non_blocking=True)
-        done = torch.cuda.Event()
-        done.record()
-        return host, done, n
+        with span("embed.launch"):
+            emb = run(*_upload(arrays, device)).float()
+            if not cuda:
+                return emb, None, n
+            host = torch.empty(emb.shape, dtype=torch.float32,
+                               pin_memory=True)
+            host.copy_(emb, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record()
+            return host, done, n
 
     def drain(host, done, n):
-        if done is not None:
-            done.synchronize()
-        out.append(host.numpy()[:n].copy())
+        with span("embed.drain"):
+            if done is not None:
+                done.synchronize()
+            out.append(host.numpy()[:n].copy())
 
     for arrays, n in batches:
         pending.append(launch(arrays, n))
@@ -188,8 +202,12 @@ class TextEmbedder:
         def batches():
             for s in range(0, len(texts), B):
                 chunk = list(texts[s: s + B])
-                yield (_token_arrays(_pad_rows(
-                    self.tokenizer(chunk, self.max_length), B)), len(chunk))
+                with span("embed.tokenize"):
+                    toks = self.tokenizer(chunk, self.max_length)
+                    _count_tokens(toks["attention_mask"], B,
+                                  toks["input_ids"].shape[1])
+                    arrays = _token_arrays(_pad_rows(toks, B))
+                yield arrays, len(chunk)
 
         return _stream(batches(), self._run, self.device)
 
@@ -201,18 +219,22 @@ class TextEmbedder:
         def batches():
             for w0 in range(0, len(texts), W):
                 chunk = list(texts[w0: w0 + W])
-                toks = self.tokenizer(chunk, self.max_length)
-                lens = toks["attention_mask"].sum(axis=1)
-                order = np.argsort(lens, kind="stable")
+                with span("embed.tokenize"):
+                    toks = self.tokenizer(chunk, self.max_length)
+                    lens = toks["attention_mask"].sum(axis=1)
+                    order = np.argsort(lens, kind="stable")
                 for s in range(0, len(order), B):
                     sel = order[s: s + B]
-                    need = int(lens[sel].max())
-                    bucket = next(b for b in self.length_buckets
-                                  if b >= need)
-                    order_ix.append(np.asarray(w0 + sel))
-                    yield (_token_arrays(_pad_rows(
-                        {k: v[sel][:, :bucket] for k, v in toks.items()},
-                        B)), len(sel))
+                    with span("embed.tokenize"):
+                        need = lens[sel]
+                        bucket = next(b for b in self.length_buckets
+                                      if b >= int(need.max()))
+                        order_ix.append(np.asarray(w0 + sel))
+                        _count_tokens(need, B, bucket)
+                        arrays = _token_arrays(_pad_rows(
+                            {k: v[sel][:, :bucket] for k, v in toks.items()},
+                            B))
+                    yield arrays, len(sel)
 
         embs = _stream(batches(), self._run, self.device)
         if not len(embs):

@@ -41,6 +41,7 @@ from multimodalsimilar_tpu_torch.data.datasets import column
 from multimodalsimilar_tpu_torch.pipelines.sinks import KVSink
 from multimodalsimilar_tpu_torch.retrieval.engine import SimilarityEngine
 from multimodalsimilar_tpu_torch.retrieval.filters import FilterRules
+from multimodalsimilar_tpu_torch.utils.profiling import span
 
 WEEK = 7 * 24 * 3600
 DAY_AND_HALF = int(1.5 * 24 * 3600)
@@ -52,9 +53,10 @@ def write_neighbor_map(sink: KVSink, neighbor_map: Dict[str, List[str]],
     """CSV-string values, empty lists skipped (nlp_infer.py:159-171).
     Keys/neighbors are stringified — integer spu_sn columns must serialize
     like the reference's str keys."""
-    items = {key_fn(str(k)): ",".join(str(x) for x in v)
-             for k, v in neighbor_map.items() if v}
-    sink.set_many(items, ttl_seconds)
+    with span("similar.write"):
+        items = {key_fn(str(k)): ",".join(str(x) for x in v)
+                 for k, v in neighbor_map.items() if v}
+        sink.set_many(items, ttl_seconds)
     return len(items)
 
 
@@ -147,7 +149,8 @@ def _search_and_write(engine: SimilarityEngine, mesh, k: int,
         n = write_neighbor_map(sink, engine.similar_map(k, rules),
                                ttl_seconds, key_fn)
     else:
-        engine.search(k)     # this rank's shard of every query's search
+        with span("similar.search"):
+            engine.search(k)     # this rank's shard of every query's search
         n = None
     return mesh.broadcast_object(n)
 
@@ -164,15 +167,19 @@ def nlp_similar_job(table, embed_texts, sink: KVSink,
     so with duplicate spu_sn rows it can write a key as its own neighbor;
     we always drop same-key neighbors and dedup (see retrieval/filters.py
     docstring)."""
-    texts = [str(t) for t in column(table, text_col)]
-    emb = embed_sharded(mesh, len(texts), lambda rows: embed_texts(
-        [texts[i] for i in rows]), device)
-    engine = SimilarityEngine(emb, column(table, key_col), metric="ip",
-                              normalize=True, device=device, mesh=mesh)
-    return _search_and_write(
-        engine, mesh, k, FilterRules(score_threshold=score_th,
-                                     same_category=False),
-        sink, ttl_seconds, lambda s: f"dj_similar:{s}")
+    with span("similar.job"):
+        texts = [str(t) for t in column(table, text_col)]
+        with span("similar.embed"):
+            emb = embed_sharded(mesh, len(texts), lambda rows: embed_texts(
+                [texts[i] for i in rows]), device)
+        with span("similar.index"):
+            engine = SimilarityEngine(emb, column(table, key_col),
+                                      metric="ip", normalize=True,
+                                      device=device, mesh=mesh)
+        return _search_and_write(
+            engine, mesh, k, FilterRules(score_threshold=score_th,
+                                         same_category=False),
+            sink, ttl_seconds, lambda s: f"dj_similar:{s}")
 
 
 def multimodal_similar_job(table, embeddings, sink: KVSink,
@@ -183,12 +190,14 @@ def multimodal_similar_job(table, embeddings, sink: KVSink,
     (multimodal_infer.py:140-159). ``table`` is a pandas DataFrame or a
     ``{column: list}`` mapping whose rows ``embeddings`` [N, D] follow
     (all of them on every rank under a mesh)."""
-    engine = SimilarityEngine(embeddings, column(table, key_col),
-                              metric="l2", normalize=False, device=device,
-                              mesh=mesh)
-    return _search_and_write(engine, mesh, k,
-                             FilterRules(same_category=False), sink,
-                             ttl_seconds, lambda s: f"dj_similar:{s}")
+    with span("similar.job"):
+        with span("similar.index"):
+            engine = SimilarityEngine(embeddings, column(table, key_col),
+                                      metric="l2", normalize=False,
+                                      device=device, mesh=mesh)
+        return _search_and_write(engine, mesh, k,
+                                 FilterRules(same_category=False), sink,
+                                 ttl_seconds, lambda s: f"dj_similar:{s}")
 
 
 def norm_dt(v) -> str:

@@ -33,6 +33,7 @@ from multimodalsimilar_tpu_torch.retrieval.knn import (
     corpus_block_rows, knn_search, next_pow2, pad_corpus, plan_query_chunk,
     sharded_knn_search)
 from multimodalsimilar_tpu_torch.utils.devices import resolve_device
+from multimodalsimilar_tpu_torch.utils.profiling import span
 
 
 def _normalize_rows(q):
@@ -339,9 +340,11 @@ class SimilarityEngine:
         if (rules.same_category and self.categories is not None
                 and self.n > 0 and k >= self.n and not self.sharded):
             return self._grouped_self_similar_map(rules)
-        scores, idx = self.search(k)
-        return filter_neighbors(scores, idx, self.keys, self.categories,
-                                rules, dts=self.dts)
+        with span("similar.search"):
+            scores, idx = self.search(k)
+        with span("similar.filter"):
+            return filter_neighbors(scores, idx, self.keys, self.categories,
+                                    rules, dts=self.dts)
 
     def _grouped_self_similar_map(self, rules: FilterRules
                                   ) -> Dict[object, List[object]]:

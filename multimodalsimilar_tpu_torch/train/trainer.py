@@ -20,7 +20,14 @@ multimodalsimilar_tpu/train/trainer.py), on one device or over a mesh.
   ``save_every`` and ``log_every`` count optimizer steps and fire on
   accumulation boundaries;
 * ``profile_dir``: a ``torch.profiler`` trace (``utils/profiling.py``) of
-  ``profile_num_steps`` steps after micro-step ``profile_start_step``.
+  ``profile_num_steps`` steps after micro-step ``profile_start_step``;
+  the recorder's spans (``train.step`` over ``train.forward``,
+  ``train.backward`` and ``train.optimizer``; ``train.sync``,
+  ``train.log``, ``train.eval``, ``train.save`` in ``fit``) show in it;
+* the logged ``examples_per_sec`` is the examples over the wall time
+  since the previous log step (the first interval starts after the
+  warm-up steps that ``StepTimer`` skips); ``step_ms_p50`` is
+  ``StepTimer``'s median step.
 
 Over a ``mesh`` (``parallel/mesh.py``; every rank builds the same Trainer
 and iterates the same global batches) the step computes what the JAX
@@ -77,6 +84,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import time
 from collections import deque
 from typing import Callable, Dict, Iterator, Optional
 
@@ -99,7 +107,8 @@ from multimodalsimilar_tpu_torch.train.checkpoint import (CheckpointManager,
 from multimodalsimilar_tpu_torch.train.metrics import MetricLogger
 from multimodalsimilar_tpu_torch.train.tasks import Task
 from multimodalsimilar_tpu_torch.utils.devices import resolve_device
-from multimodalsimilar_tpu_torch.utils.profiling import StepTimer, trace
+from multimodalsimilar_tpu_torch.utils.profiling import (StepTimer, span,
+                                                        trace)
 
 # the JAX Trainer's refusal of pipeline with tensor or sequence parallelism
 PP_WITH_TP = ("pipeline_parallel and tensor/sequence_parallel shard the same "
@@ -268,7 +277,6 @@ class Trainer:
         set_dropout_generator(self.model, self.generator)
         self.step = 0
         self.margin = _f32(config.margin_init)
-        self.timer = StepTimer(skip_first=2)
 
     # -- placement ------------------------------------------------------
 
@@ -396,26 +404,30 @@ class Trainer:
         the whole batch on one device), an optimizer step at every
         ``grad_accum``-th; returns its metrics as device scalars (no host
         sync)."""
-        accum = self.config.grad_accum
-        self.model.train()
-        self.generator.manual_seed(self._mask_seed())
-        applied = pp.applied_count()
-        loss, metrics = self.task.train_loss(batch, self.margin)
-        if self.stages and not self._pp_checked:
-            if pp.applied_count() == applied:
-                raise ValueError(PP_NOT_APPLIED)
-            self._pp_checked = True
-        # the accumulated gradient is the mean of the micro-steps'
-        (loss / accum if accum > 1 else loss).backward()
-        if self.config.bf16_grad_allreduce:
-            self._mean_batch_norm_statistics()
-        self.step += 1
-        if self.step % accum == 0:
-            self._reduce_gradients()
-            self.optimizer.step()
-            self.optimizer.zero_grad(set_to_none=True)
-            self.schedules.step()
-        return metrics
+        with span("train.step"):
+            accum = self.config.grad_accum
+            self.model.train()
+            self.generator.manual_seed(self._mask_seed())
+            applied = pp.applied_count()
+            with span("train.forward"):
+                loss, metrics = self.task.train_loss(batch, self.margin)
+            if self.stages and not self._pp_checked:
+                if pp.applied_count() == applied:
+                    raise ValueError(PP_NOT_APPLIED)
+                self._pp_checked = True
+            with span("train.backward"):
+                # the accumulated gradient is the mean of the micro-steps'
+                (loss / accum if accum > 1 else loss).backward()
+            if self.config.bf16_grad_allreduce:
+                self._mean_batch_norm_statistics()
+            self.step += 1
+            if self.step % accum == 0:
+                with span("train.optimizer"):
+                    self._reduce_gradients()
+                    self.optimizer.step()
+                    self.optimizer.zero_grad(set_to_none=True)
+                    self.schedules.step()
+            return metrics
 
     def _reduce_gradients(self) -> None:
         """Sum the sequence- and pipeline-partial gradients over the model
@@ -582,6 +594,10 @@ class Trainer:
         accum = cfg.grad_accum
         prev_loss = None
         trained = False
+        # the logged rate: examples over the wall time since the last log
+        # step, or since the warm-up steps that the timer skips (each log
+        # step syncs, so each interval holds its steps' device work)
+        ticks, logged_at, examples = 0, None, 0
         with contextlib.ExitStack() as profiling:
             profiled = False
             for epoch in range(num_epochs):
@@ -593,15 +609,20 @@ class Trainer:
                     it, strict=cfg.bf16_grad_allreduce))
                 for batch in prefetch_to_device(blocks, self.device):
                     metrics = self.train_step(batch)
+                    examples += batch_size
                     trained = True
                     step = self.step          # micro-steps
                     # depth-1 lagged sync: read the PREVIOUS step's loss,
                     # so the host stays at most one step ahead of the
                     # device and each timer tick is a real step time
                     if prev_loss is not None:
-                        float(prev_loss)
+                        with span("train.sync"):
+                            float(prev_loss)
                     prev_loss = metrics["loss"]
                     timer.tick()
+                    ticks += 1
+                    if ticks == timer.skip_first + 1:
+                        logged_at, examples = time.perf_counter(), 0
                     if cfg.profile_dir and not profiled:
                         if step == cfg.profile_start_step:
                             profiling.enter_context(trace(cfg.profile_dir))
@@ -615,26 +636,33 @@ class Trainer:
                         continue
                     opt_step = step // accum
                     if opt_step % cfg.log_every == 0:
-                        # the CURRENT step's metrics (a sync on log steps)
-                        m = self._mean_metrics(metrics)
-                        summary = timer.summary(batch_size)
-                        if summary:
-                            m["examples_per_sec"] = summary[
-                                "examples_per_sec"]
-                            m["step_ms_p50"] = summary["p50_ms"]
-                        m["margin"] = self.margin
-                        if accum > 1:
-                            m["opt_step"] = float(opt_step)
-                        self._log(step, m, "train/")
+                        with span("train.log"):
+                            # the CURRENT step's metrics (a sync on log
+                            # steps)
+                            m = self._mean_metrics(metrics)
+                            now = time.perf_counter()
+                            summary = timer.summary(batch_size)
+                            if summary:
+                                m["examples_per_sec"] = examples / (
+                                    now - logged_at)
+                                m["step_ms_p50"] = summary["p50_ms"]
+                            logged_at, examples = now, 0
+                            m["margin"] = self.margin
+                            if accum > 1:
+                                m["opt_step"] = float(opt_step)
+                            self._log(step, m, "train/")
                     if eval_source is not None \
                             and opt_step % cfg.eval_every == 0:
-                        # the whole split, the final partial batch included
-                        ev = self.evaluate(eval_source.batches(
-                            eval_batch_size or batch_size, shuffle=False,
-                            drop_remainder=False))
-                        self._log(step, ev, "eval/")
+                        with span("train.eval"):
+                            # the whole split, the final partial batch
+                            # included
+                            ev = self.evaluate(eval_source.batches(
+                                eval_batch_size or batch_size,
+                                shuffle=False, drop_remainder=False))
+                            self._log(step, ev, "eval/")
                     if self.ckpt and opt_step % cfg.save_every == 0:
-                        self._save(step)
+                        with span("train.save"):
+                            self._save(step)
                 if cfg.margin_delta_per_epoch:
                     self.update_margin(cfg.margin_delta_per_epoch)
         if not (self.ckpt and trained):

@@ -103,3 +103,56 @@ def test_nlp_similar_job_same_kv_items(towers, as_dict):
     assert {k: v for k, (v, _) in sink.data.items()} == \
         {k: v for k, (v, _) in jsink.data.items()}
     assert 0 < sink.ttl(next(iter(sink.keys()))) <= 7 * 24 * 3600
+
+
+def test_recorded_job_has_its_stages_and_the_same_lists(towers):
+    """Under ``recording()`` the job holds ``similar.job`` over embed,
+    index, search, filter and write, in that order; the embedder's spans
+    under ``similar.embed``; ``embed.tokens_real`` is the attention
+    masks' sum, ``embed.tokens_computed`` the padded batches' positions;
+    the lists are an unrecorded run's."""
+    from multimodalsimilar_tpu_torch.utils.profiling import recording
+    titles, _, (model, tok) = towers
+    keys = [f"s{i}" for i in range(len(titles))]
+    table = {"spu_sn": keys, "spu_name": titles}
+    embed = TextEmbedder(model, tok, max_length=16, batch_size=8,
+                         device="cpu")
+    plain, traced = InMemoryKVSink(), InMemoryKVSink()
+    nlp_similar_job(table, embed, plain, k=6, score_th=0.95, device="cpu")
+    with recording() as rec:
+        nlp_similar_job(table, embed, traced, k=6, score_th=0.95,
+                        device="cpu")
+    assert {k: v for k, (v, _) in traced.data.items()} == \
+        {k: v for k, (v, _) in plain.data.items()} and plain.data
+    job = [s for s in rec.spans if s[0] == "similar.job"]
+    assert len(job) == 1 and job[0][1] is None
+    kids = sorted((s for s in rec.spans if s[1] == "similar.job"),
+                  key=lambda s: s[3])
+    assert [s[0] for s in kids] == ["similar.embed", "similar.index",
+                                    "similar.search", "similar.filter",
+                                    "similar.write"]
+    assert all(job[0][3] <= s[3] <= s[4] <= job[0][4] for s in kids)
+    batches = -(-len(titles) // 8)
+    for name in ("embed.tokenize", "embed.launch", "embed.drain"):
+        got = [s for s in rec.spans if s[0] == name]
+        assert len(got) == batches and {s[1] for s in got} == {
+            "similar.embed"}, name
+    mask = tok(titles, 16)["attention_mask"]
+    assert rec.counters == {"embed.tokens_real": int(mask.sum()),
+                            "embed.tokens_computed": batches * 8 * 16}
+
+
+def test_bucketed_embedder_counts_the_tokens_it_computes(towers):
+    """Length buckets: ``embed.tokens_computed`` is each batch's rows x
+    its bucket, ``embed.tokens_real`` the masks' sum, as unbucketed."""
+    from multimodalsimilar_tpu_torch.utils.profiling import recording
+    titles, _, (model, tok) = towers
+    emb = TextEmbedder(model, tok, max_length=16, batch_size=8,
+                       length_buckets=(8,), device="cpu")
+    with recording() as rec:
+        emb(titles)
+    lens = np.sort(tok(titles, 16)["attention_mask"].sum(axis=1))
+    computed = sum(8 * (8 if lens[s: s + 8].max() <= 8 else 16)
+                   for s in range(0, len(lens), 8))
+    assert rec.counters == {"embed.tokens_real": int(lens.sum()),
+                            "embed.tokens_computed": computed}

@@ -505,6 +505,87 @@ def test_fresh_fit_into_populated_dir_needs_overwrite(tmp_path):
     assert t3.step == 3 and t3.ckpt.all_steps() == [2, 3]
 
 
+def _recorded_trainer(root, log_every=2):
+    """``_small_trainer``'s run with dropout off, logging every
+    ``log_every`` steps and saving every 2, into ``root``."""
+    os.makedirs(root, exist_ok=True)
+    df = _table(n=48)
+    tok = TextTokenizer.from_corpus(df["spu_name"])
+    src = TextClassificationSource(df, tok, max_length=12, clean=False)
+    model = NlpTextClassifier(
+        BertConfig.tiny(vocab_size=tok.vocab_size, **NO_DROPOUT),
+        policy=DTypePolicy.full_precision(), num_labels=N_CLS,
+        generator=torch.Generator().manual_seed(1))
+    sched = linear_schedule_with_warmup(1e-3, 0, 12)
+    config = TrainerConfig(
+        eval_every=10**9, save_every=2, log_every=log_every,
+        checkpoint_dir=os.path.join(root, "ckpt"),
+        metrics_path=os.path.join(root, "m.jsonl"))
+    trainer = Trainer(text_arcface_task(model),
+                      lambda m: dual_group_adamw(m, sched, sched, 0.01),
+                      config, device="cpu")
+    return trainer, src
+
+
+def test_recorded_fit_has_every_stage_and_the_same_state(tmp_path):
+    """Under ``recording()`` a fit of 2 epochs of 3 steps holds, for each
+    step, ``train.step`` with its forward, backward and optimizer and one
+    ``prefetch.wait`` (one more an epoch, for its end), ``train.sync``
+    from the second step, ``train.log`` and ``train.save`` on every
+    second, the producer's spans on its own thread and no counter; its
+    final state is an unrecorded run's, bit for bit."""
+    from multimodalsimilar_tpu_torch.utils.profiling import recording
+    plain, src = _recorded_trainer(str(tmp_path / "plain"))
+    want = plain.fit(src, 2, 16)
+    traced, src = _recorded_trainer(str(tmp_path / "traced"))
+    with recording() as rec:
+        got = traced.fit(src, 2, 16)
+    assert traced.step == plain.step == 6
+    for k, v in want["model"].items():
+        assert torch.equal(got["model"][k], v), k
+    main = threading.get_ident()
+    names = [s[0] for s in rec.spans if s[2] == main]
+    steps = [s for s in rec.spans if s[0] == "train.step"]
+    assert len(steps) == 6 and all(s[1] is None for s in steps)
+    for child in ("train.forward", "train.backward", "train.optimizer"):
+        kids = [s for s in rec.spans if s[0] == child]
+        assert len(kids) == 6 and all(s[1] == "train.step" for s in kids)
+        assert all(a[3] <= b[3] <= b[4] <= a[4]
+                   for a, b in zip(steps, kids))
+    assert names.count("prefetch.wait") == 6 + 2
+    assert names.count("train.sync") == 5
+    assert names.count("train.log") == names.count("train.save") == 3
+    assert names.index("train.sync") > names.index("train.step")
+    producer = [s for s in rec.spans if s[0].startswith("prefetch.")
+                and s[0] != "prefetch.wait"]
+    assert {s[0] for s in producer} == {"prefetch.build", "prefetch.upload"}
+    assert all(s[2] != main for s in producer)
+    assert not rec.counters
+
+
+def test_logged_rate_is_examples_over_the_wall_since_the_last_log(
+        tmp_path, monkeypatch):
+    """``examples_per_sec`` is the examples since the previous log step
+    over the wall time since then (here a clock that moves 10 s between
+    the Trainer's readings of it), not the batch over the median step;
+    the first interval starts after the warm-up steps that ``StepTimer``
+    skips (the first 3 of 6, logging every 2: step 4's rate counts step 4
+    alone); ``step_ms_p50`` stays."""
+    import types
+    from multimodalsimilar_tpu_torch.train import trainer as trainer_mod
+    ticks = iter(range(0, 1000, 10))
+    monkeypatch.setattr(trainer_mod, "time", types.SimpleNamespace(
+        perf_counter=lambda: float(next(ticks))))
+    trainer, src = _recorded_trainer(str(tmp_path), log_every=2)
+    trainer.fit(src, 2, 16)
+    lines = [json.loads(ln) for ln in open(tmp_path / "m.jsonl")]
+    rated = [ln for ln in lines if "train/examples_per_sec" in ln]
+    assert [ln["step"] for ln in rated] == [4, 6]
+    assert [ln["train/examples_per_sec"] for ln in rated] == [
+        1 * 16 / 10, 2 * 16 / 10]
+    assert all(ln["train/step_ms_p50"] > 0 for ln in rated)
+
+
 def test_async_failure_reraises_and_a_retry_writes(tmp_path, monkeypatch):
     """A failed background write re-raises on wait(); the step does not
     count as saved, so saving it again (without force) writes it."""
