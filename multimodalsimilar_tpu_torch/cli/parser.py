@@ -42,8 +42,11 @@ from multimodalsimilar_tpu_torch.cli.train import (
 _SEQ_BUCKETS = ("comma list of shorter seq buckets, e.g. 32,48,64 — trim "
                 "each batch to the smallest bucket covering its longest row")
 _LENGTH_BUCKETS = ("comma list of shorter seq buckets, e.g. 24,48 — sorts "
-                   "rows by token length and runs short batches at the "
-                   "shorter length (output-identical)")
+                   "rows by token length and runs each batch at the "
+                   "shortest bucket that fits it. Unset, the float towers "
+                   "already cut each sorted batch to its longest row; "
+                   "a ladder then only bounds the shapes, and it is what "
+                   "gives --int8 short batches")
 _EMB_CACHE = ("packed embedding cache directory (pipelines/embcache.py): "
               "one data.bin instead of per-SKU emb.txt files")
 _NOT_PORTED_SEARCH = ("refused: the port has one search, exact on the "
@@ -419,7 +422,7 @@ def _add_serve(sub):
     srv.add_argument("--batch_size", type=int, default=64,
                      help="device batch the micro-batches pad to")
     srv.add_argument("--length_buckets", default=None,
-                     help="comma list of shorter seq buckets, e.g. 24,48")
+                     help=_LENGTH_BUCKETS)
     srv.add_argument("--k", type=int, default=13)
     srv.add_argument("--score_th", type=float, default=None,
                      help="default score threshold (requests may override "

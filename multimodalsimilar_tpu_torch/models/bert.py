@@ -258,8 +258,10 @@ class BertLayer(nn.Module):
 
         q, k, v = heads(sa.query), heads(sa.key), heads(sa.value)
         scores = torch.matmul(q.to(rd), k.to(rd).transpose(-1, -2))
-        scores = scores / torch.sqrt(torch.tensor(hd, dtype=rd,
-                                                  device=x.device))
+        # sqrt(hd) made on the device: a tensor copied from the host
+        # (``torch.tensor(hd, device=...)``) waits for the stream to drain
+        scores = scores / torch.full((), hd, dtype=rd,
+                                     device=x.device).sqrt()
         probs = torch.softmax(scores + mask_bias, dim=-1)
         if sharded:    # the mask of every head, this rank's heads of it
             first = self.tp.index * nh

@@ -38,6 +38,10 @@ class NlpTextClassifier(nn.Module):
     ``models.convert.text_classifier_from_jax`` carries trained weights
     over."""
 
+    # ``predict_emb`` masks pad out of attention and pooling, so pad
+    # columns do not change a row's embedding (``TextEmbedder`` trims them)
+    padding_invariant = True
+
     def __init__(self, config: BertConfig, pool: str = "cls",
                  policy: DTypePolicy = DTypePolicy(),
                  generator: Optional[torch.Generator] = None, *,
@@ -70,6 +74,10 @@ class NlpMultilabelClassifier(nn.Module):
     and ``tag_head`` (nlp_classifier_multilabel.py), margins 0.4, 0.2 and
     0.1 (:15-17). Weights are drawn from ``generator`` (seed 0 when none
     is given): the tower's, then the three heads' in that order."""
+
+    # ``predict_emb`` masks pad out of attention and pooling, so pad
+    # columns do not change a row's embedding (``TextEmbedder`` trims them)
+    padding_invariant = True
 
     def __init__(self, config: BertConfig, lv1_labels: int, lv2_labels: int,
                  tag_labels: int,
@@ -111,6 +119,10 @@ class SiamesePairModel(nn.Module):
     Weights are drawn from ``generator`` (seed 0 when none is given): the
     tower's, then the classifier's (normal, std 1/sqrt(fan_in), zero
     bias)."""
+
+    # ``predict_emb`` masks pad out of attention and pooling, so pad
+    # columns do not change a row's embedding (``TextEmbedder`` trims them)
+    padding_invariant = True
 
     def __init__(self, config: BertConfig,
                  policy: DTypePolicy = DTypePolicy(),

@@ -175,8 +175,9 @@ class _QuantLayer(nn.Module):
 
         q, k, v = heads(sa.query), heads(sa.key), heads(sa.value)
         scores = torch.matmul(q, k.transpose(-1, -2))
-        scores = scores / torch.sqrt(torch.tensor(hd, dtype=torch.float32,
-                                                  device=h.device))
+        # made on the device, so no copy from the host waits on the stream
+        scores = scores / torch.full((), hd, dtype=torch.float32,
+                                     device=h.device).sqrt()
         probs = torch.softmax(scores + mask_bias, dim=-1).to(cd)
         # bf16 x bf16 products summed in f32 (preferred_element_type)
         ctx = torch.matmul(probs.float(), v.to(cd).float())
@@ -249,6 +250,10 @@ class QuantTextEmbModel(nn.Module):
     ``TextTower``'s pooling, with ``predict_emb`` as ``TextEmbedder``
     calls it. ``--int8`` on ``embed``, ``similar nlp`` and ``serve``
     builds it with ``quantize_text_tower``."""
+
+    # one activation scale spans the whole padded batch, so pad is part
+    # of the output (``TextEmbedder`` cuts its batches only to a ladder)
+    padding_invariant = False
 
     def __init__(self, config: BertConfig, pool: str = "cls",
                  policy: DTypePolicy = DTypePolicy.inference()):

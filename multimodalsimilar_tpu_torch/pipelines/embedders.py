@@ -20,14 +20,17 @@ serving daemon.
 * ``MultimodalEmbedder`` — (title, image) pairs + a
   ``MultimodalClassifier``: the fused [B, fc_dim + hidden] embedding.
 
-Three padding rules, each as in the JAX package: a serving micro-batch
-(``embed_device``, the fused path) pads with zeros (images) or repeated
-last rows (tokens) to its bucket; ``ImageEmbedder.embed_batch`` pads a
-partial chunk to its pow2 bucket by repeating the last image;
+Three padding rules for rows, each as in the JAX package: a serving
+micro-batch (``embed_device``, the fused path) pads with zeros (images)
+or repeated last rows (tokens) to its bucket;
+``ImageEmbedder.embed_batch`` pads a partial chunk to its pow2 bucket by
+repeating the last image;
 ``embed_keys`` pads its tail to the full batch by repeating the last
 image. The int8 text tower (``models/quant.py``) takes one activation
 scale over its whole padded batch, so for it these rules are part of
-the output, as in the JAX package.
+the output, as in the JAX package. ``TextEmbedder.__call__`` cuts the
+token length of a padding-invariant tower's batches to their longest
+row (its docstring).
 """
 
 from __future__ import annotations
@@ -51,6 +54,8 @@ from multimodalsimilar_tpu_torch.utils.profiling import count, enabled, span
 
 _TOKEN_KEYS = ("input_ids", "attention_mask", "token_type_ids")
 _IN_FLIGHT = 3   # batches launched ahead of the oldest read-back
+_WINDOW = 64     # batches a text window holds (tokenized and sorted at once)
+_FIRST_WINDOW = 4   # ... the first window of a padding-invariant tower
 
 
 def _pad_rows(arrs: Dict[str, np.ndarray], batch: int) -> Dict[str, np.ndarray]:
@@ -79,23 +84,28 @@ def _token_arrays(toks: Dict[str, np.ndarray]) -> List[np.ndarray]:
 
 def _count_tokens(real: np.ndarray, rows: int, length: int) -> None:
     """The recorder's counters of one text micro-batch: the real tokens
-    (``real``: the attention mask of its rows before padding, or their
-    token counts) and the token positions the tower computes (padded rows
-    x padded length)."""
+    (``real``: the attention mask of its rows before padding) and the
+    token positions the tower computes (padded rows x cut length)."""
     if enabled():
         count("embed.tokens_real", int(real.sum()))
         count("embed.tokens_computed", rows * length)
 
 
-def _stream(batches, run, device: torch.device) -> np.ndarray:
+def _stream(batches, run, device: torch.device,
+            rows: Optional[int] = None) -> np.ndarray:
     """Pipelined embed loop: keep ``_IN_FLIGHT`` batches in flight.
 
     ``batches`` yields ``(host arrays, n_valid)``; ``run`` takes the
-    uploaded tensors. On a card each result is
+    uploaded tensors, and the results' first ``n_valid`` rows are
+    concatenated. With ``rows``, ``batches`` yields ``(host arrays,
+    index)`` instead, and each result's first ``len(index)`` rows land
+    at those rows of a ``[rows, D]`` output as they are read back. On a
+    card each result is
     copied into pinned host memory on the compute stream and an event marks
     its arrival; the host waits on the oldest event only when more than
     ``_IN_FLIGHT`` batches are pending."""
-    out: List[np.ndarray] = []
+    parts: List[np.ndarray] = []
+    out = None
     pending = deque()
     cuda = device.type == "cuda"
 
@@ -112,10 +122,17 @@ def _stream(batches, run, device: torch.device) -> np.ndarray:
             return host, done, n
 
     def drain(host, done, n):
+        nonlocal out
         with span("embed.drain"):
             if done is not None:
                 done.synchronize()
-            out.append(host.numpy()[:n].copy())
+            got = host.numpy()
+            if rows is None:
+                parts.append(got[:n].copy())
+                return
+            if out is None:
+                out = np.empty((rows, got.shape[1]), np.float32)
+            out[n] = got[:len(n)]
 
     for arrays, n in batches:
         pending.append(launch(arrays, n))
@@ -123,18 +140,37 @@ def _stream(batches, run, device: torch.device) -> np.ndarray:
             drain(*pending.popleft())
     while pending:
         drain(*pending.popleft())
-    return np.concatenate(out) if out else np.zeros((0, 0), np.float32)
+    if out is not None:
+        return out
+    return np.concatenate(parts) if parts else np.zeros((0, 0), np.float32)
 
 
 class TextEmbedder:
     """Tokenizer + any model with ``predict_emb`` on ``device``.
 
-    ``length_buckets`` (e.g. ``(24, 48)``) turns on length-bucketed
-    batches: rows are sorted by true token length within a window, batched,
-    and each batch is trimmed to the smallest bucket that fits its longest
-    row (``max_length`` is always the final bucket). Embeddings are
-    padding-invariant (masked attention and pooling), so outputs match the
-    unbucketed path; the original row order is restored exactly.
+    A call embeds its rows in windows of up to ``_WINDOW`` batches
+    (``_windows``). Each window is tokenized at ``max_length`` in row
+    order (one tokenizer call a window; a worker thread tokenizes the next
+    window while this one's batches run), and its batches go to the tower
+    with the original row order restored in the output. How a batch is
+    cut:
+
+    * a tower whose ``padding_invariant`` is true (the float BERT towers:
+      masked attention, CLS or masked-mean pooling): each distinct text
+      once, rows sorted by token length within the window, each batch
+      cut to its longest row, so it computes little pad; a repeated text
+      takes its first row's vector;
+    * ``length_buckets`` (e.g. ``(24, 48)``) on a call of more than one
+      batch: the same sort, each batch cut to the smallest bucket that
+      fits its longest row (``max_length`` is always the final bucket).
+      A ladder bounds how many shapes the tower sees, and it is the only
+      way a tower that is not padding-invariant gets short batches (then
+      with every row, each window ``_WINDOW`` batches);
+    * otherwise (the int8 tower, whose activation scale spans the padded
+      batch): rows in order, every batch at ``max_length``.
+
+    Every batch has ``batch_size`` rows, a partial one padded by
+    repeating its last row.
     """
 
     def __init__(self, model: torch.nn.Module, tokenizer: TextTokenizer,
@@ -146,6 +182,8 @@ class TextEmbedder:
         self.max_length = max_length
         self.batch_size = batch_size
         self.length_buckets = bucket_ladder(length_buckets, max_length)
+        self.padding_invariant = bool(getattr(model, "padding_invariant",
+                                              False))
         self.model = model.to(self.device).eval()
 
     def tower_fn(self, input_ids, attention_mask, token_type_ids):
@@ -194,53 +232,84 @@ class TextEmbedder:
 
         return fused
 
+    def _cut(self, n: int):
+        """``need -> width`` for the batches of a call of ``n`` rows,
+        where ``need`` is a batch's longest row in tokens; None when
+        batches keep the rows in order at ``max_length``."""
+        if self.length_buckets and n > self.batch_size:
+            return lambda need: next(b for b in self.length_buckets
+                                     if b >= need)
+        if self.padding_invariant:
+            return lambda need: need
+        return None
+
+    def _windows(self, n: int) -> List[tuple]:
+        """``(start, end)`` rows of each window of a call of ``n`` rows.
+        A padding-invariant tower's windows start at ``_FIRST_WINDOW``
+        batches and double up to ``_WINDOW``: the device waits only for
+        the first, and each later one is tokenized while the one before
+        it runs. Another tower's hold ``_WINDOW`` batches each, so a
+        ladder groups its rows as the JAX package does."""
+        B = self.batch_size
+        size = _FIRST_WINDOW if self.padding_invariant else _WINDOW
+        out, w0 = [], 0
+        while w0 < n:
+            out.append((w0, min(w0 + size * B, n)))
+            w0, size = out[-1][1], min(2 * size, _WINDOW)
+        return out
+
     def __call__(self, texts: Sequence[str]) -> np.ndarray:
-        if self.length_buckets and len(texts) > self.batch_size:
-            return self._call_bucketed(texts)
-        B = self.batch_size
+        B, n = self.batch_size, len(texts)
+        cut = self._cut(n)
+        # a padding-invariant tower embeds each distinct text once, and
+        # its repeats take that vector: bit for bit the same, whatever
+        # width its batch was cut to, so repeats tie in a search
+        first: Dict[str, int] = {}
+        src = (np.fromiter((first.setdefault(t, i)
+                            for i, t in enumerate(texts)), np.int64, n)
+               if self.padding_invariant else None)
 
-        def batches():
-            for s in range(0, len(texts), B):
-                chunk = list(texts[s: s + B])
-                with span("embed.tokenize"):
-                    toks = self.tokenizer(chunk, self.max_length)
-                    _count_tokens(toks["attention_mask"], B,
-                                  toks["input_ids"].shape[1])
-                    arrays = _token_arrays(_pad_rows(toks, B))
-                yield arrays, len(chunk)
-
-        return _stream(batches(), self._run, self.device)
-
-    def _call_bucketed(self, texts: Sequence[str]) -> np.ndarray:
-        B = self.batch_size
-        W = 64 * B                     # sort window: 64 batches at a time
-        order_ix: List[np.ndarray] = []
-
-        def batches():
-            for w0 in range(0, len(texts), W):
-                chunk = list(texts[w0: w0 + W])
-                with span("embed.tokenize"):
-                    toks = self.tokenizer(chunk, self.max_length)
-                    lens = toks["attention_mask"].sum(axis=1)
-                    order = np.argsort(lens, kind="stable")
+        def prepare(window):
+            """The batches of rows ``window`` = (w0, w1) of ``texts``:
+            ``(token arrays, rows)``."""
+            w0, w1 = window
+            with span("embed.prepare"):
+                toks = self.tokenizer(list(texts[w0: w1]), self.max_length)
+                mask = toks["attention_mask"]
+                L = mask.shape[1]
+                # each row's extent: its last real token + 1
+                extent = L - np.argmax(mask[:, ::-1] > 0, axis=1)
+                order = np.arange(w1 - w0)
+                if src is not None:
+                    order = order[src[w0: w1] == order + w0]
+                if cut is not None:
+                    order = order[np.argsort(extent[order], kind="stable")]
+                ready = []
                 for s in range(0, len(order), B):
                     sel = order[s: s + B]
-                    with span("embed.tokenize"):
-                        need = lens[sel]
-                        bucket = next(b for b in self.length_buckets
-                                      if b >= int(need.max()))
-                        order_ix.append(np.asarray(w0 + sel))
-                        _count_tokens(need, B, bucket)
-                        arrays = _token_arrays(_pad_rows(
-                            {k: v[sel][:, :bucket] for k, v in toks.items()},
-                            B))
-                    yield arrays, len(sel)
+                    width = L if cut is None else min(
+                        cut(int(extent[sel].max())), L)
+                    _count_tokens(mask[sel], B, width)
+                    ready.append((_token_arrays(_pad_rows(
+                        {k: v[sel, :width] for k, v in toks.items()}, B)),
+                        w0 + sel))
+                return ready
 
-        embs = _stream(batches(), self._run, self.device)
-        if not len(embs):
-            return embs
-        out = np.empty_like(embs)
-        out[np.concatenate(order_ix)] = embs
+        bounds = self._windows(n)
+
+        def batches(windows):
+            for _ in bounds:
+                with span("embed.tokenize"):   # the wait for a window
+                    ready = next(windows)
+                yield from ready
+
+        with ThreadPoolExecutor(max_workers=1) as pool:
+            windows = (_bounded_map(pool, prepare, bounds, window=2)
+                       if len(bounds) > 1 else map(prepare, bounds))
+            out = _stream(batches(windows), self._run, self.device, rows=n)
+        if src is not None and len(out):
+            repeat = np.flatnonzero(src != np.arange(n))
+            out[repeat] = out[src[repeat]]
         return out
 
 

@@ -188,6 +188,23 @@ def test_text_embedder_matches_jax_on_padded_batches(buckets, policy):
     assert np.abs(alone[0] - got[0]).max() > 1e-6
 
 
+def test_int8_tower_without_a_ladder_computes_whole_batches():
+    """The int8 tower is not padding-invariant: with no ladder the
+    embedder keeps every batch at ``max_length``, in row order, so it
+    counts batches x batch_size x max_length token positions."""
+    from multimodalsimilar_tpu_torch.utils.profiling import recording
+    qmodel = Q.quantize_text_tower(_port_classifier("cls"))
+    assert not qmodel.padding_invariant
+    vocab = build_char_vocab(TEXTS)
+    tok = TextTokenizer.from_vocab(vocab)
+    emb = TextEmbedder(qmodel, tok, 16, 8, device="cpu")
+    with recording() as rec:
+        emb(TEXTS)
+    assert rec.counters == {
+        "embed.tokens_real": int(tok(TEXTS, 16)["attention_mask"].sum()),
+        "embed.tokens_computed": 3 * 8 * 16}
+
+
 def test_int8_tower_stays_within_the_cosine_budget():
     model = _port_classifier("cls", policy=DTypePolicy.full_precision())
     qmodel = Q.quantize_text_tower(model)

@@ -105,12 +105,35 @@ def test_nlp_similar_job_same_kv_items(towers, as_dict):
     assert 0 < sink.ttl(next(iter(sink.keys()))) <= 7 * 24 * 3600
 
 
+def _expected_counts(titles, tok, windows, width):
+    """(real tokens, computed positions, batches) of a padding-invariant
+    tower's call at max_length 16 and batch 8: each distinct title once
+    (its first row), sorted by length within its window, each batch
+    ``width(longest row)`` long."""
+    lens = tok(titles, 16)["attention_mask"].sum(axis=1)
+    firsts = np.array([i for i, t in enumerate(titles)
+                       if titles.index(t) == i])
+    computed = batches = 0
+    for w0, w1 in windows:
+        part = np.sort(lens[firsts[(firsts >= w0) & (firsts < w1)]])
+        for s in range(0, len(part), 8):
+            computed += 8 * width(int(part[s: s + 8].max()))
+            batches += 1
+    return int(lens[firsts].sum()), computed, batches
+
+
 def test_recorded_job_has_its_stages_and_the_same_lists(towers):
     """Under ``recording()`` the job holds ``similar.job`` over embed,
-    index, search, filter and write, in that order; the embedder's spans
-    under ``similar.embed``; ``embed.tokens_real`` is the attention
-    masks' sum, ``embed.tokens_computed`` the padded batches' positions;
-    the lists are an unrecorded run's."""
+    index, search, filter and write, in that order; under
+    ``similar.embed`` the embedder's main-thread spans: one
+    ``embed.tokenize`` (the wait for a window) a window, one
+    ``embed.launch`` and ``embed.drain`` a batch; one ``embed.prepare`` a
+    window on the worker thread that tokenizes ahead.
+    ``embed.tokens_real`` is the attention masks' sum over the rows the
+    tower computes (each distinct title once), ``embed.tokens_computed``
+    each batch's rows x its trimmed length (rows sorted by length within
+    a window); the lists are an unrecorded run's."""
+    import threading
     from multimodalsimilar_tpu_torch.utils.profiling import recording
     titles, _, (model, tok) = towers
     keys = [f"s{i}" for i in range(len(titles))]
@@ -132,27 +155,142 @@ def test_recorded_job_has_its_stages_and_the_same_lists(towers):
                                     "similar.search", "similar.filter",
                                     "similar.write"]
     assert all(job[0][3] <= s[3] <= s[4] <= job[0][4] for s in kids)
-    batches = -(-len(titles) // 8)
-    for name in ("embed.tokenize", "embed.launch", "embed.drain"):
+    windows = [(0, 32), (32, 37)]          # 4 batches of 8, then the rest
+    assert embed._windows(len(titles)) == windows
+    real, computed, n = _expected_counts(
+        titles, tok, windows, lambda need: need)
+    assert len(set(titles)) < len(titles) and computed < n * 8 * 16
+    main = threading.main_thread().ident
+    for name, count in (("embed.tokenize", len(windows)),
+                        ("embed.launch", n), ("embed.drain", n)):
         got = [s for s in rec.spans if s[0] == name]
-        assert len(got) == batches and {s[1] for s in got} == {
-            "similar.embed"}, name
-    mask = tok(titles, 16)["attention_mask"]
-    assert rec.counters == {"embed.tokens_real": int(mask.sum()),
-                            "embed.tokens_computed": batches * 8 * 16}
+        assert len(got) == count and {s[1] for s in got} == {
+            "similar.embed"} and {s[2] for s in got} == {main}, name
+    prep = [s for s in rec.spans if s[0] == "embed.prepare"]
+    assert len(prep) == len(windows) and main not in {s[2] for s in prep}
+    assert rec.counters == {"embed.tokens_real": real,
+                            "embed.tokens_computed": computed}
+
+
+class _NotPaddingInvariant(torch.nn.Module):
+    """The same tower, declared to depend on its padding: the embedder
+    keeps every batch in row order at ``max_length``."""
+
+    padding_invariant = False
+
+    def __init__(self, inner):
+        super().__init__()
+        self.inner = inner
+
+    def predict_emb(self, *tokens):
+        return self.inner.predict_emb(*tokens)
+
+
+class _Shapes(torch.nn.Module):
+    """A tower that keeps the token shape of every call and is
+    padding-invariant as its inner one is."""
+
+    def __init__(self, inner):
+        super().__init__()
+        self.inner = inner
+        self.padding_invariant = inner.padding_invariant
+        self.shapes = []
+
+    def predict_emb(self, input_ids, *rest):
+        self.shapes.append(tuple(input_ids.shape))
+        return self.inner.predict_emb(input_ids, *rest)
+
+
+def _mixed_titles(tok_titles):
+    """Titles of 1-20 characters (some past ``max_length`` 16), one
+    repeated, 77 rows: 10 batches of 8, the last partial, over two
+    windows."""
+    rng = np.random.default_rng(5)
+    chars = "".join(tok_titles)
+    out = ["".join(rng.choice(list(chars), int(n)))
+           for n in rng.integers(1, 21, 77)]
+    out[40] = out[3]
+    return out
+
+
+def test_default_embedder_trims_and_matches_the_flat_path(towers):
+    """With no ladder, a padding-invariant tower gets batches sorted by
+    length and cut to their longest row, each distinct title once; the
+    embeddings equal the flat path's (the same tower declared not
+    padding-invariant) in row order, a repeated title's bit for bit its
+    first row's, and the flat path hands the tower every batch at
+    ``max_length``."""
+    from multimodalsimilar_tpu_torch.utils.profiling import recording
+    titles, _, (model, tok) = towers
+    texts = _mixed_titles(titles)
+    trimmed = _Shapes(model)
+    flat = _Shapes(_NotPaddingInvariant(model))
+    with recording() as rec:
+        got = TextEmbedder(trimmed, tok, max_length=16, batch_size=8,
+                           device="cpu")(texts)
+    want = TextEmbedder(flat, tok, max_length=16, batch_size=8,
+                        device="cpu")(texts)
+    assert got.shape == want.shape == (77, 64) and got.dtype == np.float32
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
+    np.testing.assert_array_equal(got[40], got[3])
+    assert flat.shapes == [(8, 16)] * 10
+    one = TextEmbedder(trimmed, tok, max_length=16, batch_size=8,
+                       device="cpu")
+    windows = [(0, 32), (32, 77)]
+    assert one._windows(77) == windows
+    real, computed, n = _expected_counts(texts, tok, windows,
+                                         lambda need: need)
+    assert len(trimmed.shapes) == n
+    assert all(b == 8 for b, _ in trimmed.shapes)
+    assert len({w for _, w in trimmed.shapes}) > 2
+    # the counters count the rows and positions the tower was handed
+    assert rec.counters == {"embed.tokens_real": real,
+                            "embed.tokens_computed": computed}
+    assert computed == sum(b * w for b, w in trimmed.shapes) < n * 8 * 16
+    # one batch is cut too, and needs no sort
+    mask = tok(texts, 16)["attention_mask"]
+    trimmed.shapes.clear()
+    np.testing.assert_allclose(one(texts[:5]), want[:5], rtol=0, atol=1e-5)
+    assert trimmed.shapes == [(8, int(mask[:5].sum(axis=1).max()))]
+
+
+def test_tokenizer_sees_each_row_once_in_order_at_max_length(towers):
+    """The tokenizer is called on the rows in row order, each row once,
+    at ``max_length``: the concatenated ids of its calls are the rows'
+    own at full width (the benchmark's recorder compares rows by
+    position)."""
+    titles, _, (model, tok) = towers
+    texts = _mixed_titles(titles) * 3              # 231 rows, 4 windows
+    calls = []
+
+    def recording_tok(batch, max_length=128):
+        out = tok(batch, max_length)
+        calls.append((list(batch), max_length, out["input_ids"]))
+        return out
+
+    emb = TextEmbedder(model, recording_tok, max_length=16, batch_size=8,
+                       device="cpu")
+    emb(texts)
+    assert len(calls) == len(emb._windows(len(texts))) == 4
+    assert [t for batch, _, _ in calls for t in batch] == texts
+    assert {m for _, m, _ in calls} == {16}
+    np.testing.assert_array_equal(
+        np.concatenate([ids for _, _, ids in calls]),
+        tok(texts, 16)["input_ids"])
 
 
 def test_bucketed_embedder_counts_the_tokens_it_computes(towers):
     """Length buckets: ``embed.tokens_computed`` is each batch's rows x
-    its bucket, ``embed.tokens_real`` the masks' sum, as unbucketed."""
+    its bucket, ``embed.tokens_real`` the masks' sum, over the rows the
+    tower computes (each distinct title once)."""
     from multimodalsimilar_tpu_torch.utils.profiling import recording
     titles, _, (model, tok) = towers
     emb = TextEmbedder(model, tok, max_length=16, batch_size=8,
                        length_buckets=(8,), device="cpu")
     with recording() as rec:
         emb(titles)
-    lens = np.sort(tok(titles, 16)["attention_mask"].sum(axis=1))
-    computed = sum(8 * (8 if lens[s: s + 8].max() <= 8 else 16)
-                   for s in range(0, len(lens), 8))
-    assert rec.counters == {"embed.tokens_real": int(lens.sum()),
+    real, computed, _ = _expected_counts(
+        titles, tok, emb._windows(len(titles)),
+        lambda need: 8 if need <= 8 else 16)
+    assert rec.counters == {"embed.tokens_real": real,
                             "embed.tokens_computed": computed}
