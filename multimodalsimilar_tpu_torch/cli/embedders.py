@@ -4,7 +4,10 @@
 
 * text: an ``NlpTextClassifier`` tower, weights from a port checkpoint
   or from seed 0 without ``--checkpoint``; with ``--int8`` that tower
-  quantized (``models/quant.py:quantize_text_tower``);
+  quantized (``models/quant.py:quantize_text_tower``); with
+  ``--text_tower deepseek_v2_lite`` the DeepSeek-V2 tower in bfloat16
+  weights (``models/deepseek_v2.py``), from a published checkpoint
+  directory or from seed 0;
 * cv: a ``CvImageClassifier`` (checkpoint or seed 0) of any backbone, an
   EfficientNet's BatchNorm folded into its convs (``models/fold_bn.py``;
   ViT and ConvNeXt have no backbone BatchNorm), a ViT's position table
@@ -55,10 +58,42 @@ def _is_pp_checkpoint(checkpoint_dir) -> bool:
     return False
 
 
+def _deepseek_v2_tower(args, device):
+    """The DeepSeek-V2 tower in bfloat16 on ``device``: the published
+    checkpoint at ``--checkpoint`` (``config.json`` and its weights,
+    ``models/hf_import.py``), else ``--deepseek_preset``'s config drawn
+    on the device from seed 0."""
+    import torch
+
+    from multimodalsimilar_tpu_torch.models import hf_import
+    from multimodalsimilar_tpu_torch.models.deepseek_v2 import (
+        DeepseekV2Config, DeepseekV2Tower)
+    from multimodalsimilar_tpu_torch.utils.devices import resolve_device
+    dev = resolve_device(device)
+    if args.checkpoint:
+        config, state = hf_import.load_deepseek_v2_checkpoint(
+            args.checkpoint)
+        with torch.device("meta"):
+            tower = DeepseekV2Tower(config)
+        dtypes = {k: v.dtype for k, v in tower.state_dict().items()}
+        tower.load_state_dict({k: v.to(dev, dtypes[k])
+                               for k, v in state.items()},
+                              strict=True, assign=True)
+        return tower
+    config = {"lite": DeepseekV2Config,
+              "tiny": DeepseekV2Config.tiny}[args.deepseek_preset]()
+    with torch.device(dev):
+        return DeepseekV2Tower(
+            config, generator=torch.Generator(device=dev).manual_seed(0))
+
+
 def _build_text_embedder(args, df=None, device="cuda"):
     """TextEmbedder from a checkpoint (or seed-0 weights for smoke runs)
     on ``device``. ``df`` (a DataFrame or ``{column: list}``) saves
-    re-reading ``args.data`` when the vocab comes from the corpus."""
+    re-reading ``args.data`` when the vocab comes from the corpus.
+    ``--text_tower deepseek_v2_lite`` puts the DeepSeek-V2 tower in the
+    BERT tower's place, a char vocabulary then giving each row the
+    config's BOS token and no [SEP] (``TextTokenizer.with_bos``)."""
     from multimodalsimilar_tpu_torch.models.classifiers import (
         NlpTextClassifier)
     from multimodalsimilar_tpu_torch.pipelines.embedders import TextEmbedder
@@ -68,6 +103,16 @@ def _build_text_embedder(args, df=None, device="cuda"):
     int8 = getattr(args, "int8", False)
     _require_tokenizer_with_checkpoint(args)
     tok = _tokenizer(args, df=df)
+    buckets = parse_buckets(getattr(args, "length_buckets", None))
+    if getattr(args, "text_tower", "bert") == "deepseek_v2_lite":
+        if int8:
+            raise SystemExit("--int8 quantizes the BERT tower only; drop it "
+                             "with --text_tower deepseek_v2_lite")
+        tower = _deepseek_v2_tower(args, device)
+        if tok.backend != "hf":
+            tok = tok.with_bos(tower.config.bos_token_id)
+        return TextEmbedder(tower, tok, args.max_length, args.batch_size,
+                            length_buckets=buckets, device=device)
 
     def make():
         return NlpTextClassifier(_bert_config(args.bert_preset),
@@ -100,7 +145,6 @@ def _build_text_embedder(args, df=None, device="cuda"):
               "embeddings and speed against the bf16 default are in "
               "PERF.md", file=sys.stderr)
         model = quantize_text_tower(model)
-    buckets = parse_buckets(getattr(args, "length_buckets", None))
     return TextEmbedder(model, tok, args.max_length, args.batch_size,
                         length_buckets=buckets, device=device)
 

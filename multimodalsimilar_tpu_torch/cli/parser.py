@@ -16,6 +16,9 @@ and ``train nlp --config configs/train_nlp_large_tp.yaml`` under
 remat, ``configs/train_nlp_large_pp.yaml`` under ``torchrun
 --nproc_per_node 2`` pipeline-parallel. ``--pallas_topk`` parses as in
 JAX and raises in the commands (the device runs one exact search).
+The text embedder's subcommands add the port's own flags ``PORT_ONLY``
+(the JAX package has no DeepSeek-V2 tower), whose defaults run the JAX
+command.
 """
 
 from __future__ import annotations
@@ -49,6 +52,10 @@ _LENGTH_BUCKETS = ("comma list of shorter seq buckets, e.g. 24,48 — sorts "
                    "gives --int8 short batches")
 _EMB_CACHE = ("packed embedding cache directory (pipelines/embcache.py): "
               "one data.bin instead of per-SKU emb.txt files")
+# flags of the port alone (dest -> default), on the subcommands that take
+# the text embedder's flags: ``similar nlp``, ``embed incremental|bulk``
+PORT_ONLY = {"text_tower": "bert", "deepseek_preset": "lite"}
+
 _NOT_PORTED_SEARCH = ("refused: the port has one search, exact on the "
                       "device (csrc/topk.cu)")
 _APPROX = ("target recall of the JAX package's approximate TPU search, "
@@ -172,6 +179,19 @@ def _add_text_embedder_flags(p, max_length: int):
     p.add_argument("--max_length", type=int, default=max_length)
     p.add_argument("--batch_size", type=int, default=256)
     p.add_argument("--length_buckets", default=None, help=_LENGTH_BUCKETS)
+    p.add_argument("--text_tower", default=PORT_ONLY["text_tower"],
+                   choices=["bert", "deepseek_v2_lite"],
+                   help="bert: the BERT/RoBERTa tower of --bert_preset; "
+                        "deepseek_v2_lite: the DeepSeek-V2 decoder "
+                        "(models/deepseek_v2.py) of --deepseek_preset or of "
+                        "the published checkpoint directory --checkpoint, "
+                        "bfloat16 weights, masked-mean pooling (--pool is "
+                        "not read)")
+    p.add_argument("--deepseek_preset", default=PORT_ONLY["deepseek_preset"],
+                   choices=["lite", "tiny"],
+                   help="the DeepSeek-V2 tower's size without --checkpoint "
+                        "(seed-0 weights): lite = DeepSeek-V2-Lite, tiny "
+                        "for tests")
 
 
 def _add_image_flags(p, image_size: int = 512):

@@ -111,6 +111,29 @@ class TextTokenizer:
             tokens = [line.rstrip("\n") for line in f if line.rstrip("\n")]
         return cls.from_vocab(tokens)
 
+    def with_bos(self, bos_id: int) -> "TextTokenizer":
+        """This [CLS] ... [SEP] tokenizer as a decoder's: each row is
+        ``bos_id`` and then its tokens, without [SEP], padded on the
+        right, so a row holds up to ``max_length - 1`` characters. The
+        vocabulary grows to hold ``bos_id``."""
+        inner, pad = self._encode, self.pad_id
+
+        def encode(texts: Sequence[str], max_length: int):
+            out = inner(texts, max_length + 1)
+            ids = np.array(out["input_ids"], np.int32)
+            mask = np.array(out["attention_mask"], np.int32)
+            rows = np.arange(len(ids))
+            sep = mask.sum(axis=1) - 1
+            ids[rows, sep] = pad
+            mask[rows, sep] = 0
+            ids[:, 0] = bos_id
+            ids, mask = ids[:, :max_length], mask[:, :max_length]
+            return {"input_ids": ids, "attention_mask": mask,
+                    "token_type_ids": np.zeros_like(ids)}
+
+        return TextTokenizer(encode, max(self.vocab_size, bos_id + 1), pad,
+                             self.backend)
+
     def __call__(self, texts: Sequence[str], max_length: int = 128
                  ) -> Dict[str, np.ndarray]:
         return self._encode(texts, max_length)

@@ -15,12 +15,24 @@ as they are. What remains:
   with the original FB repo's names (``downsample_layers.{i}``,
   ``stages.{s}.{b}.{dwconv,pwconv1,pwconv2}``, ``norm``), as timm names
   for a ``ConvNeXt`` of ``config``; the classifier is dropped.
+* ``deepseek_v2_state_from_hf``: a published DeepSeek-V2 checkpoint's
+  state_dict (``model.layers.{i}.mlp.experts.{e}.gate_proj.weight``, ...)
+  for a ``DeepseekV2Tower``: the ``model.`` prefix dropped, each MoE
+  layer's routed experts stacked into ``mlp.experts.gate_up`` and
+  ``mlp.experts.down``, the output head (``lm_head``) dropped;
+  ``deepseek_v2_state_to_hf`` is its inverse, and
+  ``load_deepseek_v2_checkpoint`` reads a checkpoint directory
+  (``config.json`` and ``*.safetensors`` or ``pytorch_model*.bin``).
 
-Both take tensors or numpy arrays and return f32 tensors.
+The first two take tensors or numpy arrays and return f32 tensors; the
+DeepSeek pair keeps each tensor's dtype.
 """
 
 from __future__ import annotations
 
+import glob
+import json
+import os
 from typing import Dict, Mapping
 
 import numpy as np
@@ -143,3 +155,75 @@ def convnext_state_from_timm(state_dict: Mapping, config
             if config.ls_init:
                 out[f"{t}.gamma"] = get(f"{t}.gamma", f"{fb}.gamma")
     return {k: _t(v) for k, v in out.items()}
+
+
+_EXPERT = "mlp.experts."
+
+
+def deepseek_v2_state_from_hf(state_dict: Mapping, config
+                              ) -> Dict[str, torch.Tensor]:
+    """A published DeepSeek-V2 state_dict -> a ``DeepseekV2Tower`` of
+    ``config`` (a ``DeepseekV2Config``); a part of one (some layers)
+    gives those layers' part."""
+    sd = {k[len("model."):] if k.startswith("model.") else k: v
+          for k, v in state_dict.items() if not k.startswith("lm_head.")}
+    out = {k: v for k, v in sd.items() if _EXPERT not in k}
+    E = config.n_routed_experts
+    moe_layers = sorted({k.split(".")[1] for k in sd if _EXPERT in k},
+                        key=int)
+    for i in moe_layers:
+        p = f"layers.{i}.{_EXPERT}"
+        proj = {name: [sd[f"{p}{e}.{name}.weight"] for e in range(E)]
+                for name in ("gate_proj", "up_proj", "down_proj")}
+        out[p + "gate_up"] = torch.stack(
+            [torch.cat([g, u]) for g, u in zip(proj["gate_proj"],
+                                              proj["up_proj"])])
+        out[p + "down"] = torch.stack(proj["down_proj"])
+    return out
+
+
+def deepseek_v2_state_to_hf(state_dict: Mapping, config
+                            ) -> Dict[str, torch.Tensor]:
+    """A ``DeepseekV2Tower``'s state_dict under the published names
+    (``deepseek_v2_state_from_hf``'s inverse; no output head)."""
+    inter = config.moe_intermediate_size
+    out = {}
+    for k, v in state_dict.items():
+        if _EXPERT not in k:
+            out["model." + k] = v
+            continue
+        p, part = k.rsplit(".", 1)
+        for e in range(v.shape[0]):
+            q = f"model.{p}.{e}."
+            if part == "gate_up":
+                out[q + "gate_proj.weight"] = v[e, :inter]
+                out[q + "up_proj.weight"] = v[e, inter:]
+            else:
+                out[q + "down_proj.weight"] = v[e]
+    return out
+
+
+def load_deepseek_v2_checkpoint(path: str):
+    """(``DeepseekV2Config``, the tower's state_dict) of a published
+    checkpoint directory: ``config.json`` and its ``*.safetensors``
+    shards (read with the ``safetensors`` package) or, without them,
+    ``pytorch_model*.bin``."""
+    from multimodalsimilar_tpu_torch.models.deepseek_v2 import (
+        DeepseekV2Config)
+    with open(os.path.join(path, "config.json"), encoding="utf-8") as f:
+        config = DeepseekV2Config.from_hf(json.load(f))
+    state: Dict[str, torch.Tensor] = {}
+    shards = sorted(glob.glob(os.path.join(path, "*.safetensors")))
+    if shards:
+        from safetensors.torch import load_file
+        for shard in shards:
+            state.update(load_file(shard))
+    else:
+        shards = sorted(glob.glob(os.path.join(path, "pytorch_model*.bin")))
+        for shard in shards:
+            state.update(torch.load(shard, map_location="cpu",
+                                    weights_only=True))
+    if not shards:
+        raise FileNotFoundError(f"{path}: no *.safetensors or "
+                                f"pytorch_model*.bin weights")
+    return config, deepseek_v2_state_from_hf(state, config)

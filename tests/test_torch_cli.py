@@ -104,11 +104,23 @@ def _actions(parser, path=()):
     return out
 
 
+# the subcommands that take the text embedder's flags, and with them the
+# port's own flags (``cli/parser.py:PORT_ONLY``)
+TEXT_EMBEDDER = {("similar", "nlp"), ("embed", "incremental"),
+                 ("embed", "bulk")}
+
+
 def test_parser_has_every_jax_subcommand_and_flag():
+    """Every JAX subcommand, flag and default, and beside them only the
+    port's own ``PORT_ONLY`` flags, on the text embedder's subcommands,
+    at defaults that run the JAX command."""
     want, got = _actions(jcli.build_parser()), _actions(cli.build_parser())
     assert set(got) == set(want) and len(want) == 20
     for path in want:
-        assert got[path] == want[path], path
+        acts = dict(got[path][0])
+        own = {d: acts.pop(d)[2] for d in P.PORT_ONLY if d in acts}
+        assert own == (P.PORT_ONLY if path in TEXT_EMBEDDER else {}), path
+        assert (acts, got[path][1]) == want[path], path
 
 
 def _namespace(build, inject, apply, argv):
@@ -125,9 +137,14 @@ def _jax_namespace(argv):
 
 
 def _port_namespace(argv):
+    """The port's namespace without its own flags, each at its default
+    (``cli/parser.py:PORT_ONLY``)."""
     from multimodalsimilar_tpu_torch.cli.common import _apply_yaml_config
-    return _namespace(cli.build_parser, P._inject_yaml_argv,
-                      _apply_yaml_config, argv)
+    ns = _namespace(cli.build_parser, P._inject_yaml_argv,
+                    _apply_yaml_config, argv)
+    own = {d: ns.pop(d) for d in P.PORT_ONLY if d in ns}
+    assert own in ({}, P.PORT_ONLY), own
+    return ns
 
 
 @pytest.mark.parametrize("fname", sorted(CASES))

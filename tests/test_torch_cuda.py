@@ -80,6 +80,92 @@ def test_kernel_matches_plain_on_unit_rows(dev, metric, q, n, d, k):
     assert not ((gi != pi[:, :k]) & sep).any()
 
 
+@pytest.mark.parametrize("metric", ["ip", "l2"])
+@pytest.mark.parametrize("q,n,k", [(1, 20_000, 13), (4096, 20_000, 13)],
+                         ids=["q1", "q4096"])
+def test_kernel_at_the_deepseek_tower_width(dev, metric, q, n, k):
+    """D = 2,048, the DeepSeek-V2 tower's embeddings (wider than any
+    search before it): small-integer rows exactly, as above, and unit
+    rows within the tolerances above."""
+    rng = np.random.default_rng(q + n)
+    corpus = _ints(rng, (n, 2048), dev)
+    corpus[100:200] = corpus[:100]
+    queries = _ints(rng, (q, 2048), dev)
+    got = T.topk_cuda(corpus, queries, k, metric, true_n=n - 7)
+    want = T.topk_plain(corpus, queries, k, metric, true_n=n - 7)
+    torch.cuda.synchronize()
+    assert torch.equal(got[1], want[1]) and torch.equal(got[0], want[0])
+    corpus = corpus / corpus.norm(dim=1, keepdim=True)
+    queries = queries / queries.norm(dim=1, keepdim=True)
+    gv, gi = T.topk_cuda(corpus, queries, k, metric)
+    pv, pi = T.topk_plain(corpus, queries, k + 1, metric)
+    torch.cuda.synchronize()
+    assert torch.allclose(gv, pv[:, :k], atol=1e-4, rtol=1e-5)
+    gap = (pv[:, 1:] - pv[:, :-1]).abs()
+    inf = torch.full((q, 1), float("inf"), device=dev)
+    sep = (torch.cat([inf, gap], 1)[:, :k] > 1e-5) & (gap[:, :k] > 1e-5)
+    assert not ((gi != pi[:, :k]) & sep).any()
+
+
+def test_grouped_experts_match_the_plain_loop(dev):
+    """``ops/moe.py`` on the card (``torch._grouped_mm``) against its CPU
+    loop over the experts on the same routing, bfloat16 operands,
+    experts 12-15 with no row: within bf16's rounding of the outputs."""
+    from multimodalsimilar_tpu_torch.ops import moe
+    g = torch.Generator().manual_seed(0)
+    T_, H, inter, E, k = 300, 256, 128, 16, 6
+    x = torch.randn(T_, H, generator=g).bfloat16()
+    x[:, 0] = 1.0
+    gate = torch.randn(E, H, generator=g)
+    gate[12:, 0] = -1e3
+    gate_up = (torch.randn(E, 2 * inter, H, generator=g) / 16).bfloat16()
+    down = (torch.randn(E, H, inter, generator=g) / 11).bfloat16()
+    w, e = moe.route(x, gate, k)
+    assert int(e.max()) < 12
+    out = {}
+    for d in ("cpu", dev):
+        p = moe.plan(e.to(d), E)
+        out[str(d)] = (moe.combine(moe.grouped_mlp(
+            x.to(d), p, gate_up.to(d), down.to(d)), p, w.to(d)).float().cpu(),
+            p.ends.cpu())
+    (got, ends), (want, ends_cpu) = out[str(dev)], out["cpu"]
+    assert torch.equal(ends, ends_cpu) and int(ends[11]) == int(ends[-1])
+    assert torch.allclose(got, want, atol=0.02 * float(want.abs().max()),
+                          rtol=0.02)
+
+
+def test_deepseek_tower_does_not_synchronise(dev):
+    """A tiny DeepSeek-V2 tower's call in bfloat16 on the card: no
+    stream synchronisation (``torch.cuda.set_sync_debug_mode``) after the
+    first call of a length, and two grouped launches a MoE layer."""
+    import warnings
+
+    from multimodalsimilar_tpu_torch.models.deepseek_v2 import (
+        DeepseekV2Config, DeepseekV2Tower)
+    from multimodalsimilar_tpu_torch.utils import profiling
+    cfg = DeepseekV2Config.tiny()
+    with torch.device(dev):
+        tower = DeepseekV2Tower(
+            cfg, generator=torch.Generator(device=dev).manual_seed(0))
+    ids = torch.randint(0, 400, (8, 19), device=dev)
+    mask = torch.ones_like(ids)
+    with torch.no_grad():
+        tower.predict_emb(ids, mask)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with warnings.catch_warnings(record=True) as caught, \
+                    profiling.recording() as rec:
+                warnings.simplefilter("always")
+                tower.predict_emb(ids, mask)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    syncs = [w for w in caught if "synchroniz" in str(w.message)]
+    assert not syncs, [str(w.message) for w in syncs]
+    layers = cfg.num_hidden_layers - cfg.first_k_dense_replace
+    assert rec.counters["moe.launches"] == layers
+
+
 def test_kernel_counts_launches_and_validates(dev):
     x = torch.randn(300, 40, device=dev)
     before = T.LAUNCHES["topk"]
